@@ -1,0 +1,274 @@
+"""Exact geometry predicates (host, numpy, float64).
+
+Used for approximation construction (PiP labeling) and as the correctness
+oracle of refinement. Polygons are stored padded: ``verts`` has shape
+[P, V, 2] and ``nverts`` [P]; vertices at index >= nverts[p] are ignored.
+Rings are implicitly closed (edge from vertex nverts-1 back to vertex 0).
+Vertex order may be CW or CCW.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+__all__ = [
+    "size_buckets", "polygon_edges", "polygon_mbrs", "points_in_polygon",
+    "points_on_polygon_boundary", "points_in_polygon_closed",
+    "points_in_polygons_batch", "points_in_polygon_rows",
+    "representative_points", "segments_intersect", "polygons_intersect",
+]
+
+
+def size_buckets(sizes: np.ndarray, chunk_elems: int = 1 << 22):
+    """Yield index chunks grouped by power-of-two size class (padding waste
+    <= 2x), each chunk's padded element count bounded by ``chunk_elems``.
+    Zero-size rows are skipped."""
+    sizes = np.asarray(sizes, np.int64)
+    nz = np.nonzero(sizes > 0)[0]
+    if len(nz) == 0:
+        return
+    cls = np.ceil(np.log2(sizes[nz].astype(np.float64))).astype(np.int64)
+    for c in np.unique(cls):
+        sel = nz[cls == c]
+        L = int(sizes[sel].max())
+        rows = max(1, int(chunk_elems // max(1, L)))
+        for r0 in range(0, len(sel), rows):
+            yield sel[r0: r0 + rows]
+
+
+def polygon_edges(verts: np.ndarray, nverts: np.ndarray):
+    """Return (starts [P,V,2], ends [P,V,2], mask [P,V]) of polygon edges.
+
+    Edge i runs from vertex i to vertex (i+1) mod nverts. Padded slots are
+    masked out and their coordinates degenerate to the first vertex.
+    """
+    verts = np.asarray(verts, dtype=np.float64)
+    nverts = np.asarray(nverts, dtype=np.int64)
+    P, V, _ = verts.shape
+    idx = np.arange(V)[None, :]                       # [1,V]
+    valid = idx < nverts[:, None]                     # [P,V]
+    nxt = (idx + 1) % np.maximum(nverts[:, None], 1)  # wrap within ring
+    nxt = np.where(valid, nxt, 0)
+    starts = np.where(valid[..., None], verts, verts[:, :1, :])
+    ends = np.take_along_axis(verts, nxt[..., None].repeat(2, axis=-1), axis=1)
+    ends = np.where(valid[..., None], ends, verts[:, :1, :])
+    return starts, ends, valid
+
+
+def polygon_mbrs(verts: np.ndarray, nverts: np.ndarray) -> np.ndarray:
+    """[P,4] = (xmin, ymin, xmax, ymax) per polygon, ignoring padding."""
+    verts = np.asarray(verts, dtype=np.float64)
+    nverts = np.asarray(nverts, dtype=np.int64)
+    P, V, _ = verts.shape
+    valid = (np.arange(V)[None, :] < nverts[:, None])[..., None]
+    lo = np.where(valid, verts, np.inf).min(axis=1)
+    hi = np.where(valid, verts, -np.inf).max(axis=1)
+    return np.concatenate([lo, hi], axis=1)
+
+
+def points_in_polygon(points: np.ndarray, verts: np.ndarray,
+                      n: int | None = None) -> np.ndarray:
+    """Crossing-number test for many points against ONE polygon.
+
+    points: [M,2]; verts: [V,2] (optionally padded, pass n). Returns [M] bool.
+    """
+    points = np.asarray(points, dtype=np.float64)
+    verts = np.asarray(verts, dtype=np.float64)
+    if n is not None:
+        verts = verts[: int(n)]
+    x, y = points[:, 0][:, None], points[:, 1][:, None]       # [M,1]
+    x0, y0 = verts[:, 0][None, :], verts[:, 1][None, :]       # [1,V]
+    x1, y1 = np.roll(verts[:, 0], -1)[None, :], np.roll(verts[:, 1], -1)[None, :]
+    cond = (y0 <= y) != (y1 <= y)                             # [M,V]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = (y - y0) / np.where(y1 == y0, 1.0, y1 - y0)
+    xint = x0 + t * (x1 - x0)
+    crossings = np.sum(cond & (xint > x), axis=1)
+    return (crossings % 2) == 1
+
+
+def points_on_polygon_boundary(
+    points: np.ndarray, verts: np.ndarray, n: int | None = None
+) -> np.ndarray:
+    """Exact on-boundary test: point collinear with an edge and inside its
+    bounding box. points: [M,2]; verts: [V,2]. Returns [M] bool."""
+    points = np.asarray(points, dtype=np.float64)
+    verts = np.asarray(verts, dtype=np.float64)
+    if n is not None:
+        verts = verts[: int(n)]
+    x, y = points[:, 0][:, None], points[:, 1][:, None]       # [M,1]
+    x0, y0 = verts[:, 0][None, :], verts[:, 1][None, :]       # [1,V]
+    x1, y1 = np.roll(verts[:, 0], -1)[None, :], np.roll(verts[:, 1], -1)[None, :]
+    d = _orient(x0, y0, x1, y1, x, y)
+    on = ((d == 0)
+          & (np.minimum(x0, x1) <= x) & (x <= np.maximum(x0, x1))
+          & (np.minimum(y0, y1) <= y) & (y <= np.maximum(y0, y1)))
+    return on.any(axis=1)
+
+
+def points_in_polygon_closed(
+    points: np.ndarray, verts: np.ndarray, n: int | None = None
+) -> np.ndarray:
+    """Closed-region PiP: inside by crossing parity OR exactly on the
+    boundary (touching counts)."""
+    return (points_in_polygon(points, verts, n)
+            | points_on_polygon_boundary(points, verts, n))
+
+
+def representative_points(verts: np.ndarray, nverts: np.ndarray) -> np.ndarray:
+    """One guaranteed-interior point per simple polygon. [P,V,2]/[P] -> [P,2].
+
+    O'Rourke's diagonal construction: let b be the extreme vertex along a
+    generic direction with ring neighbours a and c. If no other vertex lies
+    in the closed triangle (a,b,c), its centroid is interior; otherwise the
+    midpoint of b and the in-triangle vertex farthest from line (a,c) is the
+    midpoint of a polygon diagonal, hence interior. Degenerate rings fall
+    back to vertex b.
+    """
+    verts = np.asarray(verts, np.float64)
+    nverts = np.asarray(nverts, np.int64)
+    P, V, _ = verts.shape
+    if P == 0:
+        return np.zeros((0, 2), np.float64)
+    idx = np.arange(V)[None, :]
+    valid = idx < nverts[:, None]
+    rows = np.arange(P)
+    key = np.where(valid,
+                   verts[..., 0] + 0.5609840165894135 * verts[..., 1], np.inf)
+    b = np.argmin(key, axis=1)
+    n = np.maximum(nverts, 1)
+    a = (b - 1) % n
+    c = (b + 1) % n
+    pa, pb, pc = verts[rows, a], verts[rows, b], verts[rows, c]
+    s = _orient(pa[:, 0], pa[:, 1], pb[:, 0], pb[:, 1], pc[:, 0], pc[:, 1])
+    sgn = np.where(s >= 0, 1.0, -1.0)[:, None]
+    wx, wy = verts[..., 0], verts[..., 1]
+
+    def tri(p, q):
+        return _orient(p[:, None, 0], p[:, None, 1],
+                       q[:, None, 0], q[:, None, 1], wx, wy)
+
+    in_tri = ((sgn * tri(pa, pb) >= 0) & (sgn * tri(pb, pc) >= 0)
+              & (sgn * tri(pc, pa) >= 0) & valid
+              & (idx != a[:, None]) & (idx != b[:, None]) & (idx != c[:, None]))
+    dist = np.where(in_tri, np.abs(tri(pa, pc)), -1.0)
+    q = np.argmax(dist, axis=1)
+    pq = verts[rows, q]
+    has_q = dist[rows, q] > 0
+    rep = np.where(has_q[:, None], (pb + pq) / 2.0, (pa + pb + pc) / 3.0)
+    ok = (nverts >= 3) & (s != 0)
+    # self-check: near-degenerate rings can defeat the construction
+    ok &= points_in_polygons_batch(rep[:, None, :], verts, nverts)[:, 0]
+    return np.where(ok[:, None], rep, pb)
+
+
+def points_in_polygons_batch(
+    points: np.ndarray, verts: np.ndarray, nverts: np.ndarray
+) -> np.ndarray:
+    """PiP for per-polygon points. points: [P,M,2]; polygons padded [P,V,2].
+    Returns [P,M] bool."""
+    points = np.asarray(points, dtype=np.float64)
+    starts, ends, mask = polygon_edges(verts, nverts)
+    x, y = points[..., 0][:, :, None], points[..., 1][:, :, None]   # [P,M,1]
+    x0, y0 = starts[..., 0][:, None, :], starts[..., 1][:, None, :]  # [P,1,V]
+    x1, y1 = ends[..., 0][:, None, :], ends[..., 1][:, None, :]
+    cond = (y0 <= y) != (y1 <= y)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = (y - y0) / np.where(y1 == y0, 1.0, y1 - y0)
+    xint = x0 + t * (x1 - x0)
+    cross = cond & (xint > x) & mask[:, None, :]
+    return (np.sum(cross, axis=2) % 2) == 1
+
+
+def points_in_polygon_rows(
+    points: np.ndarray, poly_of_point: np.ndarray,
+    verts: np.ndarray, nverts: np.ndarray, chunk_elems: int = 1 << 22,
+) -> np.ndarray:
+    """Crossing-number test where every point tests against its OWN polygon.
+
+    points: [M,2]; poly_of_point: [M] indices into the padded polygon arrays.
+    Returns [M] bool; row-identical to :func:`points_in_polygon`.
+    """
+    points = np.asarray(points, dtype=np.float64)
+    poly_of_point = np.asarray(poly_of_point, np.int64)
+    starts, ends, mask = polygon_edges(verts, nverts)
+    M = len(points)
+    V = starts.shape[1]
+    out = np.zeros(M, dtype=bool)
+    step = max(1, int(chunk_elems // max(1, V)))
+    for i0 in range(0, M, step):
+        sl = slice(i0, min(M, i0 + step))
+        p = poly_of_point[sl]
+        x = points[sl, 0][:, None]
+        y = points[sl, 1][:, None]
+        x0, y0 = starts[p, :, 0], starts[p, :, 1]
+        x1, y1 = ends[p, :, 0], ends[p, :, 1]
+        cond = (y0 <= y) != (y1 <= y)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            t = (y - y0) / np.where(y1 == y0, 1.0, y1 - y0)
+        xint = x0 + t * (x1 - x0)
+        cross = cond & (xint > x) & mask[p]
+        out[sl] = (np.sum(cross, axis=1) % 2) == 1
+    return out
+
+
+def _orient(ax, ay, bx, by, cx, cy):
+    """Signed orientation of triangle (a,b,c): >0 ccw, <0 cw, 0 collinear."""
+    return (bx - ax) * (cy - ay) - (by - ay) * (cx - ax)
+
+
+def segments_intersect(a0, a1, b0, b1) -> np.ndarray:
+    """Proper/improper segment intersection test, broadcastable.
+
+    a0,a1,b0,b1: [...,2]. Returns bool array of the broadcast shape.
+    Handles collinear-overlap via on-segment checks.
+    """
+    a0 = np.asarray(a0, np.float64); a1 = np.asarray(a1, np.float64)
+    b0 = np.asarray(b0, np.float64); b1 = np.asarray(b1, np.float64)
+    d1 = _orient(b0[..., 0], b0[..., 1], b1[..., 0], b1[..., 1], a0[..., 0], a0[..., 1])
+    d2 = _orient(b0[..., 0], b0[..., 1], b1[..., 0], b1[..., 1], a1[..., 0], a1[..., 1])
+    d3 = _orient(a0[..., 0], a0[..., 1], a1[..., 0], a1[..., 1], b0[..., 0], b0[..., 1])
+    d4 = _orient(a0[..., 0], a0[..., 1], a1[..., 0], a1[..., 1], b1[..., 0], b1[..., 1])
+    proper = ((d1 > 0) != (d2 > 0)) & ((d3 > 0) != (d4 > 0)) \
+        & (d1 != 0) & (d2 != 0) & (d3 != 0) & (d4 != 0)
+
+    def on_seg(px, py, qx, qy, rx, ry):
+        # r collinear with pq assumed; is r within the pq bounding box?
+        return (
+            (np.minimum(px, qx) <= rx) & (rx <= np.maximum(px, qx))
+            & (np.minimum(py, qy) <= ry) & (ry <= np.maximum(py, qy))
+        )
+
+    touch = (
+        ((d1 == 0) & on_seg(b0[..., 0], b0[..., 1], b1[..., 0], b1[..., 1], a0[..., 0], a0[..., 1]))
+        | ((d2 == 0) & on_seg(b0[..., 0], b0[..., 1], b1[..., 0], b1[..., 1], a1[..., 0], a1[..., 1]))
+        | ((d3 == 0) & on_seg(a0[..., 0], a0[..., 1], a1[..., 0], a1[..., 1], b0[..., 0], b0[..., 1]))
+        | ((d4 == 0) & on_seg(a0[..., 0], a0[..., 1], a1[..., 0], a1[..., 1], b1[..., 0], b1[..., 1]))
+    )
+    return proper | touch
+
+
+def polygons_intersect(
+    verts_a: np.ndarray, na: int, verts_b: np.ndarray, nb: int
+) -> bool:
+    """Exact polygon-polygon intersection (the refinement oracle).
+
+    True iff boundaries cross, or one polygon contains the other.
+    """
+    va = np.asarray(verts_a, np.float64)[: int(na)]
+    vb = np.asarray(verts_b, np.float64)[: int(nb)]
+    a0 = va; a1 = np.roll(va, -1, axis=0)
+    b0 = vb; b1 = np.roll(vb, -1, axis=0)
+    hit = segments_intersect(
+        a0[:, None, :], a1[:, None, :], b0[None, :, :], b1[None, :, :]
+    )
+    if bool(hit.any()):
+        return True
+    # containment: representative interior points, closed-region classified
+    # (a raw vertex can sit numerically on the other boundary)
+    ra = representative_points(va[None], np.asarray([len(va)]))[0]
+    rb = representative_points(vb[None], np.asarray([len(vb)]))[0]
+    if bool(points_in_polygon_closed(ra[None], vb)[0]):
+        return True
+    if bool(points_in_polygon_closed(rb[None], va)[0]):
+        return True
+    return False

@@ -1,0 +1,96 @@
+"""Reproducible synthetic polygon datasets.
+
+Seeded star-shaped rings in the unit square whose statistics mirror the
+paper's TIGER/OSM layers (cardinality ratios, vertex counts, MBR areas).
+For a given ``(name, seed, count)`` the arrays are bit-identical to the
+reference package's generator.
+"""
+from __future__ import annotations
+
+import zlib
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ..core import geometry
+
+__all__ = ["PolygonDataset", "make_dataset", "DATASET_SPECS"]
+
+
+@dataclass
+class PolygonDataset:
+    """Padded polygon collection."""
+    name: str
+    verts: np.ndarray        # [P, Vmax, 2] float64
+    nverts: np.ndarray       # [P] int64
+    mbrs: np.ndarray = field(init=False)  # [P, 4]
+
+    def __post_init__(self):
+        self.mbrs = geometry.polygon_mbrs(self.verts, self.nverts)
+
+    def __len__(self) -> int:
+        return len(self.nverts)
+
+    def polygon(self, i: int) -> np.ndarray:
+        return self.verts[i, : self.nverts[i]]
+
+
+# name -> (count, avg_vertices, avg_radius, radius_jitter)
+DATASET_SPECS: dict[str, tuple[int, int, float, float]] = {
+    "T1":  (1200, 24, 0.0045, 0.5),    # landmarks: medium-small
+    "T2":  (4000, 30, 0.0022, 0.5),    # water: many small simple
+    "T3":  (64, 220, 0.085, 0.35),     # counties: few large complex
+    "T9":  (12, 380, 0.28, 0.25),      # states: very few, huge
+    "T10": (300, 90, 0.030, 0.4),      # zip codes
+    "O5":  (1500, 40, 0.0065, 0.5),    # OSM lakes-like
+    "O6":  (2500, 36, 0.0050, 0.5),    # OSM parks-like
+}
+
+
+def _star_polygon(rng: np.random.Generator, center, radius, nv, jitter):
+    """Simple star-shaped ring: sorted angles + jittered radii."""
+    angles = np.sort(rng.uniform(0.0, 2 * np.pi, size=nv))
+    # Avoid near-duplicate angles (degenerate edges)
+    angles += np.linspace(0, 1e-4, nv)
+    radii = radius * (1.0 + jitter * rng.uniform(-1.0, 1.0, size=nv))
+    radii = np.maximum(radii, 0.15 * radius)
+    pts = np.stack([
+        center[0] + radii * np.cos(angles),
+        center[1] + radii * np.sin(angles),
+    ], axis=1)
+    return np.clip(pts, 1e-6, 1.0 - 1e-6)
+
+
+def make_dataset(
+    name: str, seed: int = 0, count: int | None = None,
+    avg_vertices: int | None = None, avg_radius: float | None = None,
+    map_seed: int = 0,
+) -> PolygonDataset:
+    """Build a seeded dataset. ``name`` picks a spec from DATASET_SPECS
+    (unknown names get default medium stats); overrides are optional.
+    ``map_seed`` fixes the shared cluster centers, so layers built over the
+    same map co-locate."""
+    spec = DATASET_SPECS.get(name, (1000, 30, 0.005, 0.5))
+    cnt = count if count is not None else spec[0]
+    nv_avg = avg_vertices if avg_vertices is not None else spec[1]
+    rad = avg_radius if avg_radius is not None else spec[2]
+    jitter = spec[3]
+    rng = np.random.default_rng(zlib.crc32(f"{name}:{seed}".encode()))
+
+    nvs = np.clip(
+        rng.poisson(nv_avg, size=cnt), 4, None
+    ).astype(np.int64)
+    vmax = int(nvs.max())
+    verts = np.zeros((cnt, vmax, 2), dtype=np.float64)
+    map_rng = np.random.default_rng(map_seed)
+    n_clusters = 16
+    cl_centers = map_rng.uniform(0.1, 0.9, size=(n_clusters, 2))
+    cl_idx = rng.integers(0, n_clusters, size=cnt)
+    for i in range(cnt):
+        r = rad * np.exp(rng.normal(0.0, 0.45))
+        spread = max(0.008, 2.5 * rad)
+        c = np.clip(cl_centers[cl_idx[i]] + rng.normal(0, spread, 2),
+                    r + 1e-4, 1 - r - 1e-4)
+        pts = _star_polygon(rng, c, r, int(nvs[i]), jitter)
+        verts[i, : nvs[i]] = pts
+    return PolygonDataset(name=name, verts=verts, nverts=nvs)

@@ -1,0 +1,32 @@
+"""Device selection shared by the port's entry points.
+
+Entry points run on the card unless the caller asks for the CPU: ``None``
+means ``"cuda"``, and a missing GPU raises instead of carrying on on the
+host. The ``"cuda"`` backends launch hand-written kernels and need a CUDA
+device; the ``"torch"`` backends run the kernels' plain PyTorch versions on
+whatever device they are given.
+"""
+from __future__ import annotations
+
+import torch
+
+__all__ = ["resolve_device", "check_backend_device"]
+
+
+def resolve_device(device=None) -> torch.device:
+    """``torch.device`` for ``device`` (``None`` -> ``"cuda"``); raises
+    ``RuntimeError`` when CUDA is asked for and no GPU is present."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "plain PyTorch versions of the kernels on the host")
+    return dev
+
+
+def check_backend_device(backend: str, dev: torch.device) -> None:
+    """A ``"cuda"`` backend on a non-CUDA device raises ``ValueError``."""
+    if backend == "cuda" and dev.type != "cuda":
+        raise ValueError(
+            f"backend 'cuda' launches CUDA kernels and needs a CUDA device, "
+            f"got device={str(dev)!r}; use backend 'torch' on the CPU")

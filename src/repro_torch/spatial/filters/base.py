@@ -1,0 +1,126 @@
+"""The `IntermediateFilter` protocol and the port's own filter registry.
+
+* :class:`Approximation` — a built, reusable, sizeable store for one
+  dataset.
+* :class:`IntermediateFilter` — ``build`` produces an Approximation;
+  ``verdicts`` classifies a candidate batch into the paper's trichotomy
+  (TRUE_NEG / TRUE_HIT / INDECISIVE); ``verdicts_seq`` is the per-pair
+  reference the batched path must equal.
+* a name-based registry. It is separate from the reference package's, so
+  registering a filter here changes nothing there.
+"""
+from __future__ import annotations
+
+import abc
+from dataclasses import dataclass, field
+
+import numpy as np
+
+from ...core.join import FILTER_BACKENDS
+from ...core.rasterize import Extent, GLOBAL_EXTENT
+
+__all__ = ["PREDICATES", "FILTER_BACKENDS", "Approximation",
+           "IntermediateFilter", "register_filter", "get_filter",
+           "available_filters", "check_predicate"]
+
+PREDICATES = ("intersects", "within", "linestring", "selection")
+
+#: filters of the reference that this port does not cover yet
+_NOT_PORTED = {
+    "none": "ROADMAP A6 (the other filters)",
+    "april-c": "ROADMAP A6 (the other filters)",
+    "ri": "ROADMAP A6 (the RI filter with kernel B5)",
+    "ra": "ROADMAP A6 (the other filters)",
+    "5cch": "ROADMAP A6 (the other filters)",
+}
+
+
+def check_predicate(predicate: str) -> None:
+    """Only ``intersects`` is ported; the other predicates raise."""
+    if predicate in ("within", "linestring", "selection"):
+        raise NotImplementedError(
+            f"predicate {predicate!r} is not ported yet: ROADMAP A1-A3 "
+            "(within, linestring and selection predicates)")
+    if predicate not in PREDICATES:
+        raise ValueError(f"unknown predicate {predicate!r}; "
+                         f"expected one of {PREDICATES}")
+
+
+@dataclass
+class Approximation:
+    """A built intermediate-filter store for one dataset; ``meta`` holds
+    reusable caches (e.g. device-ready interval lists)."""
+    filter: str
+    store: object
+    n_order: int | None = None
+    extent: Extent | None = None
+    kind: str = "polygon"
+    meta: dict = field(default_factory=dict)
+
+    def size_bytes(self) -> int:
+        return int(self.store.size_bytes()) if self.store is not None else 0
+
+    def __len__(self) -> int:
+        return len(self.store) if self.store is not None else 0
+
+
+class IntermediateFilter(abc.ABC):
+    """One intermediate filter method."""
+
+    name: str = "?"
+
+    @abc.abstractmethod
+    def build(self, dataset, *, n_order: int = 10,
+              extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
+              side: str = "r", **opts) -> Approximation:
+        """Build the approximation store for ``dataset``."""
+
+    @abc.abstractmethod
+    def verdicts(self, approx_r: Approximation, approx_s: Approximation,
+                 pairs: np.ndarray, *, predicate: str = "intersects",
+                 backend: str = "numpy", device=None, **opts) -> np.ndarray:
+        """Batched verdicts [N] int8 for candidate ``pairs`` [N, 2]."""
+
+    def verdicts_seq(self, approx_r: Approximation, approx_s: Approximation,
+                     pairs: np.ndarray, *, predicate: str = "intersects",
+                     **opts) -> np.ndarray:
+        """Per-pair reference loop over :meth:`_verdict_one`."""
+        pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        check_predicate(predicate)
+        return np.asarray(
+            [self._verdict_one(approx_r, approx_s, int(i), int(j),
+                               predicate=predicate, **opts)
+             for i, j in pairs], np.int8).reshape(len(pairs))
+
+    def _verdict_one(self, approx_r, approx_s, i: int, j: int, *,
+                     predicate: str, **opts) -> int:
+        raise NotImplementedError
+
+
+_REGISTRY: dict[str, type[IntermediateFilter]] = {}
+
+
+def register_filter(name: str):
+    """Class decorator registering a filter under ``name``."""
+    def _do(c):
+        c.name = name
+        _REGISTRY[name] = c
+        return c
+    return _do
+
+
+def get_filter(name: str | IntermediateFilter) -> IntermediateFilter:
+    """Look up a registered filter by name; instances pass through."""
+    if isinstance(name, IntermediateFilter):
+        return name
+    if name in _REGISTRY:
+        return _REGISTRY[name]()
+    if name in _NOT_PORTED:
+        raise NotImplementedError(
+            f"filter {name!r} is not ported yet: {_NOT_PORTED[name]}")
+    raise ValueError(f"unknown intermediate filter {name!r}; "
+                     f"available: {sorted(_REGISTRY)}")
+
+
+def available_filters() -> tuple[str, ...]:
+    return tuple(sorted(_REGISTRY))

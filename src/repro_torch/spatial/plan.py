@@ -1,0 +1,220 @@
+"""`JoinPlan`: the session API of the spatial join, staged and static.
+
+    plan = JoinPlan(R, S, filter="april", n_order=12)     # device="cuda"
+    plan.build()                                          # APRIL stores
+    hits, stats = plan.execute("intersects")
+
+Execution runs the paper's stages dataset-batched: grid-hash MBR
+candidates on the host -> the APRIL trichotomy (``filter_backend``) ->
+exact refinement of the INDECISIVE rows (``refine_backend``). Results are
+``concat(pairs[TRUE_HIT], indecisive[refined])``, in the reference
+package's order. On a CUDA device both backends default to ``"cuda"``
+(the hand-written kernels); on the CPU to ``"torch"`` (their plain
+PyTorch versions). Backends change execution, never results.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass, field, fields
+
+import numpy as np
+
+from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG, check_filter_backend
+from ..core.rasterize import Extent, GLOBAL_EXTENT
+from ..device import check_backend_device, resolve_device
+from . import refine
+from .filters import Approximation, IntermediateFilter, get_filter
+from .filters.base import check_predicate
+from .mbr_join import check_mbr_backend, mbr_join
+
+__all__ = ["JoinStats", "JoinPlan"]
+
+
+@dataclass
+class JoinStats:
+    method: str
+    predicate: str = "intersects"
+    backend: str = "numpy"             # alias of filter_backend
+    filter_backend: str = "numpy"
+    refine_backend: str = "numpy"
+    mbr_backend: str = "numpy"
+    n_candidates: int = 0
+    n_true_hits: int = 0
+    n_true_negs: int = 0
+    n_indecisive: int = 0
+    n_results: int = 0
+    pipeline_mode: str = "staged"
+    plan_mode: str = "static"
+    tiles: int = 0
+    t_mbr: float = 0.0
+    t_filter: float = 0.0
+    t_refine: float = 0.0
+    t_sync: float = 0.0
+    t_build: float = 0.0
+    t_partition: float = 0.0
+    approx_bytes: int = 0
+    extra: dict = field(default_factory=dict)
+
+    @property
+    def t_total(self) -> float:
+        return self.t_mbr + self.t_filter + self.t_refine + self.t_sync
+
+    def to_dict(self) -> dict:
+        """JSON-safe dict of every field plus ``t_total``."""
+        out = {}
+        for f in fields(self):
+            v = getattr(self, f.name)
+            if isinstance(v, (np.integer, np.floating)):
+                v = v.item()
+            out[f.name] = dict(v) if f.name == "extra" else v
+        out["t_total"] = self.t_total
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "JoinStats":
+        names = {f.name for f in fields(cls)}
+        return cls(**{k: v for k, v in d.items() if k in names})
+
+
+class JoinPlan:
+    """A reusable two-dataset join session over one intermediate filter.
+
+    ``device`` (``None`` -> ``"cuda"``; raises without a GPU) is where the
+    filter and refinement run. ``filter_backend`` and ``refine_backend``
+    are ``"numpy" | "torch" | "cuda" | "sequential"``; ``"cuda"`` needs a
+    CUDA device. ``mbr_backend`` is ``"numpy" | "sequential"``;
+    ``build_opts`` go to ``filter.build`` and ``filter_opts`` (e.g.
+    ``order``) to every ``filter.verdicts`` call. Knobs of the reference
+    that this port does not cover yet raise ``NotImplementedError`` naming
+    their ROADMAP item.
+    """
+
+    def __init__(self, R, S, *, filter: str | IntermediateFilter = "april",
+                 filter_backend: str | None = None,
+                 refine_backend: str | None = None,
+                 mbr_backend: str = "numpy", n_order: int = 10,
+                 extent: Extent = GLOBAL_EXTENT, r_kind: str = "polygon",
+                 s_kind: str = "polygon", mbr_grid: int | None = None,
+                 mbr_index=None, pipeline_mode: str = "staged",
+                 plan_mode: str = "static",
+                 build_opts: dict | None = None,
+                 filter_opts: dict | None = None, device=None):
+        if pipeline_mode == "fused":
+            raise NotImplementedError(
+                "pipeline_mode='fused' is not ported yet: ROADMAP A4 "
+                "(the fused chain with kernel B3)")
+        if pipeline_mode != "staged":
+            raise ValueError(f"unknown pipeline mode {pipeline_mode!r}")
+        if plan_mode == "adaptive":
+            raise NotImplementedError(
+                "plan_mode='adaptive' is not ported yet: ROADMAP A8 "
+                "(orchestration)")
+        if plan_mode != "static":
+            raise ValueError(f"unknown plan mode {plan_mode!r}")
+        if mbr_index is not None:
+            raise NotImplementedError(
+                "mbr_index is not ported yet: ROADMAP A8 (orchestration)")
+        if "line" in (r_kind, s_kind):
+            raise NotImplementedError(
+                "line datasets are not ported yet: ROADMAP A1-A3 (the "
+                "linestring predicate)")
+        self.device = resolve_device(device)
+        default = "cuda" if self.device.type == "cuda" else "torch"
+        filter_backend = filter_backend or default
+        refine_backend = refine_backend or default
+        check_filter_backend(filter_backend)
+        refine.check_refine_backend(refine_backend)
+        check_mbr_backend(mbr_backend)
+        check_backend_device(filter_backend, self.device)
+        check_backend_device(refine_backend, self.device)
+        self.R = R
+        self.S = S
+        self.filter = get_filter(filter)
+        self.filter_backend = filter_backend
+        self.refine_backend = refine_backend
+        self.mbr_backend = mbr_backend
+        self.n_order = n_order
+        self.extent = extent
+        self.r_kind = r_kind
+        self.s_kind = s_kind
+        self.mbr_grid = mbr_grid
+        self.pipeline_mode = pipeline_mode
+        self.plan_mode = plan_mode
+        self.build_opts = dict(build_opts or {})
+        self.filter_opts = dict(filter_opts or {})
+        self.approx_r: Approximation | None = None
+        self.approx_s: Approximation | None = None
+        self._t_build = 0.0
+        self.last_stats: JoinStats | None = None
+
+    def build(self, prebuilt: tuple | None = None) -> "JoinPlan":
+        """Build (or adopt) both approximations; idempotent. ``prebuilt``
+        may supply an (approx_r, approx_s) tuple, ``None`` entries meaning
+        "build this side"."""
+        pre_r = pre_s = None
+        if prebuilt is not None:
+            pre_r, pre_s = prebuilt
+        t0 = time.perf_counter()
+        if self.approx_r is None:
+            self.approx_r = pre_r if pre_r is not None else self.filter.build(
+                self.R, n_order=self.n_order, extent=self.extent,
+                kind=self.r_kind, side="r", **self.build_opts)
+        if self.approx_s is None:
+            self.approx_s = pre_s if pre_s is not None else self.filter.build(
+                self.S, n_order=self.n_order, extent=self.extent,
+                kind=self.s_kind, side="s", **self.build_opts)
+        self._t_build += time.perf_counter() - t0
+        return self
+
+    def candidates(self, predicate: str = "intersects") -> np.ndarray:
+        """Candidate pairs of the grid-hash MBR join, [N, 2] int64."""
+        check_predicate(predicate)
+        return mbr_join(self.R.mbrs, self.S.mbrs, grid=self.mbr_grid,
+                        backend=self.mbr_backend)
+
+    def execute(self, predicate: str = "intersects",
+                ) -> tuple[np.ndarray, JoinStats]:
+        """Run MBR -> filter -> refine; returns (result pairs [K,2], stats)."""
+        check_predicate(predicate)
+        if self.approx_r is None or self.approx_s is None:
+            self.build()
+        stats = JoinStats(method=self.filter.name, predicate=predicate,
+                          backend=self.filter_backend,
+                          filter_backend=self.filter_backend,
+                          refine_backend=self.refine_backend,
+                          mbr_backend=self.mbr_backend,
+                          pipeline_mode=self.pipeline_mode,
+                          plan_mode=self.plan_mode)
+        stats.t_build = self._t_build
+        stats.approx_bytes = (self.approx_r.size_bytes()
+                              + self.approx_s.size_bytes())
+
+        t0 = time.perf_counter()
+        pairs = self.candidates(predicate)
+        stats.t_mbr = time.perf_counter() - t0
+        stats.n_candidates = len(pairs)
+        if len(pairs) == 0:
+            self.last_stats = stats
+            return np.zeros((0, 2), np.int64), stats
+
+        t0 = time.perf_counter()
+        verdicts = self.filter.verdicts(
+            self.approx_r, self.approx_s, pairs, predicate=predicate,
+            backend=self.filter_backend, device=self.device,
+            **self.filter_opts)
+        stats.t_filter = time.perf_counter() - t0
+        stats.n_true_hits = int(np.sum(verdicts == TRUE_HIT))
+        stats.n_true_negs = int(np.sum(verdicts == TRUE_NEG))
+        stats.n_indecisive = int(np.sum(verdicts == INDECISIVE))
+
+        t0 = time.perf_counter()
+        indec = pairs[verdicts == INDECISIVE]
+        ref = refine.refine(self.R, self.S, indec, predicate=predicate,
+                            backend=self.refine_backend, device=self.device)
+        stats.t_refine = time.perf_counter() - t0
+
+        results = np.concatenate([pairs[verdicts == TRUE_HIT], indec[ref]],
+                                 axis=0)
+        stats.n_results = len(results)
+        self.last_stats = stats
+        return results, stats
