@@ -8,11 +8,11 @@ reference package. Phases, any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
 2. build every kernel from ``src/repro_torch/csrc`` (``build/kernels/``);
-3. hold each kernel against its plain PyTorch version on the card,
-   exactly: the trichotomy and overlap kernels on the first 65,536
-   candidate rows of the T1 x T2 join and on every row with a list wider
-   than 256 intervals, the edge sweep on every edge bucket of its
-   INDECISIVE rows;
+3. hold the filter kernels against their plain PyTorch versions on the
+   card, exactly: the trichotomy kernel, and the overlap kernel's AA join,
+   on the first 65,536 candidate rows of the T1 x T2 join and on every
+   row with a list wider than 256 intervals; the overlap kernel's AF and
+   FA joins on every AA survivor;
 4. the main path, ``JoinPlan(R, S, filter="april", n_order=12)
    .build().execute("intersects")`` on the card with both backends
    ``"cuda"``, once with the default join order and once with the
@@ -20,7 +20,9 @@ reference package. Phases, any failure exits non-zero:
    overlap kernel; launch counts are reset before and read after each run,
    and each run's pairs and their order must equal the port's own numpy
    backends, and a sample of candidates must agree with the float64
-   per-pair oracle;
+   per-pair oracle; the edge sweep's inputs are recorded in both runs
+   (``refine.record_sweeps``) and the kernel is held exactly against its
+   plain version on every recorded bucket;
 5. each main path once more under ``torch.profiler``: device time per
    kernel and the device busy share of the host wall time;
 6. each kernel timed at the main path's shapes with CUDA events beside
@@ -118,7 +120,6 @@ def main() -> int:
     import numpy as np
     from repro_torch import JoinPlan, make_dataset
     from repro_torch.core import geometry
-    from repro_torch.core.join import INDECISIVE
     from repro_torch.kernels import _build
     from repro_torch.kernels.interval_join import (
         april_trichotomy, april_trichotomy_plain, interval_overlap,
@@ -177,47 +178,24 @@ def main() -> int:
     torch.cuda.synchronize()
     if not torch.equal(got, want):
         raise AssertionError("april_trichotomy kernel != plain version")
-    got = interval_overlap(lists["xa"], lists["ya"], ri, si)
-    want = interval_overlap_plain(lists["xa"], lists["ya"], ri, si)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError("interval_overlap kernel != plain version")
+    # the overlap kernel on each list pairing a join order gives it: AA
+    # over the compared rows, AF and FA over every AA survivor
+    aa = interval_overlap_plain(lists["xa"], lists["ya"], ri_all, si_all)
+    ri_aa, si_aa = ri_all[aa], si_all[aa]
+    for x, y, rows in (("xa", "ya", (ri, si)), ("xa", "yf", (ri_aa, si_aa)),
+                       ("xf", "ya", (ri_aa, si_aa))):
+        got = interval_overlap(lists[x], lists[y], *rows)
+        want = interval_overlap_plain(lists[x], lists[y], *rows)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"interval_overlap kernel != plain version "
+                                 f"on {x} x {y}")
+    print(f"phase 3 ok: trichotomy and overlap kernels == plain versions; "
+          f"{len(ri_aa)} AA survivors", flush=True)
 
-    verdicts = april_trichotomy_plain(*tri, ri_all, si_all).cpu().numpy()
-    indec = cands[verdicts == INDECISIVE]
-    sweeps = []          # device inputs of every edge bucket of the path
-    couples = 0
-    nvr = R.nverts[indec[:, 0]]
-    nvs = S.nverts[indec[:, 1]]
-    sizes = np.maximum(nvr, 1) * np.maximum(nvs, 1)
-    for sel in geometry.size_buckets(sizes, refine_mod._CHUNK_ELEMS):
-        p = indec[sel]
-        a0, a1, am = geometry.polygon_edges(
-            R.verts[:, :int(nvr[sel].max())][p[:, 0]], nvr[sel])
-        b0, b1, bm = geometry.polygon_edges(
-            S.verts[:, :int(nvs[sel].max())][p[:, 1]], nvs[sel])
-        am = am & refine_mod._cmbr_mask(R.mbrs[p[:, 0]], S.mbrs[p[:, 1]],
-                                        a0, a1)
-        bm = bm & refine_mod._cmbr_mask(R.mbrs[p[:, 0]], S.mbrs[p[:, 1]],
-                                        b0, b1)
-        couples += int((am.sum(axis=1) * bm.sum(axis=1)).sum())
-        sweeps.append([torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-                       for x in (a0, a1, am, b0, b1, bm)])
-    n_diff = 0
-    for t in sweeps:
-        kh, ku = edges_intersect(*t)
-        ph, pu = edges_intersect_plain(*t)
-        n_diff += int((kh != ph).sum()) + int((ku != pu).sum())
-    torch.cuda.synchronize()
-    if n_diff:
-        raise AssertionError(f"edges_intersect kernel != plain version on "
-                             f"{n_diff} lanes")
-    print(f"phase 3 ok: kernels == plain versions; {len(indec)} INDECISIVE "
-          f"rows in {len(sweeps)} edge buckets", flush=True)
-
-    # 4. the main path, default order then the degenerate order
-    launches = {}
-    results = {}
+    # 4. the main path, default order then the degenerate order; the edge
+    # sweep's inputs are recorded from the path itself
+    launches, results, stats, sweeps = {}, {}, {}, {}
     for label, opts in (("default", {}),
                         ("degenerate", {"order": ("AA", "AF")})):
         for fn in (april_trichotomy, interval_overlap, edges_intersect):
@@ -226,7 +204,8 @@ def main() -> int:
         run = JoinPlan(R, S, filter="april", n_order=args.n_order,
                        filter_opts=opts).build(
             prebuilt=(plan.approx_r, plan.approx_s))
-        res, st = run.execute("intersects")
+        with refine_mod.record_sweeps() as sweeps[label]:
+            res, st = run.execute("intersects")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[label] = {fn.__name__: fn.launches for fn in
@@ -249,6 +228,7 @@ def main() -> int:
             if getattr(st, k) != getattr(rst, k):
                 raise AssertionError(f"[{label}] {k} differs")
         results[label] = res
+        stats[label] = st
     need = {"default": ("april_trichotomy", "edges_intersect"),
             "degenerate": ("interval_overlap", "edges_intersect")}
     for label, names in need.items():
@@ -272,8 +252,21 @@ def main() -> int:
         if exact != ((int(i), int(j)) in in_res):
             raise AssertionError(f"pair ({i}, {j}) disagrees with the "
                                  "float64 oracle")
+    # the edge sweep kernel against its plain version on every bucket the
+    # two main path runs gave it
+    n_diff = 0
+    for t in sweeps["default"] + sweeps["degenerate"]:
+        kh, ku = edges_intersect(*t)
+        ph, pu = edges_intersect_plain(*t)
+        n_diff += int((kh != ph).sum()) + int((ku != pu).sum())
+    torch.cuda.synchronize()
+    if n_diff:
+        raise AssertionError(f"edges_intersect kernel != plain version on "
+                             f"{n_diff} lanes")
     print(f"phase 4 ok: pairs and order == numpy path; {len(sample)} "
-          "sampled candidates == float64 oracle", flush=True)
+          "sampled candidates == float64 oracle; edge sweep kernel == plain "
+          f"version on {len(sweeps['default'])} + "
+          f"{len(sweeps['degenerate'])} recorded buckets", flush=True)
 
     # 5. where the device time of each main path goes
     for label, opts in (("default", {}),
@@ -292,14 +285,18 @@ def main() -> int:
     p_tri = april_trichotomy_plain(*tri, ri_all, si_all)
     k_ov = interval_overlap(lists["xa"], lists["ya"], ri_all, si_all)
     p_ov = interval_overlap_plain(lists["xa"], lists["ya"], ri_all, si_all)
+    sw = sweeps["default"]
     sweep_err = 0
-    for t in sweeps:
+    for t in sw:
         kh, ku = edges_intersect(*t)
         ph, pu = edges_intersect_plain(*t)
         sweep_err = max(sweep_err, int((kh != ph).sum() > 0),
                         int((ku != pu).sum() > 0))
+    # the couples of edges the CMBR masks keep, and the kernel's bytes:
+    # float32 endpoints and a mask byte per edge, two verdict bytes per row
+    couples = sum(int((t[2].sum(1) * t[5].sum(1)).sum()) for t in sw)
     sweep_bytes = sum(t[0].shape[0] * ((t[0].shape[1] + t[3].shape[1]) * 17
-                                       + 2) for t in sweeps)
+                                       + 2) for t in sw)
     timings = {
         "april_trichotomy": (
             _ms(lambda: april_trichotomy(*tri, ri_all, si_all)),
@@ -310,8 +307,8 @@ def main() -> int:
             _ms(lambda: interval_overlap_plain(lists["xa"], lists["ya"],
                                                ri_all, si_all))),
         "edges_intersect": (
-            _ms(lambda: [edges_intersect(*t) for t in sweeps]),
-            _ms(lambda: [edges_intersect_plain(*t) for t in sweeps])),
+            _ms(lambda: [edges_intersect(*t) for t in sw]),
+            _ms(lambda: [edges_intersect_plain(*t) for t in sw])),
     }
     bounds = {
         "april_trichotomy": (tri_bytes, 0),
@@ -350,7 +347,8 @@ def main() -> int:
     if any(k["max_abs_err"] for k in kernels):
         raise AssertionError("a kernel disagrees with its plain version at "
                              "the main path's shapes")
-    print(f"shapes: {rows} candidate rows, {len(indec)} INDECISIVE rows, "
+    print(f"shapes: {rows} candidate rows, "
+          f"{stats['default'].n_indecisive} INDECISIVE rows, "
           f"{couples} edge couples kept by the CMBR masks; reps {REPS}; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

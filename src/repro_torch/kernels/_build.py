@@ -56,10 +56,9 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all(extra_flags: tuple[str, ...] = ()) -> dict[str, float]:
+def build_all() -> dict[str, float]:
     """Compile every stale library in parallel; returns seconds per
-    library built (empty when all were current). ``extra_flags`` go to
-    every ``nvcc`` (e.g. ``("-Xptxas=-v",)`` to print register use)."""
+    library built (empty when all were current)."""
     todo = [n for n in SOURCES if not _lib_path(n).exists()]
     if not todo:
         return {}
@@ -71,8 +70,8 @@ def build_all(extra_flags: tuple[str, ...] = ()) -> dict[str, float]:
         src, flags = SOURCES[name]
         out = _lib_path(name)
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *_ARCH, *_COMMON, *flags, *extra_flags,
-               "-o", str(tmp), str(CSRC / src)]
+        cmd = [nvcc, *_ARCH, *_COMMON, *flags, "-o", str(tmp),
+               str(CSRC / src)]
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                         stderr=subprocess.STDOUT, text=True),
                        tmp, out)

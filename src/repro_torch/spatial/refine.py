@@ -18,6 +18,8 @@ Backends (``refine_backend`` on ``JoinPlan``):
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
@@ -26,8 +28,8 @@ from ..core.geometry import polygon_edges, segments_intersect, size_buckets
 from ..device import check_backend_device, resolve_device
 from ..kernels.refine import edges_intersect, edges_intersect_plain
 
-__all__ = ["REFINE_BACKENDS", "check_refine_backend", "refine",
-           "refine_pairs", "refine_pairs_seq"]
+__all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
+           "refine", "refine_pairs", "refine_pairs_seq"]
 
 REFINE_BACKENDS = ("numpy", "torch", "cuda", "sequential")
 
@@ -145,10 +147,28 @@ def _intersects_batch_np(vr, nr, vs, ns, rep_r, rep_s, mr, ms,
 # float32 device sweep + float64 host escalation
 # ---------------------------------------------------------------------------
 
+_SWEEP_LOG: list | None = None
+
+
+@contextlib.contextmanager
+def record_sweeps():
+    """Collect the device inputs ``(a0, a1, am, b0, b1, bm)`` of every edge
+    sweep run inside the block, one tuple per bucket in launch order, so
+    that the sweep kernel can be replayed on exactly what a join gave it."""
+    global _SWEEP_LOG
+    prev, _SWEEP_LOG = _SWEEP_LOG, []
+    try:
+        yield _SWEEP_LOG
+    finally:
+        _SWEEP_LOG = prev
+
+
 def _sweep(backend: str, dev: torch.device, a0, a1, am, b0, b1, bm):
     """(hit, unc) numpy lanes of the float32 sweep on ``dev``."""
-    t = [torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-         for x in (a0, a1, am, b0, b1, bm)]
+    t = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+              for x in (a0, a1, am, b0, b1, bm))
+    if _SWEEP_LOG is not None:
+        _SWEEP_LOG.append(t)
     fn = edges_intersect_plain if backend == "torch" else edges_intersect
     hit, unc = fn(*t)
     return hit.cpu().numpy(), unc.cpu().numpy()

@@ -121,6 +121,25 @@ def test_refine_without_cmbr_pruning(t1t10):
         rrefine.refine_pairs(R, S, pairs, use_cmbr=False, backend="numpy"))
 
 
+def test_record_sweeps_collects_each_bucket(t1t10):
+    """The recorded inputs cover every pair once, replay to sweep lanes
+    whose definite hits the join reports, and recording ends with the
+    block."""
+    R, S, Rt, St, pairs = t1t10
+    with refine.record_sweeps() as log:
+        got = refine.refine_pairs(Rt, St, pairs, backend="torch",
+                                  device="cpu")
+    assert len(log) > 0
+    assert sum(len(t[0]) for t in log) == len(pairs)
+    hits = 0
+    for t in log:
+        hit, unc = edges_intersect_plain(*t)
+        hits += int((hit & ~unc).sum())
+    assert 0 < hits <= int(got.sum())
+    refine.refine_pairs(Rt, St, pairs[:4], backend="torch", device="cpu")
+    assert sum(len(t[0]) for t in log) == len(pairs)
+
+
 def test_touchy_geometry():
     """Shared-vertex, collinear-shared-edge, on-edge and containment
     contacts."""
