@@ -12,21 +12,31 @@ reference package. Phases, any failure exits non-zero:
    card, exactly: the trichotomy kernel, and the overlap kernel's AA join,
    on the first 65,536 candidate rows of the T1 x T2 join and on every
    row with a list wider than 256 intervals; the overlap kernel's AF and
-   FA joins on every AA survivor;
+   FA joins on every AA survivor; the compaction (scan) kernel against its
+   plain version and the stable-argsort oracle, ``perm`` and ``count``
+   exactly, on lanes of 0, 1, 257 and 4096 rows, all-true and all-false
+   lanes, a random lane longer than 2^21 and the main path's INDECISIVE
+   lane;
 4. the main path, ``JoinPlan(R, S, filter="april", n_order=12)
    .build().execute("intersects")`` on the card with both backends
-   ``"cuda"``, once with the default join order and once with the
+   ``"cuda"``: staged, once with the default join order and once with the
    degenerate order ("AA", "AF") that routes the filter through the
-   overlap kernel; launch counts are reset before and read after each run,
-   and each run's pairs and their order must equal the port's own numpy
-   backends, and a sample of candidates must agree with the float64
-   per-pair oracle; the edge sweep's inputs are recorded in both runs
+   overlap kernel; then fused (``pipeline_mode="fused"``) with
+   ``mbr_backend`` ``"numpy"`` and ``"torch"``, the chain's stages under
+   ``torch.cuda.set_sync_debug_mode("error")`` (``fused.forbid_syncs``).
+   Launch counts are reset before and read after each run. The staged
+   runs' pairs and their order must equal the port's own numpy backends,
+   the fused runs' the staged default run's, with the same ``JoinStats``
+   counts; a sample of candidates must agree with the float64 per-pair
+   oracle; the edge sweep's inputs are recorded in the staged runs
    (``refine.record_sweeps``) and the kernel is held exactly against its
    plain version on every recorded bucket;
-5. each main path once more under ``torch.profiler``: device time per
-   kernel and the device busy share of the host wall time;
+5. each staged main path and the fused default run once more under
+   ``torch.profiler``: device time per kernel and the device busy share of
+   the host wall time;
 6. each kernel timed at the main path's shapes with CUDA events beside
-   its plain version, printed as one JSON ``kernels`` line.
+   its plain version (and, for the scan, ``torch.cumsum``), printed as one
+   JSON ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
 """
@@ -50,6 +60,10 @@ SWEEP_OPS_PER_COUPLE = 77
 COMPARE_ROWS = 65536
 #: timed calls per kernel and plain version in phase 6
 REPS = 5
+#: the port's own kernels, by the names the profiler's trace gives them
+PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
+                "edges_intersect_kernel", "tile_counts_kernel",
+                "scan_sums_kernel", "scatter_kernel")
 
 
 def _ms(fn) -> float:
@@ -75,7 +89,8 @@ def _nbytes(*tensors) -> int:
 def _profile(fn) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and sum the device events
     of its Chrome trace: microseconds per kernel name and per copy kind,
-    and the device busy share of the host wall time."""
+    the device busy share of the host wall time, and the port's own
+    kernels' microseconds and launches."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
@@ -91,6 +106,7 @@ def _profile(fn) -> dict:
         with open(trace) as f:
             events = json.load(f)["traceEvents"]
     by_name: dict[str, float] = {}
+    calls: dict[str, int] = {}
     for e in events:
         if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"):
             key = e["cat"]
@@ -98,10 +114,13 @@ def _profile(fn) -> dict:
                 key = e["name"].replace("(anonymous namespace)::", "")
                 key = key.split("(")[0][:100]
             by_name[key] = by_name.get(key, 0.0) + float(e.get("dur", 0.0))
+            calls[key] = calls.get(key, 0) + 1
     busy = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
+    ours = {k: [by_name[k], calls[k]] for k in PORT_KERNELS if k in by_name}
     return {"wall_us": wall_us, "device_busy_us": busy,
-            "device_busy_share": busy / wall_us, "top_device_us": top}
+            "device_busy_share": busy / wall_us, "top_device_us": top,
+            "port_kernels_us_and_launches": ours}
 
 
 def main() -> int:
@@ -120,11 +139,14 @@ def main() -> int:
     import numpy as np
     from repro_torch import JoinPlan, make_dataset
     from repro_torch.core import geometry
+    from repro_torch.core.join import INDECISIVE
     from repro_torch.kernels import _build
+    from repro_torch.kernels.compact import compact_mask, compact_mask_plain
     from repro_torch.kernels.interval_join import (
         april_trichotomy, april_trichotomy_plain, interval_overlap,
         interval_overlap_plain)
     from repro_torch.kernels.refine import edges_intersect, edges_intersect_plain
+    from repro_torch.spatial import fused
     from repro_torch.spatial import refine as refine_mod
 
     t_start = time.perf_counter()
@@ -190,15 +212,39 @@ def main() -> int:
         if not torch.equal(got, want):
             raise AssertionError(f"interval_overlap kernel != plain version "
                                  f"on {x} x {y}")
-    print(f"phase 3 ok: trichotomy and overlap kernels == plain versions; "
-          f"{len(ri_aa)} AA survivors", flush=True)
+    # the compaction kernel against its plain version and the stable
+    # argsort oracle, perm and count exactly
+    rng = np.random.default_rng(7)
+    indec_mask = april_trichotomy(*tri, ri_all, si_all) == INDECISIVE
+    lanes = {"n=0": np.zeros(0, bool), "n=1": np.ones(1, bool),
+             "n=257": rng.random(257) < 0.5, "n=4096": rng.random(4096) < 0.3,
+             "all-true": np.ones(5000, bool),
+             "all-false": np.zeros(5000, bool),
+             "random n=2^21+4097": rng.random((1 << 21) + 4097) < 0.37}
+    lanes = {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()}
+    lanes["main path INDECISIVE"] = indec_mask
+    for name, m in lanes.items():
+        kp, kc = compact_mask(m)
+        pp, pc = compact_mask_plain(m)
+        op = torch.argsort((~m).to(torch.uint8), stable=True).to(torch.int32)
+        torch.cuda.synchronize()
+        if not (torch.equal(kp, pp) and torch.equal(kp, op)
+                and int(kc) == int(pc) == int(m.sum())):
+            raise AssertionError(f"compact_mask kernel != plain version or "
+                                 f"argsort oracle on lane {name}")
+        print(f"compact_mask lane {name}: {m.numel()} rows, count {int(kc)}"
+              " == plain == oracle", flush=True)
+    print(f"phase 3 ok: trichotomy, overlap and compaction kernels == plain "
+          f"versions; {len(ri_aa)} AA survivors", flush=True)
 
     # 4. the main path, default order then the degenerate order; the edge
     # sweep's inputs are recorded from the path itself
+    wrappers = (april_trichotomy, interval_overlap, edges_intersect,
+                compact_mask)
     launches, results, stats, sweeps = {}, {}, {}, {}
     for label, opts in (("default", {}),
                         ("degenerate", {"order": ("AA", "AF")})):
-        for fn in (april_trichotomy, interval_overlap, edges_intersect):
+        for fn in wrappers:
             fn.launches = 0
         t0 = time.perf_counter()
         run = JoinPlan(R, S, filter="april", n_order=args.n_order,
@@ -208,9 +254,7 @@ def main() -> int:
             res, st = run.execute("intersects")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[label] = {fn.__name__: fn.launches for fn in
-                           (april_trichotomy, interval_overlap,
-                            edges_intersect)}
+        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
         print(f"main path [{label}] {wall:.2f} s launches "
               f"{json.dumps(launches[label])}", flush=True)
         print(json.dumps(st.to_dict()), flush=True)
@@ -229,8 +273,46 @@ def main() -> int:
                 raise AssertionError(f"[{label}] {k} differs")
         results[label] = res
         stats[label] = st
+    # the fused chain, both MBR backends, its stages under the sync check
+    for mb in ("numpy", "torch"):
+        label = f"fused-{mb}"
+        for fn in wrappers:
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        run = JoinPlan(R, S, filter="april", n_order=args.n_order,
+                       pipeline_mode="fused", mbr_backend=mb).build(
+            prebuilt=(plan.approx_r, plan.approx_s))
+        with fused.forbid_syncs():
+            res, st = run.execute("intersects")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        print(f"main path [{label}] {wall:.2f} s, chain stages passed "
+              f"set_sync_debug_mode('error'); launches "
+              f"{json.dumps(launches[label])}; t_mbr {st.t_mbr:.4f} s, "
+              f"t_filter {st.t_filter:.4f} s, t_refine {st.t_refine:.4f} s, "
+              f"t_sync {st.t_sync:.4f} s; {st.extra['n_frame']} frame rows; "
+              f"escalated unc rows {st.extra['n_escalated']}; peak device "
+              f"memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
+              flush=True)
+        print(json.dumps(st.to_dict()), flush=True)
+        if res.shape != results["default"].shape \
+                or not np.array_equal(res, results["default"]):
+            raise AssertionError(f"[{label}] pairs != the staged cuda run's")
+        for k in ("n_candidates", "n_true_hits", "n_true_negs",
+                  "n_indecisive", "n_results"):
+            if getattr(st, k) != getattr(stats["default"], k):
+                raise AssertionError(f"[{label}] {k} differs from staged")
+        if launches[label]["edges_intersect"] != 0:
+            raise AssertionError(f"[{label}] the fused chain ran the float32 "
+                                 "edge sweep")
+        stats[label] = st
     need = {"default": ("april_trichotomy", "edges_intersect"),
-            "degenerate": ("interval_overlap", "edges_intersect")}
+            "degenerate": ("interval_overlap", "edges_intersect"),
+            "fused-numpy": ("april_trichotomy", "compact_mask"),
+            "fused-torch": ("april_trichotomy", "compact_mask")}
     for label, names in need.items():
         for name in names:
             if launches[label][name] <= 0:
@@ -263,17 +345,18 @@ def main() -> int:
     if n_diff:
         raise AssertionError(f"edges_intersect kernel != plain version on "
                              f"{n_diff} lanes")
-    print(f"phase 4 ok: pairs and order == numpy path; {len(sample)} "
-          "sampled candidates == float64 oracle; edge sweep kernel == plain "
-          f"version on {len(sweeps['default'])} + "
+    print(f"phase 4 ok: staged pairs and order == numpy path, fused == "
+          f"staged; {len(sample)} sampled candidates == float64 oracle; edge "
+          f"sweep kernel == plain version on {len(sweeps['default'])} + "
           f"{len(sweeps['degenerate'])} recorded buckets", flush=True)
 
     # 5. where the device time of each main path goes
     for label, opts in (("default", {}),
-                        ("degenerate", {"order": ("AA", "AF")})):
+                        ("degenerate", {"filter_opts": {"order": ("AA",
+                                                                  "AF")}}),
+                        ("fused-numpy", {"pipeline_mode": "fused"})):
         run = JoinPlan(R, S, filter="april", n_order=args.n_order,
-                       filter_opts=opts).build(
-            prebuilt=(plan.approx_r, plan.approx_s))
+                       **opts).build(prebuilt=(plan.approx_r, plan.approx_s))
         prof = _profile(lambda: run.execute("intersects"))
         print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
 
@@ -309,16 +392,28 @@ def main() -> int:
         "edges_intersect": (
             _ms(lambda: [edges_intersect(*t) for t in sw]),
             _ms(lambda: [edges_intersect_plain(*t) for t in sw])),
+        "exclusive_scan": (
+            _ms(lambda: compact_mask(indec_mask)),
+            _ms(lambda: compact_mask_plain(indec_mask))),
     }
+    mask32 = indec_mask.to(torch.int32)
+    library = {"exclusive_scan": _ms(lambda: torch.cumsum(mask32, 0,
+                                                          dtype=torch.int32))}
+    k_perm, k_count = compact_mask(indec_mask)
+    p_perm, p_count = compact_mask_plain(indec_mask)
     bounds = {
         "april_trichotomy": (tri_bytes, 0),
         "interval_overlap": (ov_bytes, 0),
         "edges_intersect": (sweep_bytes, couples * SWEEP_OPS_PER_COUPLE),
+        # a bool read and an int32 written per row, and the int32 count
+        "exclusive_scan": (rows * 5 + 4, 0),
     }
     errs = {
         "april_trichotomy": int((k_tri.int() - p_tri.int()).abs().max()),
         "interval_overlap": int((k_ov.int() - p_ov.int()).abs().max()),
         "edges_intersect": sweep_err,
+        "exclusive_scan": max(int((k_perm - p_perm).abs().max()),
+                              abs(int(k_count) - int(p_count))),
     }
     meta = {
         "april_trichotomy": ("src/repro_torch/csrc/interval_join.cu",
@@ -330,7 +425,11 @@ def main() -> int:
         "edges_intersect": ("src/repro_torch/csrc/refine.cu",
                             "src/repro/kernels/refine/refine.py:85",
                             "default"),
+        "exclusive_scan": ("src/repro_torch/csrc/compact.cu",
+                           "src/repro/kernels/compact/compact.py:47",
+                           "fused-numpy"),
     }
+    counter = {"exclusive_scan": "compact_mask"}
     kernels = []
     for name, (source, replaces, run_label) in meta.items():
         nbytes, ops = bounds[name]
@@ -339,15 +438,16 @@ def main() -> int:
         ms, plain_ms = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[run_label][name],
+            "replaces": replaces,
+            "launches": launches[run_label][counter.get(name, name)],
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
+            "library_ms": library.get(name)})
     if any(k["max_abs_err"] for k in kernels):
         raise AssertionError("a kernel disagrees with its plain version at "
                              "the main path's shapes")
-    print(f"shapes: {rows} candidate rows, "
+    print(f"shapes: {rows} candidate rows (the scan's lane), "
           f"{stats['default'].n_indecisive} INDECISIVE rows, "
           f"{couples} edge couples kept by the CMBR masks; reps {REPS}; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)

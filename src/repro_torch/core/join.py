@@ -17,6 +17,10 @@ Backends of the filter stage (``filter_backend`` on ``JoinPlan``):
   interval-overlap kernel;
 * ``sequential`` — the per-pair reference loop.
 
+The fused chain's filter stage (:func:`fused_status_rows`) writes the
+verdicts of every frame row straight into a device int8 lane, with no host
+read.
+
 Verdicts follow the paper's trichotomy: TRUE_NEG (AA-join empty), TRUE_HIT
 (AF- or FA-join finds an overlap) or INDECISIVE (forwarded to refinement).
 """
@@ -25,9 +29,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import check_backend_device, resolve_device
+from ..device import check_backend_device, resolve_device, upload
 from ..kernels.interval_join import (CSRLists, april_trichotomy,
-                                     interval_overlap, interval_overlap_plain)
+                                     april_trichotomy_plain, interval_overlap,
+                                     interval_overlap_plain)
 from ..kernels.interval_join.ref import INDECISIVE, TRUE_HIT, TRUE_NEG
 from .hilbert import u32_to_biased_i32
 
@@ -35,6 +40,7 @@ __all__ = [
     "TRUE_NEG", "TRUE_HIT", "INDECISIVE", "FILTER_BACKENDS",
     "check_filter_backend", "IntervalLists", "interval_join_pair",
     "april_verdict_pair", "overlap_rows_np", "april_trichotomy_rows",
+    "fused_status_rows",
 ]
 
 I32_MAX = np.int32(np.iinfo(np.int32).max)
@@ -198,8 +204,14 @@ def overlap_rows_np(X: IntervalLists, xi: np.ndarray,
     return out
 
 
-def _rows(idx: np.ndarray, dev: torch.device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(idx, np.int64)).to(dev)
+def _rows(idx: np.ndarray, L: IntervalLists, dev: torch.device,
+          name: str) -> torch.Tensor:
+    """Host row indices into ``L``, range-checked in numpy (no device read),
+    uploaded without a sync."""
+    idx = np.ascontiguousarray(idx, np.int64)
+    if len(idx) and (idx.min() < 0 or idx.max() >= len(L)):
+        raise IndexError(f"{name}: row index out of range [0, {len(L)})")
+    return upload(idx, dev)
 
 
 def _overlap_fn(backend: str, dev: torch.device):
@@ -209,7 +221,8 @@ def _overlap_fn(backend: str, dev: torch.device):
     fn = interval_overlap_plain if backend == "torch" else interval_overlap
 
     def overlap(X, xi, Y, yi):
-        got = fn(X.to(dev), Y.to(dev), _rows(xi, dev), _rows(yi, dev))
+        got = fn(X.to(dev), Y.to(dev), _rows(xi, X, dev, "xi"),
+                 _rows(yi, Y, dev, "yi"))
         return got.cpu().numpy()
     return overlap
 
@@ -260,7 +273,8 @@ def april_trichotomy_rows(
         return np.zeros(0, np.int8)
     if backend == "cuda" and set(order) == {"AA", "AF", "FA"}:
         got = april_trichotomy(Xa.to(dev), Xf.to(dev), Ya.to(dev),
-                               Yf.to(dev), _rows(ri, dev), _rows(si, dev))
+                               Yf.to(dev), _rows(ri, Xa, dev, "ri"),
+                               _rows(si, Ya, dev, "si"))
         return got.cpu().numpy()
     overlap = _overlap_fn(backend, dev)
     aa = overlap(Xa, ri, Ya, si)
@@ -276,3 +290,28 @@ def april_trichotomy_rows(
         verdicts[sel[hit]] = TRUE_HIT
         sel = sel[~hit]
     return verdicts
+
+
+def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists,
+                      Ya: IntervalLists, Yf: IntervalLists, ri: np.ndarray,
+                      si: np.ndarray, *, backend: str = "cuda",
+                      device=None) -> torch.Tensor:
+    """Device int8 status lane [N] over every row of the fused chain's pair
+    frame (``intersects``), computed on ``device`` with no host read.
+
+    ``backend="cuda"`` is one trichotomy kernel launch straight into the
+    lane: the kernel evaluates the full AA/AF/FA trichotomy of every row
+    with no width cap, so the reference's per-width buckets and power-of-two
+    padding are not needed. Other backends run the kernel's plain version
+    on ``device``. Rows with an empty A list on either side read TRUE_NEG,
+    as in the staged drivers. The frame is range-checked on the host; the
+    lists must already be on ``device`` (``IntervalLists.to``) for the call
+    to stay free of host syncs.
+    """
+    check_filter_backend(backend)
+    dev = resolve_device(device)
+    check_backend_device(backend, dev)
+    ri_d = _rows(ri, Xa, dev, "ri")
+    si_d = _rows(si, Ya, dev, "si")
+    fn = april_trichotomy if backend == "cuda" else april_trichotomy_plain
+    return fn(Xa.to(dev), Xf.to(dev), Ya.to(dev), Yf.to(dev), ri_d, si_d)

@@ -8,9 +8,10 @@ whatever device they are given.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-__all__ = ["resolve_device", "check_backend_device"]
+__all__ = ["resolve_device", "check_backend_device", "upload"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -30,3 +31,14 @@ def check_backend_device(backend: str, dev: torch.device) -> None:
         raise ValueError(
             f"backend 'cuda' launches CUDA kernels and needs a CUDA device, "
             f"got device={str(dev)!r}; use backend 'torch' on the CPU")
+
+
+def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``a`` as a tensor on ``dev`` without a host sync: on a CUDA device it
+    is staged in pinned memory and copied with ``non_blocking=True`` (the
+    caching host allocator keeps the staging buffer alive until the copy
+    has run); on the CPU the tensor shares ``a``'s memory."""
+    t = torch.from_numpy(np.ascontiguousarray(a))
+    if dev.type != "cuda":
+        return t.to(dev)
+    return t.pin_memory().to(dev, non_blocking=True)

@@ -33,6 +33,7 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 SOURCES = {
     "interval_join": ("interval_join.cu", []),
     "refine": ("refine.cu", ["-fmad=false"]),
+    "compact": ("compact.cu", []),
 }
 
 _LOCK = threading.Lock()

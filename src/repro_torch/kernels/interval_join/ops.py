@@ -52,13 +52,19 @@ def _check_lists(name: str, L: CSRLists, dev: torch.device) -> None:
 
 
 def _check_rows(idx: torch.Tensor, L: CSRLists, name: str) -> None:
+    """Row indices are contiguous 1-D int64 in [0, P). On the CPU the range
+    raises ``IndexError``; on a CUDA device it is a device-side assert, so
+    the check reads nothing back to the host (the callers range-check their
+    host frames in numpy before upload)."""
     if idx.dtype != torch.int64 or idx.dim() != 1 or not idx.is_contiguous():
         raise ValueError(f"{name}: row indices must be contiguous 1-D int64")
     if idx.numel():
         lo, hi = torch.aminmax(idx)
-        if int(lo) < 0 or int(hi) >= L.off.numel() - 1:
-            raise IndexError(f"{name}: row index out of range "
-                             f"[0, {L.off.numel() - 1})")
+        n = L.off.numel() - 1
+        if idx.device.type == "cuda":
+            torch._assert_async((lo >= 0) & (hi < n))
+        elif int(lo) < 0 or int(hi) >= n:
+            raise IndexError(f"{name}: row index out of range [0, {n})")
 
 
 def _cuda_device(dev: torch.device, name: str) -> None:

@@ -2,6 +2,7 @@ from .filters import (  # noqa: F401
     Approximation, FILTER_BACKENDS, IntermediateFilter, available_filters,
     get_filter, register_filter,
 )
+from .fused import PIPELINE_MODES  # noqa: F401
 from .mbr_join import MBR_BACKENDS, mbr_join  # noqa: F401
 from .plan import JoinPlan, JoinStats  # noqa: F401
 from .refine import REFINE_BACKENDS  # noqa: F401

@@ -3,7 +3,9 @@ predicate.
 
 The batched path runs the staged trichotomy of ``core.join`` over
 :class:`~repro_torch.core.join.IntervalLists`, wrapped once per
-Approximation (cached in ``meta``) and uploaded to the device once.
+Approximation (cached in ``meta``) and uploaded to the device once. The
+fused chain's status lane is computed on the device by
+``core.join.fused_status_rows``.
 """
 from __future__ import annotations
 
@@ -70,6 +72,33 @@ class AprilFilter(IntermediateFilter):
             self._lists(approx_s, "A"), self._lists(approx_s, "F"),
             pairs[:, 0], pairs[:, 1], backend=backend, order=order,
             device=device)
+
+    def to_device(self, approx_r, approx_s, device) -> None:
+        for approx in (approx_r, approx_s):
+            for kind in ("A", "F"):
+                self._lists(approx, kind).to(device)
+
+    def status_lane(self, approx_r, approx_s, ri, si, *,
+                    predicate: str = "intersects", backend: str = "numpy",
+                    device=None, order: tuple[str, ...] = _DEFAULT_ORDER,
+                    **opts):
+        """The trichotomy of every frame row on the device, through
+        ``join.fused_status_rows``. The sequential backend and a join order
+        other than the full three-join set (which leaves AA survivors
+        INDECISIVE) keep the uploaded host lane, so fused == staged row for
+        row."""
+        check_predicate(predicate)
+        join.check_filter_backend(backend)
+        if backend == "sequential" or set(order) != set(_DEFAULT_ORDER):
+            return super().status_lane(approx_r, approx_s, ri, si,
+                                       predicate=predicate, backend=backend,
+                                       device=device, order=order, **opts)
+        if opts:
+            raise TypeError(f"unexpected filter options {sorted(opts)}")
+        return join.fused_status_rows(
+            self._lists(approx_r, "A"), self._lists(approx_r, "F"),
+            self._lists(approx_s, "A"), self._lists(approx_s, "F"), ri, si,
+            backend=backend, device=device)
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate,
                      order: tuple[str, ...] = _DEFAULT_ORDER) -> int:

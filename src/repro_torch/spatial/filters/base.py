@@ -5,7 +5,8 @@
 * :class:`IntermediateFilter` — ``build`` produces an Approximation;
   ``verdicts`` classifies a candidate batch into the paper's trichotomy
   (TRUE_NEG / TRUE_HIT / INDECISIVE); ``verdicts_seq`` is the per-pair
-  reference the batched path must equal.
+  reference the batched path must equal; ``status_lane`` is the fused
+  chain's device int8 lane of the same verdicts.
 * a name-based registry. It is separate from the reference package's, so
   registering a filter here changes nothing there.
 """
@@ -15,9 +16,11 @@ import abc
 from dataclasses import dataclass, field
 
 import numpy as np
+import torch
 
 from ...core.join import FILTER_BACKENDS
 from ...core.rasterize import Extent, GLOBAL_EXTENT
+from ...device import resolve_device, upload
 
 __all__ = ["PREDICATES", "FILTER_BACKENDS", "Approximation",
            "IntermediateFilter", "register_filter", "get_filter",
@@ -95,6 +98,33 @@ class IntermediateFilter(abc.ABC):
     def _verdict_one(self, approx_r, approx_s, i: int, j: int, *,
                      predicate: str, **opts) -> int:
         raise NotImplementedError
+
+    def to_device(self, approx_r: Approximation, approx_s: Approximation,
+                  device) -> None:
+        """Upload whatever :meth:`status_lane` reads on ``device`` and cache
+        it, so that the fused chain itself makes no blocking upload. The
+        default has nothing to upload."""
+
+    def status_lane(self, approx_r: Approximation, approx_s: Approximation,
+                    ri: np.ndarray, si: np.ndarray, *,
+                    predicate: str = "intersects", backend: str = "numpy",
+                    device=None, **opts) -> torch.Tensor:
+        """Device int8 status lane [N] over the fused chain's pair frame.
+
+        ``ri``/``si`` are the host-known candidate frame. The default
+        computes the batched host :meth:`verdicts` and uploads them; filters
+        whose stores live on the device override it with a lane computed
+        there. Verdicts are row-identical to :meth:`verdicts`.
+        """
+        dev = resolve_device(device)
+        ri = np.asarray(ri, np.int64)
+        si = np.asarray(si, np.int64)
+        if len(ri) == 0:
+            return torch.zeros(0, dtype=torch.int8, device=dev)
+        verd = self.verdicts(approx_r, approx_s, np.stack([ri, si], axis=1),
+                             predicate=predicate, backend=backend,
+                             device=dev, **opts)
+        return upload(np.asarray(verd, np.int8), dev)
 
 
 _REGISTRY: dict[str, type[IntermediateFilter]] = {}

@@ -1,21 +1,33 @@
-"""Candidate generation: the partitioned grid-hash MBR join (host, numpy).
+"""Candidate generation: the partitioned grid-hash MBR join.
 
 MBRs are hashed into a uniform grid over the joint data extent, co-bucketed
 pairs are cross-tested, and a qualifying pair is emitted only from the
 bucket holding the bottom-left corner of the pair's common MBR (reference-
-point duplicate elimination). The ``numpy`` path emits candidates in the
-same order as the reference package's, which fixes the order of the join's
-results; ``sequential`` is the per-object / per-bucket reference walk with
-the identical pair set.
+point duplicate elimination). Bucketing and the co-bucket rows
+(:func:`candidate_rows`) are host numpy work. The pair test over those rows
+runs per backend:
+
+* ``numpy`` — on the host; it emits candidates in the same order as the
+  reference package's, which fixes the order of the join's results;
+* ``torch`` — a float64 mask on a torch device (:func:`pair_mask_lane`),
+  the counterpart of the reference's ``"jnp"`` backend; the fused chain
+  keeps it on the device as its ``valid`` lane, the staged path reads it
+  back;
+* ``sequential`` — the per-object / per-bucket reference walk with the
+  identical pair set.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..device import resolve_device, upload
 
 __all__ = ["MBR_BACKENDS", "mbr_join", "mbr_intersect_mask",
-           "adaptive_grid", "joint_extent", "check_mbr_backend"]
+           "adaptive_grid", "joint_extent", "check_mbr_backend",
+           "candidate_rows", "pair_mask_lane"]
 
-MBR_BACKENDS = ("numpy", "sequential")
+MBR_BACKENDS = ("numpy", "torch", "sequential")
 
 #: bucket-entry budget per object for the adaptive grid
 _ENTRY_BUDGET = 8
@@ -24,9 +36,8 @@ _MAX_GRID = 1024
 
 def check_mbr_backend(backend: str) -> None:
     if backend == "jnp":
-        raise NotImplementedError(
-            "mbr_backend='jnp' (the device pair-mask lane) is not ported "
-            "yet: ROADMAP A5")
+        raise ValueError("mbr_backend 'jnp' is the reference's name; the "
+                         "port's device pair-mask lane is mbr_backend='torch'")
     if backend not in MBR_BACKENDS:
         raise ValueError(f"unknown mbr backend {backend!r}; "
                          f"expected one of {MBR_BACKENDS}")
@@ -136,6 +147,42 @@ def _cross_rows(obj_r, buck_r, obj_s, buck_s):
     return ri, si, common[grp]
 
 
+def _prepare(mbrs_r, mbrs_s, grid: int | None):
+    """Shared host preamble of the entry points: coerce, resolve the joint
+    extent and grid. Returns (mbrs_r, mbrs_s, k, extent), ``k = 0``
+    signalling an empty join (an invalid explicit grid raises even then)."""
+    mbrs_r = np.asarray(mbrs_r, np.float64).reshape(-1, 4)
+    mbrs_s = np.asarray(mbrs_s, np.float64).reshape(-1, 4)
+    extent = joint_extent(mbrs_r, mbrs_s)
+    k = _resolve_grid(grid, mbrs_r, mbrs_s, extent)
+    if len(mbrs_r) == 0 or len(mbrs_s) == 0:
+        return mbrs_r, mbrs_s, 0, extent
+    return mbrs_r, mbrs_s, k, extent
+
+
+def candidate_rows(mbrs_r, mbrs_s, k: int, extent):
+    """Co-bucket cross-product rows of the grid-hash join.
+
+    Returns ``(ri, si, own_x, own_y, lo_r, lo_s)``: for every bucket shared
+    by both sides, the cartesian rows of its R x S members, with the shared
+    bucket's cell. A row is a join result iff the MBRs intersect and
+    ``max(lo_r[ri], lo_s[si]) == (own_x, own_y)`` (reference-point
+    ownership on integer low cells).
+    """
+    lo_r, hi_r = bucket_ranges(mbrs_r, k, extent)
+    lo_s, hi_s = bucket_ranges(mbrs_s, k, extent)
+    obj_r, buck_r = expand_buckets(lo_r, hi_r, k)
+    obj_s, buck_s = expand_buckets(lo_s, hi_s, k)
+    order_r = np.argsort(buck_r, kind="stable")
+    order_s = np.argsort(buck_s, kind="stable")
+    ri, si, own = _cross_rows(obj_r[order_r], buck_r[order_r],
+                              obj_s[order_s], buck_s[order_s])
+    if len(ri) == 0:
+        z = np.zeros(0, np.int64)
+        return z, z, z, z, lo_r, lo_s
+    return ri, si, own // k, own % k, lo_r, lo_s
+
+
 def _pair_mask(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x, own_y):
     """Intersection + reference-point ownership mask over candidate rows."""
     a = mbrs_r[ri]
@@ -147,19 +194,26 @@ def _pair_mask(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x, own_y):
     return hit & owner
 
 
-def _mbr_join_batched(mbrs_r, mbrs_s, k, extent) -> np.ndarray:
-    lo_r, hi_r = bucket_ranges(mbrs_r, k, extent)
-    lo_s, hi_s = bucket_ranges(mbrs_s, k, extent)
-    obj_r, buck_r = expand_buckets(lo_r, hi_r, k)
-    obj_s, buck_s = expand_buckets(lo_s, hi_s, k)
-    order_r = np.argsort(buck_r, kind="stable")
-    order_s = np.argsort(buck_s, kind="stable")
-    ri, si, own = _cross_rows(obj_r[order_r], buck_r[order_r],
-                              obj_s[order_s], buck_s[order_s])
-    if len(ri) == 0:
-        return np.zeros((0, 2), np.int64)
-    keep = _pair_mask(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own // k, own % k)
-    return np.stack([ri[keep], si[keep]], axis=1)
+def pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x, own_y,
+                   device) -> torch.Tensor:
+    """The pair test of :func:`_pair_mask` as a [N] bool lane on
+    ``device``, in float64 (float32 would merge nearby MBR borders). Every
+    operand is uploaded without a host sync and nothing is read back, so
+    the fused chain takes the lane as its ``valid`` lane. Eager PyTorch
+    compiles nothing per shape, so no row padding is needed."""
+    dev = torch.device(device)
+    mr, ms = (upload(np.asarray(m, np.float64), dev)
+              for m in (mbrs_r, mbrs_s))
+    lor, los = (upload(np.asarray(lo, np.int64), dev) for lo in (lo_r, lo_s))
+    ri, si, ox, oy = (upload(np.asarray(x, np.int64), dev)
+                      for x in (ri, si, own_x, own_y))
+    a = mr[ri]
+    b = ms[si]
+    hit = ((a[:, 0] <= b[:, 2]) & (b[:, 0] <= a[:, 2])
+           & (a[:, 1] <= b[:, 3]) & (b[:, 1] <= a[:, 3]))
+    owner = ((torch.maximum(lor[ri, 0], los[si, 0]) == ox)
+             & (torch.maximum(lor[ri, 1], los[si, 1]) == oy))
+    return hit & owner
 
 
 def _mbr_join_sequential(mbrs_r, mbrs_s, k, extent) -> np.ndarray:
@@ -211,19 +265,29 @@ def _mbr_join_sequential(mbrs_r, mbrs_s, k, extent) -> np.ndarray:
 
 
 def mbr_join(mbrs_r: np.ndarray, mbrs_s: np.ndarray,
-             grid: int | None = None, backend: str = "numpy") -> np.ndarray:
+             grid: int | None = None, backend: str = "numpy",
+             device=None) -> np.ndarray:
     """All (r, s) index pairs with intersecting MBRs. Returns [N,2] int64.
 
     ``grid=None`` picks the granularity adaptively; the pair set is the
-    same for every grid and backend.
+    same for every grid and backend, and the order the same for ``numpy``
+    and ``torch``. ``device`` (``None`` -> ``"cuda"``) matters to the
+    ``torch`` backend, whose lane is read back here.
     """
     check_mbr_backend(backend)
-    mbrs_r = np.asarray(mbrs_r, np.float64).reshape(-1, 4)
-    mbrs_s = np.asarray(mbrs_s, np.float64).reshape(-1, 4)
-    extent = joint_extent(mbrs_r, mbrs_s)
-    k = _resolve_grid(grid, mbrs_r, mbrs_s, extent)
-    if len(mbrs_r) == 0 or len(mbrs_s) == 0:
+    dev = resolve_device(device) if backend == "torch" else None
+    mbrs_r, mbrs_s, k, extent = _prepare(mbrs_r, mbrs_s, grid)
+    if k == 0:
         return np.zeros((0, 2), np.int64)
     if backend == "sequential":
         return _mbr_join_sequential(mbrs_r, mbrs_s, k, extent)
-    return _mbr_join_batched(mbrs_r, mbrs_s, k, extent)
+    ri, si, own_x, own_y, lo_r, lo_s = candidate_rows(mbrs_r, mbrs_s, k,
+                                                      extent)
+    if len(ri) == 0:
+        return np.zeros((0, 2), np.int64)
+    if backend == "torch":
+        keep = pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x,
+                              own_y, dev).cpu().numpy()
+    else:
+        keep = _pair_mask(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x, own_y)
+    return np.stack([ri[keep], si[keep]], axis=1)

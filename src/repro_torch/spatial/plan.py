@@ -1,16 +1,20 @@
-"""`JoinPlan`: the session API of the spatial join, staged and static.
+"""`JoinPlan`: the session API of the spatial join, static plans in both
+pipeline modes.
 
     plan = JoinPlan(R, S, filter="april", n_order=12)     # device="cuda"
     plan.build()                                          # APRIL stores
     hits, stats = plan.execute("intersects")
 
 Execution runs the paper's stages dataset-batched: grid-hash MBR
-candidates on the host -> the APRIL trichotomy (``filter_backend``) ->
-exact refinement of the INDECISIVE rows (``refine_backend``). Results are
-``concat(pairs[TRUE_HIT], indecisive[refined])``, in the reference
-package's order. On a CUDA device both backends default to ``"cuda"``
-(the hand-written kernels); on the CPU to ``"torch"`` (their plain
-PyTorch versions). Backends change execution, never results.
+candidates (``mbr_backend``) -> the APRIL trichotomy (``filter_backend``)
+-> exact refinement of the INDECISIVE rows (``refine_backend``). With
+``pipeline_mode="staged"`` each stage's survivors come back to the host;
+with ``"fused"`` the stages chain on the device and meet the host once, at
+the end (``spatial/fused.py``). Results are ``concat(pairs[TRUE_HIT],
+indecisive[refined])``, in the reference package's order. On a CUDA device
+both backends default to ``"cuda"`` (the hand-written kernels); on the CPU
+to ``"torch"`` (their plain PyTorch versions). Backends and modes change
+execution, never results.
 """
 from __future__ import annotations
 
@@ -25,6 +29,7 @@ from ..device import check_backend_device, resolve_device
 from . import refine
 from .filters import Approximation, IntermediateFilter, get_filter
 from .filters.base import check_predicate
+from .fused import check_pipeline_mode, execute_fused
 from .mbr_join import check_mbr_backend, mbr_join
 
 __all__ = ["JoinStats", "JoinPlan"]
@@ -59,6 +64,22 @@ class JoinStats:
     def t_total(self) -> float:
         return self.t_mbr + self.t_filter + self.t_refine + self.t_sync
 
+    def stage_times(self) -> dict:
+        """Per-stage time breakdown, JSON-safe; round-trips through
+        to_dict/from_dict. In fused mode the stage times are dispatch only
+        and ``t_sync`` holds the final gather and the host re-check."""
+        return {"t_mbr": float(self.t_mbr), "t_filter": float(self.t_filter),
+                "t_refine": float(self.t_refine),
+                "t_sync": float(self.t_sync),
+                "t_partition": float(self.t_partition),
+                "t_total": float(self.t_total)}
+
+    def rates(self) -> tuple[float, float, float]:
+        """(TRUE_HIT, TRUE_NEG, INDECISIVE) shares of the candidates."""
+        n = max(1, self.n_candidates)
+        return (self.n_true_hits / n, self.n_true_negs / n,
+                self.n_indecisive / n)
+
     def to_dict(self) -> dict:
         """JSON-safe dict of every field plus ``t_total``."""
         out = {}
@@ -82,7 +103,9 @@ class JoinPlan:
     ``device`` (``None`` -> ``"cuda"``; raises without a GPU) is where the
     filter and refinement run. ``filter_backend`` and ``refine_backend``
     are ``"numpy" | "torch" | "cuda" | "sequential"``; ``"cuda"`` needs a
-    CUDA device. ``mbr_backend`` is ``"numpy" | "sequential"``;
+    CUDA device. ``mbr_backend`` is ``"numpy" | "torch" | "sequential"``
+    (``"torch"`` tests the candidate rows on the device, the reference's
+    ``"jnp"``); ``pipeline_mode`` is ``"staged" | "fused"``;
     ``build_opts`` go to ``filter.build`` and ``filter_opts`` (e.g.
     ``order``) to every ``filter.verdicts`` call. Knobs of the reference
     that this port does not cover yet raise ``NotImplementedError`` naming
@@ -99,12 +122,7 @@ class JoinPlan:
                  plan_mode: str = "static",
                  build_opts: dict | None = None,
                  filter_opts: dict | None = None, device=None):
-        if pipeline_mode == "fused":
-            raise NotImplementedError(
-                "pipeline_mode='fused' is not ported yet: ROADMAP A4 "
-                "(the fused chain with kernel B3)")
-        if pipeline_mode != "staged":
-            raise ValueError(f"unknown pipeline mode {pipeline_mode!r}")
+        check_pipeline_mode(pipeline_mode)
         if plan_mode == "adaptive":
             raise NotImplementedError(
                 "plan_mode='adaptive' is not ported yet: ROADMAP A8 "
@@ -170,7 +188,7 @@ class JoinPlan:
         """Candidate pairs of the grid-hash MBR join, [N, 2] int64."""
         check_predicate(predicate)
         return mbr_join(self.R.mbrs, self.S.mbrs, grid=self.mbr_grid,
-                        backend=self.mbr_backend)
+                        backend=self.mbr_backend, device=self.device)
 
     def execute(self, predicate: str = "intersects",
                 ) -> tuple[np.ndarray, JoinStats]:
@@ -188,6 +206,10 @@ class JoinPlan:
         stats.t_build = self._t_build
         stats.approx_bytes = (self.approx_r.size_bytes()
                               + self.approx_s.size_bytes())
+        if self.pipeline_mode == "fused":
+            results, stats = execute_fused(self, predicate, stats)
+            self.last_stats = stats
+            return results, stats
 
         t0 = time.perf_counter()
         pairs = self.candidates(predicate)

@@ -15,6 +15,11 @@ Backends (``refine_backend`` on ``JoinPlan``):
   representative points against the unpruned rings; rows that tripped the
   band are re-checked on the host in float64. Every backend is
   verdict-identical to ``sequential``.
+
+The fused chain refines on the device instead (:func:`fused_refine_lanes`):
+float64 PyTorch twins of the reference's jnp cores over a front-packed
+INDECISIVE prefix, with a guard band whose ``unc`` rows escalate to the
+host once, at the end of the chain.
 """
 from __future__ import annotations
 
@@ -29,7 +34,8 @@ from ..device import check_backend_device, resolve_device
 from ..kernels.refine import edges_intersect, edges_intersect_plain
 
 __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
-           "refine", "refine_pairs", "refine_pairs_seq"]
+           "refine", "refine_pairs", "refine_pairs_seq", "device_geometry",
+           "fused_refine_lanes"]
 
 REFINE_BACKENDS = ("numpy", "torch", "cuda", "sequential")
 
@@ -264,3 +270,182 @@ def refine(R, S, pairs: np.ndarray, predicate: str = "intersects",
     if predicate != "intersects":
         raise ValueError(f"unknown predicate {predicate!r}")
     return refine_pairs(R, S, pairs, backend=backend, device=device)
+
+
+# ---------------------------------------------------------------------------
+# float64 device cores of the fused chain (twins of the reference's jnp
+# cores). Every product and sum is its own eager op, so nothing contracts
+# into an FMA and the signs are those of strict IEEE numpy; the guard band
+# stays all the same, so a sign the reference's compiled cores may flip is
+# flagged ``unc`` and re-checked on the host in float64.
+# ---------------------------------------------------------------------------
+
+#: relative guard half-width of the float64 sign tests
+_EPS_GUARD = 2.0 ** -44
+
+
+def _orient_unc(ax, ay, bx, by, cx, cy):
+    """(orientation, borderline). Borderline flags magnitudes within the
+    guard band of zero; when either product is exactly zero the sign is
+    exact under any rounding, so axis-aligned geometry is exempt."""
+    p1 = (bx - ax) * (cy - ay)
+    p2 = (by - ay) * (cx - ax)
+    d = p1 - p2
+    unc = ((d.abs() <= _EPS_GUARD * (p1.abs() + p2.abs()))
+           & (p1 != 0) & (p2 != 0))
+    return d, unc
+
+
+def _edges(verts, nverts):
+    """(starts, ends, valid) of padded rings [N, V, 2] on their device;
+    padded slots degenerate to the first vertex and are masked out."""
+    V = verts.shape[1]
+    idx = torch.arange(V, device=verts.device)[None, :]
+    valid = idx < nverts[:, None]
+    nxt = torch.where(valid, (idx + 1) % torch.clamp(nverts[:, None], min=1),
+                      0)
+    starts = torch.where(valid[..., None], verts, verts[:, :1, :])
+    ends = torch.gather(verts, 1, nxt[..., None].expand(-1, -1, 2))
+    ends = torch.where(valid[..., None], ends, verts[:, :1, :])
+    return starts, ends, valid
+
+
+def _quad_orients(a0, a1, b0, b1):
+    d1, u1 = _orient_unc(b0[..., 0], b0[..., 1], b1[..., 0], b1[..., 1],
+                         a0[..., 0], a0[..., 1])
+    d2, u2 = _orient_unc(b0[..., 0], b0[..., 1], b1[..., 0], b1[..., 1],
+                         a1[..., 0], a1[..., 1])
+    d3, u3 = _orient_unc(a0[..., 0], a0[..., 1], a1[..., 0], a1[..., 1],
+                         b0[..., 0], b0[..., 1])
+    d4, u4 = _orient_unc(a0[..., 0], a0[..., 1], a1[..., 0], a1[..., 1],
+                         b1[..., 0], b1[..., 1])
+    return (d1, d2, d3, d4), (u1 | u2 | u3 | u4)
+
+
+def _on_seg(p0, p1, r):
+    return ((torch.minimum(p0[..., 0], p1[..., 0]) <= r[..., 0])
+            & (r[..., 0] <= torch.maximum(p0[..., 0], p1[..., 0]))
+            & (torch.minimum(p0[..., 1], p1[..., 1]) <= r[..., 1])
+            & (r[..., 1] <= torch.maximum(p0[..., 1], p1[..., 1])))
+
+
+def _segments_intersect(a0, a1, b0, b1):
+    """(hit, borderline) of broadcastable segment pairs."""
+    (d1, d2, d3, d4), unc = _quad_orients(a0, a1, b0, b1)
+    proper = (((d1 > 0) != (d2 > 0)) & ((d3 > 0) != (d4 > 0))
+              & (d1 != 0) & (d2 != 0) & (d3 != 0) & (d4 != 0))
+    touch = (((d1 == 0) & _on_seg(b0, b1, a0))
+             | ((d2 == 0) & _on_seg(b0, b1, a1))
+             | ((d3 == 0) & _on_seg(a0, a1, b0))
+             | ((d4 == 0) & _on_seg(a0, a1, b1)))
+    return proper | touch, unc
+
+
+def _pip_batch(points, pmask, b0, b1, bm):
+    """(inside_or_on [N, M], borderline [N, M]): closed-region PiP of
+    per-row point sets against per-row rings, with the guard band."""
+    x = points[..., 0][:, :, None]
+    y = points[..., 1][:, :, None]
+    x0, y0 = b0[..., 0][:, None, :], b0[..., 1][:, None, :]
+    x1, y1 = b1[..., 0][:, None, :], b1[..., 1][:, None, :]
+    m = bm[:, None, :]
+    cond = (y0 <= y) != (y1 <= y)
+    step = ((y - y0) / torch.where(y1 == y0, 1.0, y1 - y0)) * (x1 - x0)
+    xint = x0 + step
+    # step == 0 exactly (vertical edges) makes the add exact
+    near = (((xint - x).abs()
+             <= _EPS_GUARD * (x0.abs() + step.abs() + x.abs()))
+            & (step != 0))
+    inside = ((cond & (xint > x) & m).sum(dim=2) % 2) == 1
+    d, du = _orient_unc(x0, y0, x1, y1, x, y)
+    inbox = ((torch.minimum(x0, x1) <= x) & (x <= torch.maximum(x0, x1))
+             & (torch.minimum(y0, y1) <= y) & (y <= torch.maximum(y0, y1))
+             & m)
+    onb = (d == 0) & inbox
+    unc = ((cond & near & m) | (du & inbox)).any(dim=2) & pmask
+    return inside | onb.any(dim=2) | ~pmask, unc
+
+
+def _intersects_impl(vr, nr, vs, ns, rep_r, rep_s):
+    """(verdicts [N], uncertain [N]) of batched ``intersects`` on the rows'
+    device: an edge crossing or touch, or a representative point of either
+    side in the closed other. Uncertain rows had a borderline sign that a
+    True did not outweigh, and must be re-checked on the host."""
+    a0, a1, am = _edges(vr, nr)
+    b0, b1, bm = _edges(vs, ns)
+    hit, hunc = _segments_intersect(a0[:, :, None, :], a1[:, :, None, :],
+                                    b0[:, None, :, :], b1[:, None, :, :])
+    pair_mask = am[:, :, None] & bm[:, None, :]
+    crossed = (hit & pair_mask).any(dim=2).any(dim=1)
+    ones = torch.ones((vr.shape[0], 1), dtype=torch.bool, device=vr.device)
+    in_s, u1 = _pip_batch(rep_r[:, None, :], ones, b0, b1, bm)
+    in_r, u2 = _pip_batch(rep_s[:, None, :], ones, a0, a1, am)
+    unc = (hunc & pair_mask).any(dim=2).any(dim=1) | u1[:, 0] | u2[:, 0]
+    # a True reached through a non-borderline element holds on the host too
+    definite_true = ((hit & ~hunc & pair_mask).any(dim=2).any(dim=1)
+                     | (in_s[:, 0] & ~u1[:, 0]) | (in_r[:, 0] & ~u2[:, 0]))
+    return crossed | in_s[:, 0] | in_r[:, 0], unc & ~definite_true
+
+
+def device_geometry(D, device) -> dict:
+    """float64 device copies of a dataset's rings, cut to its widest ring,
+    their vertex counts (int64) and one representative interior point per
+    object. Uploaded once per device and cached on the dataset, keyed on
+    the identity of its ``verts`` array (a patched dataset swaps the array,
+    which invalidates the copy)."""
+    dev = torch.device(device)
+    cache = D.__dict__.setdefault("_device_geom", {})
+    key = str(dev)
+    hit = cache.get(key)
+    if hit is not None and hit[0] == id(D.verts):
+        return hit[1]
+    nverts = np.asarray(D.nverts, np.int64)
+    V = max(1, int(nverts.max(initial=1)))
+    verts = np.ascontiguousarray(np.asarray(D.verts, np.float64)[:, :V])
+    reps = geometry.representative_points(D.verts, D.nverts)
+    geom = {"verts": torch.from_numpy(verts).to(dev),
+            "nverts": torch.from_numpy(nverts).to(dev),
+            "reps": torch.from_numpy(np.ascontiguousarray(reps,
+                                                          np.float64)).to(dev)}
+    cache[key] = (id(D.verts), geom)
+    return geom
+
+
+#: device bytes budgeted for one chunk's [C, Va, Vb] temporaries in the
+#: fused refine
+_FUSED_CHUNK_BYTES = 2 << 30
+#: bytes of eager temporaries per (a edge, b edge) couple, counted from the
+#: float64 and bool [C, Va, Vb] tensors alive at once in _segments_intersect
+_BYTES_PER_COUPLE = 160
+
+
+def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device):
+    """Device (res, unc) lanes [N] over a front-packed INDECISIVE prefix.
+
+    ``perm``/``count`` come from ``compact_mask`` over the INDECISIVE lane
+    of the frame ``ri_dev``/``si_dev``; the lanes are in the packed order
+    (scatter them back through ``perm``). ``count`` stays on the device, so
+    every chunk of the frame is walked and rows past ``count`` are masked
+    out, as the reference's ``take`` does; the reference also skips the
+    dead chunks, which needs the count on the host or a device branch.
+    Chunking is row-wise, so the chunk size changes no verdict.
+    """
+    dev = torch.device(device)
+    geom_r = device_geometry(R, dev)
+    geom_s = device_geometry(S, dev)
+    N = perm.numel()
+    res = torch.zeros(N, dtype=torch.bool, device=dev)
+    unc = torch.zeros(N, dtype=torch.bool, device=dev)
+    couples = geom_r["verts"].shape[1] * geom_s["verts"].shape[1]
+    C = max(1, _FUSED_CHUNK_BYTES // (couples * _BYTES_PER_COUPLE))
+    for c0 in range(0, N, C):
+        idx = perm[c0:c0 + C].to(torch.int64)
+        take = torch.arange(c0, c0 + idx.numel(), device=dev) < count
+        rr = ri_dev[idx]
+        ss = si_dev[idx]
+        v, u = _intersects_impl(geom_r["verts"][rr], geom_r["nverts"][rr],
+                                geom_s["verts"][ss], geom_s["nverts"][ss],
+                                geom_r["reps"][rr], geom_s["reps"][ss])
+        res[c0:c0 + idx.numel()] = v & take
+        unc[c0:c0 + idx.numel()] = u & take
+    return res, unc

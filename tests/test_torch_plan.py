@@ -136,9 +136,9 @@ def test_cuda_backends_need_a_cuda_device(datasets):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"pipeline_mode": "fused"}, "ROADMAP A4"),
+    ({"filter": "ra"}, "ROADMAP A6"),
     ({"plan_mode": "adaptive"}, "ROADMAP A8"),
-    ({"mbr_backend": "jnp"}, "ROADMAP A5"),
+    ({"r_kind": "line"}, "ROADMAP A1"),
     ({"mbr_index": object()}, "ROADMAP A8"),
     ({"filter": "ri"}, "ROADMAP A6"),
     ({"filter": "none"}, "ROADMAP A6"),
