@@ -22,20 +22,27 @@ reference package. Phases, any failure exits non-zero:
    ``"cuda"``: staged, once with the default join order and once with the
    degenerate order ("AA", "AF") that routes the filter through the
    overlap kernel; then fused (``pipeline_mode="fused"``) with
-   ``mbr_backend`` ``"numpy"`` and ``"torch"``, the chain's stages under
-   ``torch.cuda.set_sync_debug_mode("error")`` (``fused.forbid_syncs``).
+   ``mbr_backend`` ``"numpy"`` and ``"torch"``, and each fused chain's
+   stages once more under ``torch.cuda.set_sync_debug_mode("error")``.
    Launch counts are reset before and read after each run. The staged
    runs' pairs and their order must equal the port's own numpy backends,
    the fused runs' the staged default run's, with the same ``JoinStats``
    counts; a sample of candidates must agree with the float64 per-pair
-   oracle; the edge sweep's inputs are recorded in the staged runs
-   (``refine.record_sweeps``) and the kernel is held exactly against its
-   plain version on every recorded bucket;
+   oracle. The kernels' inputs are recorded from the runs themselves: the
+   edge sweep's buckets in the staged runs (``refine.record_sweeps``),
+   each fused run's device frame and lanes (``fused.record_chains``). The
+   sweep kernel is held exactly against its plain version on every
+   recorded bucket; the trichotomy kernel on each fused run's whole frame
+   (the status lane the run wrote must equal the plain version under its
+   ``valid`` lane), and the compaction kernel against its plain version
+   and the argsort oracle on each fused run's INDECISIVE lane;
 5. each staged main path and the fused default run once more under
    ``torch.profiler``: device time per kernel and the device busy share of
    the host wall time;
 6. each kernel timed at the main path's shapes with CUDA events beside
-   its plain version (and, for the scan, ``torch.cumsum``), printed as one
+   its plain version and, for the scan, the library calls that compute the
+   same function (a stable ``torch.argsort`` and a sum, ``library_ms``)
+   and the scan alone (``torch.cumsum``, printed beside it), printed as one
    JSON ``kernels`` line.
 
 The last line is ``{"ok": true, "device": {...}}``.
@@ -139,7 +146,7 @@ def main() -> int:
     import numpy as np
     from repro_torch import JoinPlan, make_dataset
     from repro_torch.core import geometry
-    from repro_torch.core.join import INDECISIVE
+    from repro_torch.core.join import INDECISIVE, TRUE_NEG
     from repro_torch.kernels import _build
     from repro_torch.kernels.compact import compact_mask, compact_mask_plain
     from repro_torch.kernels.interval_join import (
@@ -273,7 +280,7 @@ def main() -> int:
                 raise AssertionError(f"[{label}] {k} differs")
         results[label] = res
         stats[label] = st
-    # the fused chain, both MBR backends, its stages under the sync check
+    # the fused chain, both MBR backends, each run's frame and lanes recorded
     for mb in ("numpy", "torch"):
         label = f"fused-{mb}"
         for fn in wrappers:
@@ -283,13 +290,12 @@ def main() -> int:
         run = JoinPlan(R, S, filter="april", n_order=args.n_order,
                        pipeline_mode="fused", mbr_backend=mb).build(
             prebuilt=(plan.approx_r, plan.approx_s))
-        with fused.forbid_syncs():
+        with fused.record_chains() as chains:
             res, st = run.execute("intersects")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches[label] = {fn.__name__: fn.launches for fn in wrappers}
-        print(f"main path [{label}] {wall:.2f} s, chain stages passed "
-              f"set_sync_debug_mode('error'); launches "
+        print(f"main path [{label}] {wall:.2f} s; launches "
               f"{json.dumps(launches[label])}; t_mbr {st.t_mbr:.4f} s, "
               f"t_filter {st.t_filter:.4f} s, t_refine {st.t_refine:.4f} s, "
               f"t_sync {st.t_sync:.4f} s; {st.extra['n_frame']} frame rows; "
@@ -309,6 +315,49 @@ def main() -> int:
             raise AssertionError(f"[{label}] the fused chain ran the float32 "
                                  "edge sweep")
         stats[label] = st
+        # the chain's stages once more, where any host sync before the
+        # gather raises; they must write the same status lane
+        (cs,) = chains
+        prev = torch.cuda.get_sync_debug_mode()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            again = fused.build_stage_plan(run, "intersects").run()
+        finally:
+            torch.cuda.set_sync_debug_mode(prev)
+        torch.cuda.synchronize()
+        if not torch.equal(again.status, cs.status):
+            raise AssertionError(f"[{label}] the sync-checked chain wrote "
+                                 "another status lane")
+        del again
+        # B1 on the run's whole device frame, and B3 on the INDECISIVE lane
+        # the run's compaction was given, against their plain versions
+        got = april_trichotomy(*tri, cs.ri_dev, cs.si_dev)
+        want = april_trichotomy_plain(*tri, cs.ri_dev, cs.si_dev)
+        wrote = want if cs.valid is None else torch.where(cs.valid, want,
+                                                          TRUE_NEG)
+        m = cs.status == INDECISIVE
+        kp, kc = compact_mask(m)
+        pp, pc = compact_mask_plain(m)
+        op = torch.argsort((~m).to(torch.uint8), stable=True).to(torch.int32)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[{label}] april_trichotomy kernel != plain "
+                                 "version on the run's frame")
+        if not torch.equal(cs.status, wrote):
+            raise AssertionError(f"[{label}] the run's status lane != the "
+                                 "plain trichotomy under its valid lane")
+        if not (torch.equal(kp, pp) and torch.equal(kp, op)
+                and int(kc) == int(pc) == int(m.sum())):
+            raise AssertionError(f"[{label}] compact_mask kernel != plain "
+                                 "version or argsort oracle on the run's "
+                                 "INDECISIVE lane")
+        print(f"[{label}] chain stages passed set_sync_debug_mode('error'); "
+              f"recorded inputs: trichotomy kernel == plain version on all "
+              f"{len(cs)} frame rows ({int((got == INDECISIVE).sum())} "
+              f"INDECISIVE before the valid lane), status lane == plain; "
+              f"compaction kernel == plain == oracle on the {m.numel()}-row "
+              f"INDECISIVE lane ({int(kc)} set)", flush=True)
+        del cs, chains, got, want, wrote, m, kp, pp, op
     need = {"default": ("april_trichotomy", "edges_intersect"),
             "degenerate": ("interval_overlap", "edges_intersect"),
             "fused-numpy": ("april_trichotomy", "compact_mask"),
@@ -396,9 +445,16 @@ def main() -> int:
             _ms(lambda: compact_mask(indec_mask)),
             _ms(lambda: compact_mask_plain(indec_mask))),
     }
+    # the library calls that compute the scan's function (perm and count),
+    # and the scan alone, which does no permutation and no scatter
+    not_mask = (~indec_mask).to(torch.uint8)
+    library = {"exclusive_scan": _ms(lambda: (
+        torch.argsort(not_mask, stable=True), indec_mask.sum()))}
     mask32 = indec_mask.to(torch.int32)
-    library = {"exclusive_scan": _ms(lambda: torch.cumsum(mask32, 0,
-                                                          dtype=torch.int32))}
+    cumsum_ms = _ms(lambda: torch.cumsum(mask32, 0, dtype=torch.int32))
+    print(f"exclusive_scan library: stable argsort + sum (perm and count) "
+          f"{library['exclusive_scan']} ms; torch.cumsum (the scan alone) "
+          f"{cumsum_ms} ms", flush=True)
     k_perm, k_count = compact_mask(indec_mask)
     p_perm, p_count = compact_mask_plain(indec_mask)
     bounds = {

@@ -204,13 +204,18 @@ def overlap_rows_np(X: IntervalLists, xi: np.ndarray,
     return out
 
 
-def _rows(idx: np.ndarray, L: IntervalLists, dev: torch.device,
-          name: str) -> torch.Tensor:
-    """Host row indices into ``L``, range-checked in numpy (no device read),
-    uploaded without a sync."""
-    idx = np.ascontiguousarray(idx, np.int64)
+def _check_frame(idx: np.ndarray, L: IntervalLists, name: str) -> None:
+    """Host row indices into ``L`` range-checked in numpy (no device read)."""
     if len(idx) and (idx.min() < 0 or idx.max() >= len(L)):
         raise IndexError(f"{name}: row index out of range [0, {len(L)})")
+
+
+def _rows(idx: np.ndarray, L: IntervalLists, dev: torch.device,
+          name: str) -> torch.Tensor:
+    """Host row indices into ``L``, range-checked and uploaded without a
+    sync."""
+    idx = np.ascontiguousarray(idx, np.int64)
+    _check_frame(idx, L, name)
     return upload(idx, dev)
 
 
@@ -294,7 +299,7 @@ def april_trichotomy_rows(
 
 def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists,
                       Ya: IntervalLists, Yf: IntervalLists, ri: np.ndarray,
-                      si: np.ndarray, *, backend: str = "cuda",
+                      si: np.ndarray, *, rows=None, backend: str = "cuda",
                       device=None) -> torch.Tensor:
     """Device int8 status lane [N] over every row of the fused chain's pair
     frame (``intersects``), computed on ``device`` with no host read.
@@ -304,14 +309,19 @@ def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists,
     with no width cap, so the reference's per-width buckets and power-of-two
     padding are not needed. Other backends run the kernel's plain version
     on ``device``. Rows with an empty A list on either side read TRUE_NEG,
-    as in the staged drivers. The frame is range-checked on the host; the
-    lists must already be on ``device`` (``IntervalLists.to``) for the call
-    to stay free of host syncs.
+    as in the staged drivers. The frame is range-checked on the host;
+    ``rows`` are its int64 copies already on ``device`` (the chain uploads
+    the frame once), else it is uploaded here. The lists must already be on
+    ``device`` (``IntervalLists.to``) for the call to stay free of host
+    syncs.
     """
     check_filter_backend(backend)
     dev = resolve_device(device)
     check_backend_device(backend, dev)
-    ri_d = _rows(ri, Xa, dev, "ri")
-    si_d = _rows(si, Ya, dev, "si")
+    if rows is None:
+        rows = (_rows(ri, Xa, dev, "ri"), _rows(si, Ya, dev, "si"))
+    else:
+        _check_frame(np.asarray(ri), Xa, "ri")
+        _check_frame(np.asarray(si), Ya, "si")
     fn = april_trichotomy if backend == "cuda" else april_trichotomy_plain
-    return fn(Xa.to(dev), Xf.to(dev), Ya.to(dev), Yf.to(dev), ri_d, si_d)
+    return fn(Xa.to(dev), Xf.to(dev), Ya.to(dev), Yf.to(dev), *rows)

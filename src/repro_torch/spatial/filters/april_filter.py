@@ -80,13 +80,13 @@ class AprilFilter(IntermediateFilter):
 
     def status_lane(self, approx_r, approx_s, ri, si, *,
                     predicate: str = "intersects", backend: str = "numpy",
-                    device=None, order: tuple[str, ...] = _DEFAULT_ORDER,
-                    **opts):
+                    device=None, rows=None,
+                    order: tuple[str, ...] = _DEFAULT_ORDER, **opts):
         """The trichotomy of every frame row on the device, through
-        ``join.fused_status_rows``. The sequential backend and a join order
-        other than the full three-join set (which leaves AA survivors
-        INDECISIVE) keep the uploaded host lane, so fused == staged row for
-        row."""
+        ``join.fused_status_rows`` (over ``rows``, the frame's device copies,
+        when given). The sequential backend and a join order other than the
+        full three-join set (which leaves AA survivors INDECISIVE) keep the
+        uploaded host lane, so fused == staged row for row."""
         check_predicate(predicate)
         join.check_filter_backend(backend)
         if backend == "sequential" or set(order) != set(_DEFAULT_ORDER):
@@ -98,7 +98,7 @@ class AprilFilter(IntermediateFilter):
         return join.fused_status_rows(
             self._lists(approx_r, "A"), self._lists(approx_r, "F"),
             self._lists(approx_s, "A"), self._lists(approx_s, "F"), ri, si,
-            backend=backend, device=device)
+            rows=rows, backend=backend, device=device)
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate,
                      order: tuple[str, ...] = _DEFAULT_ORDER) -> int:

@@ -108,13 +108,15 @@ class IntermediateFilter(abc.ABC):
     def status_lane(self, approx_r: Approximation, approx_s: Approximation,
                     ri: np.ndarray, si: np.ndarray, *,
                     predicate: str = "intersects", backend: str = "numpy",
-                    device=None, **opts) -> torch.Tensor:
+                    device=None, rows=None, **opts) -> torch.Tensor:
         """Device int8 status lane [N] over the fused chain's pair frame.
 
-        ``ri``/``si`` are the host-known candidate frame. The default
-        computes the batched host :meth:`verdicts` and uploads them; filters
-        whose stores live on the device override it with a lane computed
-        there. Verdicts are row-identical to :meth:`verdicts`.
+        ``ri``/``si`` are the host-known candidate frame and ``rows`` its
+        copies on ``device``, when the caller has them. The default
+        computes the batched host :meth:`verdicts` and uploads them (it
+        needs no ``rows``); filters whose stores live on the device override
+        it with a lane computed there. Verdicts are row-identical to
+        :meth:`verdicts`.
         """
         dev = resolve_device(device)
         ri = np.asarray(ri, np.int64)

@@ -31,7 +31,7 @@ from .mbr_join import _prepare, candidate_rows, pair_mask_lane
 
 __all__ = ["PIPELINE_MODES", "check_pipeline_mode", "to_host",
            "CandidateSet", "Stage", "StagePlan", "build_stage_plan",
-           "execute_fused", "forbid_syncs"]
+           "execute_fused", "record_chains"]
 
 #: execution modes of JoinPlan: 'staged' materializes each stage's
 #: survivors on the host, 'fused' keeps the chain on the device with one
@@ -54,21 +54,23 @@ def to_host(*lanes: torch.Tensor) -> tuple[np.ndarray, ...]:
                  else row.astype(bool) for row, t in zip(packed, lanes))
 
 
-_FORBID_SYNCS = False
+_CHAIN_LOG: list | None = None
 
 
 @contextlib.contextmanager
-def forbid_syncs():
-    """Run the chain's stages of every fused execution inside the block
-    under ``torch.cuda.set_sync_debug_mode("error")``, so that a host sync
-    before the final gather raises. The mode is restored before
-    :func:`to_host`."""
-    global _FORBID_SYNCS
-    prev, _FORBID_SYNCS = _FORBID_SYNCS, True
+def record_chains():
+    """Collect the :class:`CandidateSet` of every fused execution run inside
+    the block, as its stages left it before the gather, one per execution:
+    the device frame ``ri_dev``/``si_dev`` the status lane was computed on,
+    the ``valid`` and ``status`` lanes, and so the INDECISIVE lane
+    (``status == INDECISIVE``) the compaction was given. The kernels can
+    then be replayed on exactly what a join gave them."""
+    global _CHAIN_LOG
+    prev, _CHAIN_LOG = _CHAIN_LOG, []
     try:
-        yield
+        yield _CHAIN_LOG
     finally:
-        _FORBID_SYNCS = prev
+        _CHAIN_LOG = prev
 
 
 # ---------------------------------------------------------------------------
@@ -81,14 +83,17 @@ class CandidateSet:
 
     The pair frame ``(ri, si)`` is host-known: it comes out of grid-hash
     preprocessing over host MBR tables, so holding it costs no device
-    sync. Everything data-dependent lives in device lanes over that frame:
-    ``valid`` (MBR test and ownership; ``None`` means the frame is
-    pre-filtered on the host), ``status`` (the int8 trichotomy, invalid
-    rows TRUE_NEG), ``hit`` / ``unc`` (refined verdicts and borderline
-    flags). No stage materializes a lane.
+    sync. It is uploaded once, as ``ri_dev``/``si_dev``, and every stage
+    reads those copies. Everything data-dependent lives in device lanes
+    over that frame: ``valid`` (MBR test and ownership; ``None`` means the
+    frame is pre-filtered on the host), ``status`` (the int8 trichotomy,
+    invalid rows TRUE_NEG), ``hit`` / ``unc`` (refined verdicts and
+    borderline flags). No stage materializes a lane.
     """
     ri: np.ndarray                        # [N] int64 host frame, R indices
     si: np.ndarray                        # [N] int64 host frame, S indices
+    ri_dev: torch.Tensor | None = None    # [N] device int64 copy of ri
+    si_dev: torch.Tensor | None = None    # [N] device int64 copy of si
     valid: torch.Tensor | None = None     # [N] device bool
     status: torch.Tensor | None = None    # [N] device int8
     hit: torch.Tensor | None = None       # [N] device bool
@@ -117,21 +122,13 @@ class StagePlan:
 
     def run(self, cs: CandidateSet | None = None,
             stats=None) -> CandidateSet:
-        guard = _FORBID_SYNCS and torch.cuda.is_available()
-        if guard:
-            prev = torch.cuda.get_sync_debug_mode()
-            torch.cuda.set_sync_debug_mode("error")
-        try:
-            for st in self.stages:
-                t0 = time.perf_counter()
-                cs = st.fn(cs)
-                if stats is not None:
-                    name = "t_" + st.name
-                    setattr(stats, name, getattr(stats, name, 0.0)
-                            + time.perf_counter() - t0)
-        finally:
-            if guard:
-                torch.cuda.set_sync_debug_mode(prev)
+        for st in self.stages:
+            t0 = time.perf_counter()
+            cs = st.fn(cs)
+            if stats is not None:
+                name = "t_" + st.name
+                setattr(stats, name, getattr(stats, name, 0.0)
+                        + time.perf_counter() - t0)
         return cs
 
 
@@ -147,10 +144,10 @@ def _empty_cs() -> CandidateSet:
 def build_stage_plan(plan, predicate: str) -> StagePlan:
     """The three-stage fused chain of one ``JoinPlan`` execution.
 
-    * ``mbr`` — host grid-hash preprocessing producing the pair frame; with
-      ``mbr_backend="torch"`` the intersection and ownership test stays a
-      device ``valid`` lane, otherwise the frame is pre-filtered on the
-      host.
+    * ``mbr`` — host grid-hash preprocessing producing the pair frame,
+      uploaded once; with ``mbr_backend="torch"`` the intersection and
+      ownership test stays a device ``valid`` lane, otherwise the frame is
+      pre-filtered on the host.
     * ``filter`` — the filter's ``status_lane`` over the frame, with
       invalid rows set to TRUE_NEG.
     * ``refine`` — on-device compaction of the INDECISIVE lane
@@ -164,12 +161,18 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
     """
     dev = plan.device
 
+    def frame(ri, si) -> CandidateSet:
+        ri = np.ascontiguousarray(ri, np.int64)
+        si = np.ascontiguousarray(si, np.int64)
+        return CandidateSet(ri=ri, si=si, ri_dev=upload(ri, dev),
+                            si_dev=upload(si, dev))
+
     def mbr_stage(_):
         if plan.mbr_backend != "torch":
             pairs = plan.candidates(predicate)
             if len(pairs) == 0:
                 return _empty_cs()
-            return CandidateSet(ri=pairs[:, 0], si=pairs[:, 1])
+            return frame(pairs[:, 0], pairs[:, 1])
         mbrs_r, mbrs_s, k, extent = _prepare(plan.R.mbrs, plan.S.mbrs,
                                              plan.mbr_grid)
         if k == 0:
@@ -178,16 +181,18 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
                                                           extent)
         if len(ri) == 0:
             return _empty_cs()
-        valid = pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x,
-                               own_y, dev)
-        return CandidateSet(ri=ri, si=si, valid=valid)
+        cs = frame(ri, si)
+        cs.valid = pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, cs.ri_dev,
+                                  cs.si_dev, own_x, own_y, dev)
+        return cs
 
     def filter_stage(cs):
         if len(cs) == 0:
             return cs
         lane = plan.filter.status_lane(
             plan.approx_r, plan.approx_s, cs.ri, cs.si, predicate=predicate,
-            backend=plan.filter_backend, device=dev, **plan.filter_opts)
+            backend=plan.filter_backend, device=dev,
+            rows=(cs.ri_dev, cs.si_dev), **plan.filter_opts)
         if cs.valid is not None:
             lane = torch.where(cs.valid, lane, TRUE_NEG)
         cs.status = lane
@@ -199,9 +204,8 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
         compact = (compact_mask if plan.refine_backend == "cuda"
                    else compact_mask_plain)
         perm, count = compact(cs.status == INDECISIVE)
-        res, unc = RF.fused_refine_lanes(plan.R, plan.S, upload(cs.ri, dev),
-                                         upload(cs.si, dev), perm, count,
-                                         dev)
+        res, unc = RF.fused_refine_lanes(plan.R, plan.S, cs.ri_dev,
+                                         cs.si_dev, perm, count, dev)
         perm = perm.to(torch.int64)
         N = len(cs)
         hit_ref = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -234,14 +238,15 @@ def execute_fused(plan, predicate: str, stats):
     RF.device_geometry(plan.R, plan.device)
     RF.device_geometry(plan.S, plan.device)
     cs = build_stage_plan(plan, predicate).run(stats=stats)
+    if _CHAIN_LOG is not None:
+        _CHAIN_LOG.append(cs)
 
     t0 = time.perf_counter()
     stats.extra.update(n_frame=len(cs), n_escalated=0)
     if len(cs) == 0:
         stats.t_sync = time.perf_counter() - t0
         return np.zeros((0, 2), np.int64), stats
-    frame = np.stack([np.asarray(cs.ri, np.int64),
-                      np.asarray(cs.si, np.int64)], axis=1)
+    frame = np.stack([cs.ri, cs.si], axis=1)
     lanes = (cs.status, cs.hit, cs.unc)
     if cs.valid is not None:
         lanes += (cs.valid,)

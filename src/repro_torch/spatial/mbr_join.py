@@ -197,16 +197,17 @@ def _pair_mask(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x, own_y):
 def pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x, own_y,
                    device) -> torch.Tensor:
     """The pair test of :func:`_pair_mask` as a [N] bool lane on
-    ``device``, in float64 (float32 would merge nearby MBR borders). Every
-    operand is uploaded without a host sync and nothing is read back, so
-    the fused chain takes the lane as its ``valid`` lane. Eager PyTorch
-    compiles nothing per shape, so no row padding is needed."""
+    ``device``, in float64 (float32 would merge nearby MBR borders).
+    ``ri``/``si`` are the co-bucket frame's int64 rows already on
+    ``device`` (the fused chain uploads its frame once); the other operands
+    are uploaded here without a host sync and nothing is read back, so the
+    chain takes the lane as its ``valid`` lane. Eager PyTorch compiles
+    nothing per shape, so no row padding is needed."""
     dev = torch.device(device)
     mr, ms = (upload(np.asarray(m, np.float64), dev)
               for m in (mbrs_r, mbrs_s))
     lor, los = (upload(np.asarray(lo, np.int64), dev) for lo in (lo_r, lo_s))
-    ri, si, ox, oy = (upload(np.asarray(x, np.int64), dev)
-                      for x in (ri, si, own_x, own_y))
+    ox, oy = (upload(np.asarray(x, np.int64), dev) for x in (own_x, own_y))
     a = mr[ri]
     b = ms[si]
     hit = ((a[:, 0] <= b[:, 2]) & (b[:, 0] <= a[:, 2])
@@ -286,8 +287,9 @@ def mbr_join(mbrs_r: np.ndarray, mbrs_s: np.ndarray,
     if len(ri) == 0:
         return np.zeros((0, 2), np.int64)
     if backend == "torch":
-        keep = pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x,
-                              own_y, dev).cpu().numpy()
+        keep = pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, upload(ri, dev),
+                              upload(si, dev), own_x, own_y,
+                              dev).cpu().numpy()
     else:
         keep = _pair_mask(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x, own_y)
     return np.stack([ri[keep], si[keep]], axis=1)

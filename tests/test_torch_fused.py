@@ -31,6 +31,9 @@ from repro.spatial import refine as rrefine  # noqa: E402
 
 from repro_torch import JoinPlan, JoinStats, make_dataset, state  # noqa: E402
 from repro_torch.core import geometry  # noqa: E402
+from repro_torch.core.join import INDECISIVE, TRUE_NEG  # noqa: E402
+from repro_torch.kernels.interval_join import (  # noqa: E402
+    april_trichotomy_plain)
 from repro_torch.kernels.compact import (compact_mask,  # noqa: E402
                                          compact_mask_plain)
 from repro_torch.spatial import PIPELINE_MODES, fused, refine  # noqa: E402
@@ -187,7 +190,8 @@ def test_pair_mask_lane_matches_reference(scale, shift):
             jnp, jnp.asarray(a), jnp.asarray(b), jnp.asarray(lo_r),
             jnp.asarray(lo_s), jnp.asarray(ri), jnp.asarray(si),
             jnp.asarray(ox), jnp.asarray(oy)))
-    lane = pair_mask_lane(a, b, lo_r, lo_s, ri, si, ox, oy, "cpu")
+    lane = pair_mask_lane(a, b, lo_r, lo_s, torch.from_numpy(ri),
+                          torch.from_numpy(si), ox, oy, "cpu")
     assert lane.dtype == torch.bool
     np.testing.assert_array_equal(lane.numpy(), want)
     oracle = set(map(tuple, np.argwhere(mbr_intersect_mask(mr, ms))
@@ -377,6 +381,32 @@ def test_fused_random_star_batches(seed):
     np.testing.assert_array_equal(got, ref)
     for k in COUNTS:
         assert getattr(st, k) == getattr(rst, k), k
+
+
+@pytest.mark.parametrize("mbr_backend", ["numpy", "torch"])
+def test_record_chains_keeps_each_runs_inputs(t1t2, mbr_backend):
+    """``record_chains`` keeps one CandidateSet per fused execution: its
+    device frame is the host frame, uploaded once, its status lane is the
+    plain trichotomy over that frame under the valid lane, and its
+    INDECISIVE lane is the one the join counted."""
+    _, _, _, R, S = t1t2
+    plan = JoinPlan(R, S, filter="april", n_order=8, device="cpu",
+                    pipeline_mode="fused", mbr_backend=mbr_backend).build()
+    with fused.record_chains() as chains:
+        _, st = plan.execute("intersects")
+    plan.execute("intersects")
+    (cs,) = chains
+    assert torch.equal(cs.ri_dev, torch.from_numpy(cs.ri))
+    assert torch.equal(cs.si_dev, torch.from_numpy(cs.si))
+    assert (cs.valid is None) == (mbr_backend == "numpy")
+    lists = [plan.filter._lists(a, k).to("cpu")
+             for a in (plan.approx_r, plan.approx_s) for k in ("A", "F")]
+    want = april_trichotomy_plain(*lists, cs.ri_dev, cs.si_dev)
+    if cs.valid is not None:
+        assert len(cs) > st.n_candidates
+        want = torch.where(cs.valid, want, TRUE_NEG)
+    assert torch.equal(cs.status, want)
+    assert int((cs.status == INDECISIVE).sum()) == st.n_indecisive > 0
 
 
 def test_pipeline_modes():
