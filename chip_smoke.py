@@ -36,16 +36,35 @@ reference package. Phases, any failure exits non-zero:
    (the status lane the run wrote must equal the plain version under its
    ``valid`` lane), and the compaction kernel against its plain version
    and the argsort oracle on each fused run's INDECISIVE lane;
-5. each staged main path and the fused default run once more under
-   ``torch.profiler``: device time per kernel and the device busy share of
-   the host wall time;
-6. each kernel timed at the main path's shapes with CUDA events beside
+5. the RI path, ``JoinPlan(R, S, filter="ri", n_order=12)`` on the same
+   datasets: the RI build (host set-up, timed on its own line) and the
+   port's numpy RI verdicts of every candidate; the ALIGNEDAND kernel
+   (``ri_trichotomy``) held exactly against its plain version on a random
+   code-stream sweep (the stores' code bits replaced by random bits of
+   three densities, re-encoding off and on, over the candidate frame and
+   65,536 random rows); then the join staged, fused with ``mbr_backend``
+   ``"numpy"`` and fused with ``"torch"``, launch counts reset before and
+   read after each run. The staged run's verdicts, replayed by the kernel
+   on the frame it recorded (``ri.record_frames``), equal the plain
+   version and the numpy verdicts row for row, and its result set equals
+   the APRIL run's; the fused runs give the staged pairs, order and
+   counts, their stages pass ``set_sync_debug_mode("error")``, and the
+   kernel equals its plain version on each recorded frame;
+6. the host filters ``none``, ``5cch``, ``ra`` and ``april-c`` at the
+   ``DATASET_SPECS`` counts (T1 1200 x T2 4000, ``n_order=12``), staged and
+   fused: each one's staged and fused pairs, order and counts equal, and
+   equal as sets the APRIL result at that size;
+7. the staged APRIL runs, the fused APRIL run and the staged RI run once
+   more under ``torch.profiler``: device time per kernel and the device
+   busy share of the host wall time (the RI kernel must show launches);
+8. each kernel timed at the main path's shapes with CUDA events beside
    its plain version and, for the scan, the library calls that compute the
    same function (a stable ``torch.argsort`` and a sum, ``library_ms``)
    and the scan alone (``torch.cumsum``, printed beside it), printed as one
    JSON ``kernels`` line.
 
-The last line is ``{"ok": true, "device": {...}}``.
+Each phase prints its seconds. The last line is ``{"ok": true, "device":
+{...}}``.
 """
 from __future__ import annotations
 
@@ -56,6 +75,8 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+
+import numpy as np
 
 #: published H100 SXM peaks (NVIDIA data sheet) for the roofline bounds
 HBM_BYTES_PER_S = 3.35e12
@@ -70,7 +91,12 @@ REPS = 5
 #: the port's own kernels, by the names the profiler's trace gives them
 PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
                 "edges_intersect_kernel", "tile_counts_kernel",
-                "scan_sums_kernel", "scatter_kernel")
+                "scan_sums_kernel", "scatter_kernel", "ri_trichotomy_kernel")
+#: random rows and code-bit densities of the RI kernel's stream sweep
+RI_SWEEP_ROWS = 65536
+RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
+COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
+          "n_results")
 
 
 def _ms(fn) -> float:
@@ -130,11 +156,116 @@ def _profile(fn) -> dict:
             "port_kernels_us_and_launches": ours}
 
 
+def _reset(wrappers) -> None:
+    for fn in wrappers:
+        fn.launches = 0
+
+
+def _same_run(label, res, st, want, want_st) -> None:
+    """Pairs, their order and the five JoinStats counts equal."""
+    if res.shape != want.shape or not np.array_equal(res, want):
+        raise AssertionError(f"[{label}] pairs or their order differ")
+    for k in COUNTS:
+        if getattr(st, k) != getattr(want_st, k):
+            raise AssertionError(f"[{label}] {k} differs")
+
+
+def _pair_set(res) -> set:
+    return set(map(tuple, res.tolist()))
+
+
+def _sync_checked(run, label, status) -> None:
+    """The fused chain's stages once more, where any host sync before the
+    gather raises; they must write the same status lane."""
+    import torch
+    from repro_torch.spatial import fused
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = fused.build_stage_plan(run, "intersects").run()
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    if not torch.equal(again.status, status):
+        raise AssertionError(f"[{label}] the sync-checked chain wrote "
+                             "another status lane")
+
+
+def _ri_bound_bytes(x, y, ri, si, xor_y) -> int:
+    """Bytes the RI filter must move over rows (ri, si), each input read
+    once: the row indices and the verdicts; the offsets and the interval
+    lists (start, end and bit offset of each interval) of every object the
+    rows name; and the code words that the fragments cover on both sides,
+    counting each row's fragments up to its first hit (the merge stops
+    there)."""
+    import torch
+    from repro_torch.kernels.ri_and.ref import (_word_buckets,
+                                                aligned_and_plain,
+                                                ri_fragments_plain)
+    n = ri.numel()
+    dev = ri.device
+    ux, uy = torch.unique(ri), torch.unique(si)
+    n_int = int((x.off[ux + 1] - x.off[ux]).sum()
+                + (y.off[uy + 1] - y.off[uy]).sum())
+    b, gx, gy, lo, hi = ri_fragments_plain(x, y, ri, si)
+    n_bits = 3 * (hi - lo)
+    x_bit = x.bit_off[gx] + 3 * (lo - x.starts[gx].to(torch.int64))
+    y_bit = y.bit_off[gy] + 3 * (lo - y.starts[gy].to(torch.int64))
+    hit = torch.zeros(b.numel(), dtype=torch.bool, device=dev)
+    for sel in _word_buckets((n_bits + 31) // 32):
+        hit[sel] = aligned_and_plain(x.words, x_bit[sel], y.words, y_bit[sel],
+                                     n_bits[sel], xor_y)
+    f = torch.arange(b.numel(), device=dev)
+    first = torch.full((n,), b.numel(), dtype=torch.int64, device=dev)
+    first.scatter_reduce_(0, b[hit], f[hit], "amin")
+    need = f <= first[b]
+    words = 0
+    for st, bit in ((x, x_bit[need]), (y, y_bit[need])):
+        # the union of the word ranges [bit / 32, (bit + n_bits - 1) / 32]
+        diff = torch.zeros(st.words.numel() + 1, dtype=torch.int32,
+                           device=dev)
+        ones = torch.ones(bit.numel(), dtype=torch.int32, device=dev)
+        diff.index_add_(0, bit >> 5, ones)
+        diff.index_add_(0, ((bit + n_bits[need] - 1) >> 5) + 1, -ones)
+        words += int((torch.cumsum(diff, 0) > 0).sum())
+    return n * (16 + 1) + 16 * (ux.numel() + uy.numel() + n_int) + 4 * words
+
+
+def _ri_sweep(X, Y, rows_list, dev) -> int:
+    """The RI kernel against its plain version, exactly, with the stores'
+    code streams replaced by random bits of each density, re-encoding off
+    and on; returns the rows compared."""
+    import torch
+    from repro_torch.kernels.ri_and import (pack_stream_words, ri_trichotomy,
+                                            ri_trichotomy_plain)
+    rng = np.random.default_rng(13)
+    n = 0
+    for dens in RI_SWEEP_DENSITIES:
+        xr, yr = (st._replace(words=torch.from_numpy(pack_stream_words(
+            (rng.random(int(st.bit_off[-1])) < dens).astype(np.uint8)))
+            .to(dev)) for st in (X, Y))
+        for xor_y in (False, True):
+            for rows in rows_list:
+                got = ri_trichotomy(xr, yr, *rows, xor_y)
+                want = ri_trichotomy_plain(xr, yr, *rows, xor_y)
+                torch.cuda.synchronize()
+                if not torch.equal(got, want):
+                    raise AssertionError(
+                        f"ri_trichotomy kernel != plain version on random "
+                        f"codes of density {dens}, xor_y={xor_y}")
+                n += rows[0].numel()
+    return n
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--r-count", type=int, default=3600)
     ap.add_argument("--s-count", type=int, default=12000)
     ap.add_argument("--n-order", type=int, default=12)
+    ap.add_argument("--host-r-count", type=int, default=1200,
+                    help="T1 count of the host filters' runs")
+    ap.add_argument("--host-s-count", type=int, default=4000,
+                    help="T2 count of the host filters' runs")
     args = ap.parse_args()
 
     import torch
@@ -143,7 +274,6 @@ def main() -> int:
               "card", file=sys.stderr)
         return 1
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    import numpy as np
     from repro_torch import JoinPlan, make_dataset
     from repro_torch.core import geometry
     from repro_torch.core.join import INDECISIVE, TRUE_NEG
@@ -153,6 +283,8 @@ def main() -> int:
         april_trichotomy, april_trichotomy_plain, interval_overlap,
         interval_overlap_plain)
     from repro_torch.kernels.refine import edges_intersect, edges_intersect_plain
+    from repro_torch.kernels.ri_and import ri_trichotomy, ri_trichotomy_plain
+    from repro_torch.core import ri as ri_mod
     from repro_torch.spatial import fused
     from repro_torch.spatial import refine as refine_mod
 
@@ -173,6 +305,7 @@ def main() -> int:
           flush=True)
 
     # 3. kernels against their plain versions on the card, exactly
+    t_phase = time.perf_counter()
     t0 = time.perf_counter()
     R = make_dataset("T1", seed=0, count=args.r_count)
     S = make_dataset("T2", seed=1, count=args.s_count)
@@ -242,17 +375,18 @@ def main() -> int:
         print(f"compact_mask lane {name}: {m.numel()} rows, count {int(kc)}"
               " == plain == oracle", flush=True)
     print(f"phase 3 ok: trichotomy, overlap and compaction kernels == plain "
-          f"versions; {len(ri_aa)} AA survivors", flush=True)
+          f"versions; {len(ri_aa)} AA survivors "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # 4. the main path, default order then the degenerate order; the edge
     # sweep's inputs are recorded from the path itself
+    t_phase = time.perf_counter()
     wrappers = (april_trichotomy, interval_overlap, edges_intersect,
                 compact_mask)
     launches, results, stats, sweeps = {}, {}, {}, {}
     for label, opts in (("default", {}),
                         ("degenerate", {"order": ("AA", "AF")})):
-        for fn in wrappers:
-            fn.launches = 0
+        _reset(wrappers)
         t0 = time.perf_counter()
         run = JoinPlan(R, S, filter="april", n_order=args.n_order,
                        filter_opts=opts).build(
@@ -272,19 +406,13 @@ def main() -> int:
             prebuilt=(plan.approx_r, plan.approx_s)).execute("intersects")
         print(f"numpy reference [{label}] {time.perf_counter() - t0:.2f} s",
               flush=True)
-        if res.shape != ref.shape or not np.array_equal(res, ref):
-            raise AssertionError(f"[{label}] cuda pairs != numpy pairs")
-        for k in ("n_candidates", "n_true_hits", "n_true_negs",
-                  "n_indecisive", "n_results"):
-            if getattr(st, k) != getattr(rst, k):
-                raise AssertionError(f"[{label}] {k} differs")
+        _same_run(label, res, st, ref, rst)
         results[label] = res
         stats[label] = st
     # the fused chain, both MBR backends, each run's frame and lanes recorded
     for mb in ("numpy", "torch"):
         label = f"fused-{mb}"
-        for fn in wrappers:
-            fn.launches = 0
+        _reset(wrappers)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         run = JoinPlan(R, S, filter="april", n_order=args.n_order,
@@ -304,31 +432,13 @@ def main() -> int:
               f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB",
               flush=True)
         print(json.dumps(st.to_dict()), flush=True)
-        if res.shape != results["default"].shape \
-                or not np.array_equal(res, results["default"]):
-            raise AssertionError(f"[{label}] pairs != the staged cuda run's")
-        for k in ("n_candidates", "n_true_hits", "n_true_negs",
-                  "n_indecisive", "n_results"):
-            if getattr(st, k) != getattr(stats["default"], k):
-                raise AssertionError(f"[{label}] {k} differs from staged")
+        _same_run(label, res, st, results["default"], stats["default"])
         if launches[label]["edges_intersect"] != 0:
             raise AssertionError(f"[{label}] the fused chain ran the float32 "
                                  "edge sweep")
         stats[label] = st
-        # the chain's stages once more, where any host sync before the
-        # gather raises; they must write the same status lane
         (cs,) = chains
-        prev = torch.cuda.get_sync_debug_mode()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            again = fused.build_stage_plan(run, "intersects").run()
-        finally:
-            torch.cuda.set_sync_debug_mode(prev)
-        torch.cuda.synchronize()
-        if not torch.equal(again.status, cs.status):
-            raise AssertionError(f"[{label}] the sync-checked chain wrote "
-                                 "another status lane")
-        del again
+        _sync_checked(run, label, cs.status)
         # B1 on the run's whole device frame, and B3 on the INDECISIVE lane
         # the run's compaction was given, against their plain versions
         got = april_trichotomy(*tri, cs.ri_dev, cs.si_dev)
@@ -397,19 +507,162 @@ def main() -> int:
     print(f"phase 4 ok: staged pairs and order == numpy path, fused == "
           f"staged; {len(sample)} sampled candidates == float64 oracle; edge "
           f"sweep kernel == plain version on {len(sweeps['default'])} + "
-          f"{len(sweeps['degenerate'])} recorded buckets", flush=True)
+          f"{len(sweeps['degenerate'])} recorded buckets "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
-    # 5. where the device time of each main path goes
-    for label, opts in (("default", {}),
-                        ("degenerate", {"filter_opts": {"order": ("AA",
-                                                                  "AF")}}),
-                        ("fused-numpy", {"pipeline_mode": "fused"})):
-        run = JoinPlan(R, S, filter="april", n_order=args.n_order,
-                       **opts).build(prebuilt=(plan.approx_r, plan.approx_s))
+    # 5. the RI path: set-up, the kernel on random code streams, then the
+    # join staged and fused, each run's frame recorded
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    ri_plan = JoinPlan(R, S, filter="ri", n_order=args.n_order).build()
+    ri_r, ri_s = ri_plan.approx_r, ri_plan.approx_s
+    print(f"host: RI build {time.perf_counter() - t0:.1f} s, "
+          f"{len(ri_r.store.ints) + len(ri_s.store.ints)} intervals, "
+          f"{len(ri_r.store.bits) + len(ri_s.store.bits)} code bits",
+          flush=True)
+    t0 = time.perf_counter()
+    ri_numpy = ri_plan.filter.verdicts(ri_r, ri_s, cands, backend="numpy")
+    print(f"host: numpy RI verdicts of {len(cands)} candidates "
+          f"{time.perf_counter() - t0:.1f} s, TRUE_NEG/TRUE_HIT/INDECISIVE "
+          f"{np.bincount(ri_numpy, minlength=3).tolist()}", flush=True)
+    ri_x = ri_plan.filter._device(ri_r).to(dev)
+    ri_y = ri_plan.filter._device(ri_s).to(dev)
+    rng = np.random.default_rng(11)
+    rand_rows = tuple(torch.from_numpy(rng.integers(0, n, RI_SWEEP_ROWS))
+                      .to(dev) for n in (len(R), len(S)))
+    n_swept = _ri_sweep(ri_x, ri_y, [(ri_all, si_all), rand_rows], dev)
+    print(f"ri_trichotomy kernel == plain version on {n_swept} rows of "
+          f"random code streams (densities {list(RI_SWEEP_DENSITIES)}, "
+          f"xor_y off and on); tolerance: exact", flush=True)
+    wrappers += (ri_trichotomy,)
+    for label, opts in (("ri-staged", {}),
+                        ("ri-fused-numpy", {"pipeline_mode": "fused"}),
+                        ("ri-fused-torch", {"pipeline_mode": "fused",
+                                            "mbr_backend": "torch"})):
+        _reset(wrappers)
+        t0 = time.perf_counter()
+        run = JoinPlan(R, S, filter="ri", n_order=args.n_order,
+                       **opts).build(prebuilt=(ri_r, ri_s))
+        with ri_mod.record_frames() as frames, \
+                fused.record_chains() as chains:
+            res, st = run.execute("intersects")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        print(f"main path [{label}] {wall:.2f} s; launches "
+              f"{json.dumps(launches[label])}; t_mbr {st.t_mbr:.4f} s, "
+              f"t_filter {st.t_filter:.4f} s, t_refine {st.t_refine:.4f} s, "
+              f"t_sync {st.t_sync:.4f} s", flush=True)
+        print(json.dumps(st.to_dict()), flush=True)
+        ((x, y, fr, fs, xor_y),) = frames
+        got = ri_trichotomy(x, y, fr, fs, xor_y)
+        want = ri_trichotomy_plain(x, y, fr, fs, xor_y)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[{label}] ri_trichotomy kernel != plain "
+                                 "version on the run's frame")
+        if label == "ri-staged":
+            if not np.array_equal(got.cpu().numpy(), ri_numpy):
+                raise AssertionError("[ri-staged] verdicts != the numpy RI "
+                                     "verdicts")
+            counts = np.bincount(ri_numpy, minlength=3)
+            if (st.n_true_negs, st.n_true_hits, st.n_indecisive) \
+                    != tuple(counts.tolist()):
+                raise AssertionError("[ri-staged] counts != numpy verdicts")
+            if _pair_set(res) != _pair_set(results["default"]):
+                raise AssertionError("[ri-staged] result set != the APRIL "
+                                     "run's")
+            results[label], stats[label] = res, st
+            detail = "verdicts == numpy RI verdicts; set == APRIL's"
+        else:
+            _same_run(label, res, st, results["ri-staged"],
+                      stats["ri-staged"])
+            (cs,) = chains
+            wrote = want if cs.valid is None else torch.where(
+                cs.valid, want, TRUE_NEG)
+            if fr is not cs.ri_dev or not torch.equal(cs.status, wrote):
+                raise AssertionError(f"[{label}] the status lane != the "
+                                     "plain RI verdicts of the run's frame")
+            _sync_checked(run, label, cs.status)
+            detail = ("== staged pairs, order and counts; stages passed "
+                      "set_sync_debug_mode('error')")
+            del cs
+        if launches[label]["ri_trichotomy"] <= 0:
+            raise AssertionError(f"[{label}] ri_trichotomy never launched")
+        need = "edges_intersect" if label == "ri-staged" else "compact_mask"
+        if launches[label][need] <= 0:
+            raise AssertionError(f"[{label}] {need} never launched")
+        print(f"[{label}] ri_trichotomy kernel == plain version on the "
+              f"recorded {fr.numel()}-row frame; {detail}", flush=True)
+        del frames, chains, got, want
+    print(f"phase 5 ok: RI path ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
+
+    # 6. the host filters at the DATASET_SPECS counts, staged and fused
+    t_phase = time.perf_counter()
+    R2 = make_dataset("T1", seed=0, count=args.host_r_count)
+    S2 = make_dataset("T2", seed=1, count=args.host_s_count)
+    want_set = _pair_set(JoinPlan(R2, S2, filter="april",
+                                  n_order=args.n_order).build().execute(
+        "intersects")[0])
+    for name in ("none", "5cch", "ra", "april-c"):
+        t0 = time.perf_counter()
+        host_plan = JoinPlan(R2, S2, filter=name, n_order=args.n_order).build()
+        t_build = time.perf_counter() - t0
+        runs = {}
+        for mode in ("staged", "fused"):
+            label = f"{name}-{mode}"
+            _reset(wrappers)
+            t0 = time.perf_counter()
+            res, st = JoinPlan(R2, S2, filter=name, n_order=args.n_order,
+                               pipeline_mode=mode).build(
+                prebuilt=(host_plan.approx_r, host_plan.approx_s)).execute(
+                "intersects")
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+            print(f"[{label}] {wall:.2f} s; launches "
+                  f"{json.dumps(launches[label])}; "
+                  f"{json.dumps(st.to_dict())}", flush=True)
+            need = ["compact_mask"] if mode == "fused" else \
+                ["edges_intersect"] + (["interval_overlap"]
+                                       if name == "april-c" else [])
+            for k in need:
+                if launches[label][k] <= 0:
+                    raise AssertionError(f"[{label}] {k} never launched")
+            runs[mode] = (res, st)
+        _same_run(f"{name}-fused", *runs["fused"], *runs["staged"])
+        if _pair_set(runs["staged"][0]) != want_set:
+            raise AssertionError(f"[{name}] result set != the APRIL run's")
+        print(f"[{name}] build {t_build:.2f} s; staged == fused pairs, order "
+              f"and counts; set == APRIL's ({len(want_set)} pairs)",
+              flush=True)
+    print(f"phase 6 ok: host filters at {len(R2)} x {len(S2)} "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+
+    # 7. where the device time of each main path goes
+    t_phase = time.perf_counter()
+    for label, filt, opts in (
+            ("default", "april", {}),
+            ("degenerate", "april", {"filter_opts": {"order": ("AA",
+                                                               "AF")}}),
+            ("fused-numpy", "april", {"pipeline_mode": "fused"}),
+            ("ri-staged", "ri", {})):
+        pre = (ri_r, ri_s) if filt == "ri" else (plan.approx_r,
+                                                 plan.approx_s)
+        run = JoinPlan(R, S, filter=filt, n_order=args.n_order,
+                       **opts).build(prebuilt=pre)
         prof = _profile(lambda: run.execute("intersects"))
         print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
+    ri_prof = prof["port_kernels_us_and_launches"].get("ri_trichotomy_kernel")
+    if not ri_prof or ri_prof[1] <= 0:
+        raise AssertionError("the RI profile shows no ri_trichotomy_kernel "
+                             "launch")
+    print(f"phase 7 ok: profiles ({time.perf_counter() - t_phase:.1f} s)",
+          flush=True)
 
-    # 6. kernels at the main path's shapes, beside their plain versions
+    # 8. kernels at the main path's shapes, beside their plain versions
+    t_phase = time.perf_counter()
     rows = ri_all.numel()
     tri_bytes = _nbytes(*(t for L in tri for t in L), ri_all, si_all) + rows
     ov_bytes = _nbytes(*lists["xa"], *lists["ya"], ri_all, si_all) + rows
@@ -444,6 +697,10 @@ def main() -> int:
         "exclusive_scan": (
             _ms(lambda: compact_mask(indec_mask)),
             _ms(lambda: compact_mask_plain(indec_mask))),
+        "ri_trichotomy": (
+            _ms(lambda: ri_trichotomy(ri_x, ri_y, ri_all, si_all, False)),
+            _ms(lambda: ri_trichotomy_plain(ri_x, ri_y, ri_all, si_all,
+                                            False))),
     }
     # the library calls that compute the scan's function (perm and count),
     # and the scan alone, which does no permutation and no scatter
@@ -457,12 +714,16 @@ def main() -> int:
           f"{cumsum_ms} ms", flush=True)
     k_perm, k_count = compact_mask(indec_mask)
     p_perm, p_count = compact_mask_plain(indec_mask)
+    k_ri = ri_trichotomy(ri_x, ri_y, ri_all, si_all, False)
+    p_ri = ri_trichotomy_plain(ri_x, ri_y, ri_all, si_all, False)
     bounds = {
         "april_trichotomy": (tri_bytes, 0),
         "interval_overlap": (ov_bytes, 0),
         "edges_intersect": (sweep_bytes, couples * SWEEP_OPS_PER_COUPLE),
         # a bool read and an int32 written per row, and the int32 count
         "exclusive_scan": (rows * 5 + 4, 0),
+        "ri_trichotomy": (_ri_bound_bytes(ri_x, ri_y, ri_all, si_all, False),
+                          0),
     }
     errs = {
         "april_trichotomy": int((k_tri.int() - p_tri.int()).abs().max()),
@@ -470,6 +731,7 @@ def main() -> int:
         "edges_intersect": sweep_err,
         "exclusive_scan": max(int((k_perm - p_perm).abs().max()),
                               abs(int(k_count) - int(p_count))),
+        "ri_trichotomy": int((k_ri.int() - p_ri.int()).abs().max()),
     }
     meta = {
         "april_trichotomy": ("src/repro_torch/csrc/interval_join.cu",
@@ -484,6 +746,9 @@ def main() -> int:
         "exclusive_scan": ("src/repro_torch/csrc/compact.cu",
                            "src/repro/kernels/compact/compact.py:47",
                            "fused-numpy"),
+        "ri_trichotomy": ("src/repro_torch/csrc/ri_and.cu",
+                          "src/repro/kernels/ri_and/ri_and.py:69",
+                          "ri-staged"),
     }
     counter = {"exclusive_scan": "compact_mask"}
     kernels = []
@@ -503,9 +768,10 @@ def main() -> int:
     if any(k["max_abs_err"] for k in kernels):
         raise AssertionError("a kernel disagrees with its plain version at "
                              "the main path's shapes")
-    print(f"shapes: {rows} candidate rows (the scan's lane), "
-          f"{stats['default'].n_indecisive} INDECISIVE rows, "
-          f"{couples} edge couples kept by the CMBR masks; reps {REPS}; total "
+    print(f"shapes: {rows} candidate rows (the scan's and the RI kernel's "
+          f"frame), {stats['default'].n_indecisive} INDECISIVE rows, "
+          f"{couples} edge couples kept by the CMBR masks; reps {REPS}; "
+          f"phase 8 {time.perf_counter() - t_phase:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

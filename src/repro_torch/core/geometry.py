@@ -15,6 +15,7 @@ __all__ = [
     "points_on_polygon_boundary", "points_in_polygon_closed",
     "points_in_polygons_batch", "points_in_polygon_rows",
     "representative_points", "segments_intersect", "polygons_intersect",
+    "polygon_area", "clip_polygon_to_box", "box_clip_areas_rows",
 ]
 
 
@@ -272,3 +273,180 @@ def polygons_intersect(
     if bool(points_in_polygon_closed(rb[None], va)[0]):
         return True
     return False
+
+
+# ---------------------------------------------------------------------------
+# Box clipping for coverage fractions (RI and RA construction)
+# ---------------------------------------------------------------------------
+
+def polygon_area(verts: np.ndarray, n: int | None = None) -> float:
+    """Shoelace area (absolute)."""
+    v = np.asarray(verts, np.float64)
+    if n is not None:
+        v = v[: int(n)]
+    x, y = v[:, 0], v[:, 1]
+    return float(abs(np.sum(x * np.roll(y, -1) - np.roll(x, -1) * y)) / 2.0)
+
+
+def clip_polygon_to_box(verts: np.ndarray,
+                        box: tuple[float, float, float, float]) -> np.ndarray:
+    """Sutherland–Hodgman clip of a polygon to an axis-aligned box, one
+    cell at a time: the per-cell reference of :func:`box_clip_areas_rows`.
+    Returns the clipped ring [K,2] (possibly empty)."""
+    xmin, ymin, xmax, ymax = box
+
+    def clip_half(poly, inside, intersect):
+        out = []
+        k = len(poly)
+        for i in range(k):
+            cur, nxt = poly[i], poly[(i + 1) % k]
+            cin, nin = inside(cur), inside(nxt)
+            if cin:
+                out.append(cur)
+                if not nin:
+                    out.append(intersect(cur, nxt))
+            elif nin:
+                out.append(intersect(cur, nxt))
+        return out
+
+    def ix_x(c, n, x):
+        t = (x - c[0]) / (n[0] - c[0])
+        return (x, c[1] + t * (n[1] - c[1]))
+
+    def ix_y(c, n, y):
+        t = (y - c[1]) / (n[1] - c[1])
+        return (c[0] + t * (n[0] - c[0]), y)
+
+    # y-planes first, the order the batched pass shares across a grid row
+    poly = [tuple(p) for p in np.asarray(verts, np.float64)]
+    poly = clip_half(poly, lambda p: p[1] >= ymin,
+                     lambda c, n: ix_y(c, n, ymin))
+    if poly:
+        poly = clip_half(poly, lambda p: p[1] <= ymax,
+                         lambda c, n: ix_y(c, n, ymax))
+    if poly:
+        poly = clip_half(poly, lambda p: p[0] >= xmin,
+                         lambda c, n: ix_x(c, n, xmin))
+    if poly:
+        poly = clip_half(poly, lambda p: p[0] <= xmax,
+                         lambda c, n: ix_x(c, n, xmax))
+    return np.asarray(poly, np.float64).reshape(-1, 2)
+
+
+# clip sequence: (coordinate axis, box column, keep-greater-or-equal);
+# y-planes first, as in clip_polygon_to_box
+_CLIP_PASSES = ((1, 1, True), (1, 3, False), (0, 0, True), (0, 2, False))
+
+
+def _clip_halfplane_batch(pts, cnt, axis, bound, keep_ge):
+    """One half-plane Sutherland–Hodgman pass over K padded rings.
+
+    pts [K,V,2], cnt [K], bound [K] (per-row clip line). Returns
+    (out [K,Vout,2], new_cnt [K]); each input vertex emits at most itself
+    plus one intersection, and Vout is sized to the largest emission.
+    """
+    K, V, _ = pts.shape
+    if V == 0:
+        return np.zeros((K, 1, 2), np.float64), np.zeros(K, np.int64)
+    idx = np.arange(V)[None, :]
+    valid = idx < cnt[:, None]
+    rows = np.broadcast_to(np.arange(K)[:, None], (K, V))
+    # ring successor: roll, then rewrite each ring's wrap slot (cnt-1 -> 0)
+    nxt_pts = np.roll(pts, -1, axis=1)
+    nxt_pts[np.arange(K), np.maximum(cnt - 1, 0)] = pts[:, 0]
+    c = pts[..., axis]
+    n_ = nxt_pts[..., axis]
+    b = bound[:, None]
+    cin = (c >= b) if keep_ge else (c <= b)
+    nin = (n_ >= b) if keep_ge else (n_ <= b)
+    emit_cur = cin & valid
+    emit_ix = (cin != nin) & valid
+    n_emit = np.add(emit_cur, emit_ix, dtype=np.int32)
+    pos = np.cumsum(n_emit, axis=1, dtype=np.int32) - n_emit  # excl. prefix
+    new_cnt = n_emit.sum(axis=1).astype(np.int64)
+    Vout = max(1, int(new_cnt.max()) if K else 1)
+    out = np.zeros((K, Vout, 2), np.float64)
+    out[rows[emit_cur], pos[emit_cur]] = pts[emit_cur]
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = (b - c) / np.where(n_ == c, 1.0, n_ - c)
+    ix = np.empty((K, V, 2), np.float64)
+    ix[..., axis] = np.broadcast_to(b, (K, V))
+    ix[..., 1 - axis] = pts[..., 1 - axis] + t * (nxt_pts[..., 1 - axis]
+                                                 - pts[..., 1 - axis])
+    pos_ix = pos + emit_cur
+    out[rows[emit_ix], pos_ix[emit_ix]] = ix[emit_ix]
+    return out, new_cnt
+
+
+def _ring_areas(pts, cnt):
+    """Absolute shoelace area of K padded rings (padding contributes 0)."""
+    K, V, _ = pts.shape
+    idx = np.arange(V)[None, :]
+    valid = idx < cnt[:, None]
+    nxt_pts = np.roll(pts, -1, axis=1)
+    nxt_pts[np.arange(K), np.maximum(cnt - 1, 0)] = pts[:, 0]
+    terms = pts[..., 0] * nxt_pts[..., 1] - nxt_pts[..., 0] * pts[..., 1]
+    return np.abs(np.where(valid, terms, 0.0).sum(axis=1)) / 2.0
+
+
+def box_clip_areas_rows(verts, nverts, poly_of_row, boxes,
+                        chunk_elems: int = 1 << 22) -> np.ndarray:
+    """Row-bucketed driver over the batched clip: row k clips polygon
+    ``poly_of_row[k]`` (padded [P,V,2]/[P]) to ``boxes[k]``.
+
+    All cells of one grid row of one polygon share (ymin, ymax), so the
+    two y-plane passes run once per unique band and only the two x-plane
+    passes run per cell, in the pass order of :func:`clip_polygon_to_box`.
+    Buckets by power-of-two vertex-count class bound padding waste; chunks
+    bound the padded working set below ``chunk_elems``.
+    """
+    verts = np.asarray(verts, np.float64)
+    nverts = np.asarray(nverts, np.int64)
+    poly_of_row = np.asarray(poly_of_row, np.int64)
+    boxes = np.asarray(boxes, np.float64)
+    K = len(poly_of_row)
+    out = np.zeros(K, np.float64)
+    if K == 0:
+        return out
+
+    # unique (polygon, ymin, ymax) bands
+    bandkey = np.stack([poly_of_row.astype(np.float64),
+                        boxes[:, 1], boxes[:, 3]], axis=1)
+    uniq, band_of_row = np.unique(bandkey, axis=0, return_inverse=True)
+    band_of_row = band_of_row.ravel()
+    band_poly = uniq[:, 0].astype(np.int64)
+    B = len(uniq)
+
+    # y-passes once per band, bucketed by polygon vertex class
+    nvb = nverts[band_poly]
+    chunks = []                       # (band sel, pts, cnt)
+    for sel in size_buckets(nvb, chunk_elems):
+        Vb = int(nvb[sel].max())
+        pts = verts[:, :Vb][band_poly[sel]]
+        cnt = nvb[sel]
+        for axis, col, keep_ge in _CLIP_PASSES[:2]:
+            bound = uniq[sel, 1] if col == 1 else uniq[sel, 2]
+            pts, cnt = _clip_halfplane_batch(pts, cnt, axis, bound, keep_ge)
+        chunks.append((sel, pts, cnt))
+
+    # the padded band-ring store
+    band_cnt = np.zeros(B, np.int64)
+    for sel, _, cnt in chunks:
+        band_cnt[sel] = cnt
+    W = max(1, int(band_cnt.max()))
+    band_pts = np.zeros((B, W, 2), np.float64)
+    for sel, pts, _ in chunks:
+        band_pts[sel, : pts.shape[1]] = pts[:, :W]
+
+    # x-passes per cell row, bucketed by band-ring size class (rows whose
+    # band clipped away entirely are skipped by the bucketing and stay 0)
+    cntr = band_cnt[band_of_row]
+    for sel in size_buckets(cntr, chunk_elems):
+        Wb = int(cntr[sel].max())
+        pts = band_pts[:, :Wb][band_of_row[sel]]
+        cnt = cntr[sel]
+        for axis, col, keep_ge in _CLIP_PASSES[2:]:
+            pts, cnt = _clip_halfplane_batch(pts, cnt, axis,
+                                             boxes[sel, col], keep_ge)
+        out[sel] = np.where(cnt >= 3, _ring_areas(pts, cnt), 0.0)
+    return out

@@ -14,7 +14,18 @@ from . import geometry, rasterize
 from .hilbert import d2xy, xy2d
 from .rasterize import Extent, GLOBAL_EXTENT
 
-__all__ = ["runs_from_sorted", "onestep_multi"]
+__all__ = ["intervals_from_ids", "runs_from_sorted", "onestep_multi"]
+
+
+def intervals_from_ids(ids: np.ndarray) -> np.ndarray:
+    """Merge a sorted unique id array into [I,2] half-open intervals."""
+    ids = np.asarray(ids, dtype=np.uint64)
+    if len(ids) == 0:
+        return np.zeros((0, 2), dtype=np.uint64)
+    brk = np.nonzero(np.diff(ids) != 1)[0]
+    starts = np.concatenate([ids[:1], ids[brk + 1]])
+    ends = np.concatenate([ids[brk], ids[-1:]]) + np.uint64(1)
+    return np.stack([starts, ends], axis=1)
 
 
 def runs_from_sorted(pid: np.ndarray, ids: np.ndarray

@@ -2,7 +2,9 @@
 
 The multi-polygon Amanatides-Woo traversal that one-step intervalization
 needs: every cell crossed by a polygon boundary (the Partial cells) of a
-whole dataset in one vectorized pass. A raster ``extent`` is the square
+whole dataset in one vectorized pass. RI construction adds the scanline
+parity fill of the Full cells and the exact coverage fraction of every
+Partial cell, both dataset-batched. A raster ``extent`` is the square
 (x0, y0, side) covered by the grid.
 """
 from __future__ import annotations
@@ -14,8 +16,9 @@ import numpy as np
 from . import geometry
 
 __all__ = [
-    "Extent", "GLOBAL_EXTENT", "cell_centers", "clip_segments_to_grid",
-    "dda_traverse", "dda_partial_cells_multi", "size_buckets",
+    "Extent", "GLOBAL_EXTENT", "cells_of_points", "cell_centers",
+    "clip_segments_to_grid", "dda_traverse", "dda_partial_cells_multi",
+    "coverage_fractions_multi", "scanline_full_cells_multi", "size_buckets",
 ]
 
 
@@ -40,6 +43,13 @@ def _grid_coords(points: np.ndarray, n_order: int, extent: Extent) -> np.ndarray
     g = (np.asarray(points, np.float64) - np.array([extent.x0, extent.y0])) \
         / extent.cell_size(n_order)
     return g
+
+
+def cells_of_points(points: np.ndarray, n_order: int,
+                    extent: Extent) -> np.ndarray:
+    """Cell (cx, cy) of each point, clipped into the grid. [..., 2] int64."""
+    g = np.floor(_grid_coords(points, n_order, extent)).astype(np.int64)
+    return np.clip(g, 0, (1 << n_order) - 1)
 
 
 def cell_centers(cx: np.ndarray, cy: np.ndarray, n_order: int,
@@ -189,3 +199,149 @@ def dda_partial_cells_multi(
     off = np.zeros(P + 1, np.int64)
     off[1:] = np.cumsum(np.bincount(pid_u, minlength=P))
     return off, out
+
+
+def _all_grid_cells(n_order: int) -> np.ndarray:
+    """Every cell of the grid, sorted by (cx, cy): the Full set of a
+    polygon that covers the whole extent without touching it."""
+    G = 1 << n_order
+    xs = np.arange(G)
+    CX, CY = np.meshgrid(xs, xs, indexing="ij")
+    return np.stack([CX.ravel(), CY.ravel()], axis=1).astype(np.int64)
+
+
+def coverage_fractions_multi(
+    verts: np.ndarray, nverts: np.ndarray, poly_of_cell: np.ndarray,
+    cells: np.ndarray, n_order: int, extent: Extent = GLOBAL_EXTENT,
+) -> np.ndarray:
+    """Exact coverage fraction of each (cell, own-polygon) row, in [0, 1],
+    by one padded Sutherland–Hodgman pass.
+
+    verts [P,V,2] padded, nverts [P]; poly_of_cell [K]; cells [K,2].
+    """
+    cells = np.asarray(cells, np.int64)
+    h = extent.cell_size(n_order)
+    boxes = np.stack([
+        extent.x0 + cells[:, 0] * h, extent.y0 + cells[:, 1] * h,
+        extent.x0 + (cells[:, 0] + 1) * h, extent.y0 + (cells[:, 1] + 1) * h,
+    ], axis=1)
+    areas = geometry.box_clip_areas_rows(verts, nverts, poly_of_cell, boxes)
+    return np.clip(areas / (h * h), 0.0, 1.0)
+
+
+def scanline_full_cells_multi(
+    verts: np.ndarray, nverts: np.ndarray,
+    p_off: np.ndarray, p_cells: np.ndarray,
+    n_order: int, extent: Extent = GLOBAL_EXTENT,
+    chunk_elems: int = 1 << 22,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Full cells of MANY polygons: parity fill at cell-center height over
+    flat (polygon-row x edge) pairs, bucketed by (vertex, column) count
+    classes.
+
+    ``p_off``/``p_cells``: Partial-cell CSR from
+    :func:`dda_partial_cells_multi`. Returns CSR ``(off [P+1], cells [T,2])``
+    sorted by (cx, cy) per polygon.
+    """
+    verts = np.asarray(verts, np.float64)
+    nverts = np.asarray(nverts, np.int64)
+    P = len(nverts)
+    G = 1 << n_order
+    h = extent.cell_size(n_order)
+    G2 = np.uint64(G) * np.uint64(G)
+    n_partial = np.diff(p_off)
+    pkeys = (np.repeat(np.arange(P), n_partial).astype(np.uint64) * G2
+             + p_cells[:, 0].astype(np.uint64) * np.uint64(G)
+             + p_cells[:, 1].astype(np.uint64))    # sorted by CSR convention
+
+    out_pid = []
+    out_cx = []
+    out_cy = []
+
+    # polygons whose boundary misses the grid entirely: covered or empty
+    no_part = np.nonzero((n_partial == 0) & (nverts >= 3))[0]
+    if len(no_part):
+        centers = cell_centers(np.zeros(len(no_part)), np.zeros(len(no_part)),
+                               n_order, extent)
+        inside = geometry.points_in_polygon_rows(centers, no_part, verts,
+                                                 nverts)
+        if inside.any():
+            allc = _all_grid_cells(n_order)
+            for p in no_part[inside]:
+                out_pid.append(np.full(len(allc), p, np.int64))
+                out_cx.append(allc[:, 0])
+                out_cy.append(allc[:, 1])
+
+    # windows (clipped MBR) of the polygons that do have partial cells
+    mbrs = geometry.polygon_mbrs(verts, nverts)
+    has = np.nonzero(n_partial > 0)[0]
+    if len(has):
+        lo = cells_of_points(mbrs[has, :2], n_order, extent)
+        hi = cells_of_points(mbrs[has, 2:], n_order, extent)
+        wx0, wy0 = lo[:, 0], lo[:, 1]
+        ncols = hi[:, 0] - lo[:, 0] + 1
+        nrows = hi[:, 1] - lo[:, 1] + 1
+        starts, ends, emask = geometry.polygon_edges(verts, nverts)
+
+        # flat rows: (polygon, grid row) pairs
+        row_poly = np.repeat(has, nrows)                       # [Rtot]
+        roff = np.concatenate([[0], np.cumsum(nrows)])
+        row_y = (np.arange(roff[-1]) - np.repeat(roff[:-1], nrows)
+                 + np.repeat(wy0, nrows))
+        row_ncols = np.repeat(ncols, nrows)
+        row_wx0 = np.repeat(wx0, nrows)
+        nv_row = nverts[row_poly]
+
+        # bucket rows by (vertex class, column class), chunk by working set
+        clsv = np.ceil(np.log2(np.maximum(nv_row, 1).astype(np.float64)))
+        clsc = np.ceil(np.log2(np.maximum(row_ncols, 1).astype(np.float64)))
+        bkey = (clsv * 64 + clsc).astype(np.int64)
+        for kb in np.unique(bkey):
+            sel_all = np.nonzero(bkey == kb)[0]
+            Vb = int(nv_row[sel_all].max())
+            Cb = int(row_ncols[sel_all].max())
+            step = max(1, int(chunk_elems // max(1, Vb * Cb)))
+            for i0 in range(0, len(sel_all), step):
+                sel = sel_all[i0: i0 + step]
+                p = row_poly[sel]
+                yc = (extent.y0 + (row_y[sel] + 0.5) * h)[:, None]   # [m,1]
+                x0e, y0e = starts[p, :Vb, 0], starts[p, :Vb, 1]
+                x1e, y1e = ends[p, :Vb, 0], ends[p, :Vb, 1]
+                cond = ((y0e <= yc) != (y1e <= yc)) & emask[p, :Vb]
+                with np.errstate(divide="ignore", invalid="ignore"):
+                    t = (yc - y0e) / np.where(y1e == y0e, 1.0, y1e - y0e)
+                xint = np.where(cond, x0e + t * (x1e - x0e), np.inf)  # [m,Vb]
+                cols = np.arange(Cb)[None, :]
+                xcent = extent.x0 + (row_wx0[sel][:, None] + cols + 0.5) * h
+                counts = np.sum(xint[:, None, :] < xcent[:, :, None], axis=2)
+                inside = ((counts % 2) == 1) \
+                    & (cols < row_ncols[sel][:, None])                # [m,Cb]
+                m_idx, c_idx = np.nonzero(inside)
+                pid = p[m_idx]
+                cx = row_wx0[sel][m_idx] + c_idx
+                cy = row_y[sel][m_idx]
+                key = (pid.astype(np.uint64) * G2
+                       + cx.astype(np.uint64) * np.uint64(G)
+                       + cy.astype(np.uint64))
+                # drop Partial cells: in-polygon but boundary-crossed
+                j = np.searchsorted(pkeys, key)
+                is_part = (j < len(pkeys)) & (pkeys[np.minimum(
+                    j, max(len(pkeys) - 1, 0))] == key)
+                keep = ~is_part
+                out_pid.append(pid[keep])
+                out_cx.append(cx[keep])
+                out_cy.append(cy[keep])
+
+    if not out_pid:
+        return np.zeros(P + 1, np.int64), np.zeros((0, 2), np.int64)
+    pid = np.concatenate(out_pid)
+    cx = np.concatenate(out_cx)
+    cy = np.concatenate(out_cy)
+    key = (pid.astype(np.uint64) * G2 + cx.astype(np.uint64) * np.uint64(G)
+           + cy.astype(np.uint64))
+    order = np.argsort(key)
+    pid = pid[order]
+    cells = np.stack([cx[order], cy[order]], axis=1).astype(np.int64)
+    off = np.zeros(P + 1, np.int64)
+    off[1:] = np.cumsum(np.bincount(pid, minlength=P))
+    return off, cells

@@ -34,6 +34,7 @@ SOURCES = {
     "interval_join": ("interval_join.cu", []),
     "refine": ("refine.cu", ["-fmad=false"]),
     "compact": ("compact.cu", []),
+    "ri_and": ("ri_and.cu", []),
 }
 
 _LOCK = threading.Lock()

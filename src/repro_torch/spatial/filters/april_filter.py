@@ -1,23 +1,30 @@
-"""The APRIL intermediate filter (paper §4) for the ``intersects``
-predicate.
+"""The APRIL intermediate filter (paper §4) and its compressed variant
+APRIL-C (§5.1) for the ``intersects`` predicate.
 
 The batched path runs the staged trichotomy of ``core.join`` over
 :class:`~repro_torch.core.join.IntervalLists`, wrapped once per
 Approximation (cached in ``meta``) and uploaded to the device once. The
 fused chain's status lane is computed on the device by
 ``core.join.fused_status_rows``.
+
+APRIL-C stores each object's lists as delta + VByte buffers. Its batched
+path decodes in bounds on the host (A lists for the batch's objects, F
+lists only for the AA survivors of each stage) and joins the decoded lists
+through the same overlap backends (the interval-overlap kernel with
+``cuda``); its fused status lane is those verdicts, uploaded once.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ...core import join
+from ...core import compress, join
 from ...core.april import build_april
 from ...core.rasterize import Extent, GLOBAL_EXTENT
+from ...device import check_backend_device, resolve_device
 from .base import (Approximation, IntermediateFilter, check_predicate,
                    register_filter)
 
-__all__ = ["AprilFilter"]
+__all__ = ["AprilFilter", "AprilCompressedFilter"]
 
 _DEFAULT_ORDER = ("AA", "AF", "FA")
 
@@ -29,15 +36,12 @@ class AprilFilter(IntermediateFilter):
               extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
               side: str = "r", method: str = "batched",
               build_backend: str = "numpy", **opts) -> Approximation:
-        if kind != "polygon":
+        self._check_kind(kind)
+        self._check_build_backend(build_backend)
+        if method != "batched":
             raise NotImplementedError(
-                "line approximations are not ported yet: ROADMAP A1-A3 "
-                "(the linestring predicate)")
-        if method != "batched" or build_backend != "numpy":
-            raise NotImplementedError(
-                f"APRIL construction method={method!r}, build_backend="
-                f"{build_backend!r} is not ported yet (only the batched "
-                "numpy build): ROADMAP A7 (device construction)")
+                f"APRIL construction method={method!r} is not ported yet "
+                "(only the batched build): ROADMAP A7 (device construction)")
         if opts:
             raise TypeError(f"unexpected build options {sorted(opts)}")
         store = build_april(dataset, n_order, extent)
@@ -106,3 +110,87 @@ class AprilFilter(IntermediateFilter):
         return join.april_verdict_pair(sr.a_list(i), sr.f_list(i),
                                        ss.a_list(j), ss.f_list(j),
                                        order=order)
+
+
+@register_filter("april-c")
+class AprilCompressedFilter(AprilFilter):
+
+    def build(self, dataset, *, n_order: int = 10,
+              extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
+              side: str = "r", method: str = "batched",
+              build_backend: str = "numpy", **opts) -> Approximation:
+        approx = super().build(dataset, n_order=n_order, extent=extent,
+                               kind=kind, side=side, method=method,
+                               build_backend=build_backend, **opts)
+        approx.store = compress.compress_april(approx.store)
+        return approx
+
+    @staticmethod
+    def _decode(approx, col: np.ndarray, kind: str):
+        """(IntervalLists, rows) of one list kind, decoded for the unique
+        objects of ``col`` only."""
+        uniq, rows = np.unique(col, return_inverse=True)
+        off, ints = approx.store.decompress_lists(uniq, kind)
+        return join.IntervalLists.from_intervals(off, ints), rows.ravel()
+
+    def verdicts(self, approx_r, approx_s, pairs, *,
+                 predicate: str = "intersects", backend: str = "numpy",
+                 device=None, order: tuple[str, ...] = _DEFAULT_ORDER,
+                 **opts) -> np.ndarray:
+        self._check(predicate, backend)
+        if opts:
+            raise TypeError(f"unexpected filter options {sorted(opts)}")
+        if backend == "sequential":
+            return self.verdicts_seq(approx_r, approx_s, pairs,
+                                     predicate=predicate, order=order)
+        if "AA" not in order:
+            raise ValueError("order must include 'AA'")
+        dev = None
+        if backend != "numpy":
+            dev = resolve_device(device)
+            check_backend_device(backend, dev)
+        e = self._empty(pairs)
+        if e is not None:
+            return e
+        pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        ri, si = pairs[:, 0], pairs[:, 1]
+        overlap = join._overlap_fn(backend, dev)
+        Xa, xa_rows = self._decode(approx_r, ri, "A")
+        Ya, ya_rows = self._decode(approx_s, si, "A")
+        aa = overlap(Xa, xa_rows, Ya, ya_rows)
+        verdicts = np.where(aa, join.INDECISIVE,
+                            join.TRUE_NEG).astype(np.int8)
+        sel = np.nonzero(aa)[0]
+        # a degenerate order leaves AA survivors INDECISIVE
+        for step in [s for s in order if s != "AA"]:
+            if len(sel) == 0:
+                break
+            if step == "AF":
+                Yf, yf_rows = self._decode(approx_s, si[sel], "F")
+                hit = overlap(Xa, xa_rows[sel], Yf, yf_rows)
+            else:
+                Xf, xf_rows = self._decode(approx_r, ri[sel], "F")
+                hit = overlap(Xf, xf_rows, Ya, ya_rows[sel])
+            verdicts[sel[hit]] = join.TRUE_HIT
+            sel = sel[~hit]
+        return verdicts
+
+    def to_device(self, approx_r, approx_s, device) -> None:
+        """Nothing stays on the device: lists are decoded per batch."""
+
+    def status_lane(self, approx_r, approx_s, ri, si, *,
+                    predicate: str = "intersects", backend: str = "numpy",
+                    device=None, rows=None,
+                    order: tuple[str, ...] = _DEFAULT_ORDER, **opts):
+        # the bounded decode is survivor-driven host work, so the lane is
+        # the uploaded host verdicts
+        return IntermediateFilter.status_lane(
+            self, approx_r, approx_s, ri, si, predicate=predicate,
+            backend=backend, device=device, order=order, **opts)
+
+    def _verdict_one(self, approx_r, approx_s, i, j, *, predicate,
+                     order: tuple[str, ...] = _DEFAULT_ORDER) -> int:
+        # the streaming join-while-decompress (§5.1)
+        sr, ss = approx_r.store, approx_s.store
+        return compress.april_verdict_compressed(
+            sr.a_bufs[i], sr.f_bufs[i], ss.a_bufs[j], ss.f_bufs[j])

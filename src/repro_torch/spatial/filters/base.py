@@ -7,8 +7,9 @@
   (TRUE_NEG / TRUE_HIT / INDECISIVE); ``verdicts_seq`` is the per-pair
   reference the batched path must equal; ``status_lane`` is the fused
   chain's device int8 lane of the same verdicts.
-* a name-based registry. It is separate from the reference package's, so
-  registering a filter here changes nothing there.
+* a name-based registry backing ``none / april / april-c / ri / ra /
+  5cch``. It is separate from the reference package's, so registering a
+  filter here changes nothing there.
 """
 from __future__ import annotations
 
@@ -18,7 +19,7 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
-from ...core.join import FILTER_BACKENDS
+from ...core.join import FILTER_BACKENDS, INDECISIVE, check_filter_backend
 from ...core.rasterize import Extent, GLOBAL_EXTENT
 from ...device import resolve_device, upload
 
@@ -27,15 +28,6 @@ __all__ = ["PREDICATES", "FILTER_BACKENDS", "Approximation",
            "available_filters", "check_predicate"]
 
 PREDICATES = ("intersects", "within", "linestring", "selection")
-
-#: filters of the reference that this port does not cover yet
-_NOT_PORTED = {
-    "none": "ROADMAP A6 (the other filters)",
-    "april-c": "ROADMAP A6 (the other filters)",
-    "ri": "ROADMAP A6 (the RI filter with kernel B5)",
-    "ra": "ROADMAP A6 (the other filters)",
-    "5cch": "ROADMAP A6 (the other filters)",
-}
 
 
 def check_predicate(predicate: str) -> None:
@@ -99,6 +91,42 @@ class IntermediateFilter(abc.ABC):
                      predicate: str, **opts) -> int:
         raise NotImplementedError
 
+    # -- helpers ------------------------------------------------------------
+    @staticmethod
+    def _check_build_backend(build_backend: str) -> None:
+        """Only the batched numpy construction is ported."""
+        if build_backend in ("jnp", "sequential"):
+            raise NotImplementedError(
+                f"build_backend={build_backend!r} is not ported yet (only "
+                "the batched numpy build): ROADMAP A7 (device construction)")
+        if build_backend != "numpy":
+            raise ValueError(f"unknown build_backend {build_backend!r}; "
+                             "expected 'numpy'")
+
+    @staticmethod
+    def _check_kind(kind: str) -> None:
+        if kind != "polygon":
+            raise NotImplementedError(
+                "line approximations are not ported yet: ROADMAP A1-A3 "
+                "(the linestring predicate)")
+
+    @staticmethod
+    def _check(predicate: str, backend: str) -> None:
+        check_predicate(predicate)
+        check_filter_backend(backend)
+
+    @staticmethod
+    def _empty(pairs: np.ndarray) -> np.ndarray | None:
+        pairs = np.asarray(pairs)
+        if pairs.size == 0:
+            return np.zeros(0, np.int8)
+        return None
+
+    @staticmethod
+    def _all_indecisive(pairs: np.ndarray) -> np.ndarray:
+        n = len(np.asarray(pairs).reshape(-1, 2))
+        return np.full(n, INDECISIVE, np.int8)
+
     def to_device(self, approx_r: Approximation, approx_s: Approximation,
                   device) -> None:
         """Upload whatever :meth:`status_lane` reads on ``device`` and cache
@@ -147,9 +175,6 @@ def get_filter(name: str | IntermediateFilter) -> IntermediateFilter:
         return name
     if name in _REGISTRY:
         return _REGISTRY[name]()
-    if name in _NOT_PORTED:
-        raise NotImplementedError(
-            f"filter {name!r} is not ported yet: {_NOT_PORTED[name]}")
     raise ValueError(f"unknown intermediate filter {name!r}; "
                      f"available: {sorted(_REGISTRY)}")
 

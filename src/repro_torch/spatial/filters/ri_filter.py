@@ -1,0 +1,86 @@
+"""RI (Raster Intervals) intermediate filter (paper §3) for the
+``intersects`` predicate.
+
+Each side is built in its own encoding (R for ``side="r"``, S for
+``side="s"``, ``encoding=`` overrides), so the usual join skips the XOR
+re-encoding; same-encoding pairs stay correct through the XOR mask. The
+batched backends run ``core.ri.ri_trichotomy_rows``: ``numpy`` expands
+the candidates into fragments on the host, ``torch`` and ``cuda`` run the
+ALIGNEDAND kernel's plain version or the kernel over the store's device
+form (:class:`~repro_torch.core.ri.RIDeviceStore`, built once per
+Approximation and cached in ``meta``). The fused chain's status lane is
+the same kernel launched over the chain's device frame, with no host read.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+from ...core import ri
+from ...core.rasterize import Extent, GLOBAL_EXTENT
+from .base import Approximation, IntermediateFilter, register_filter
+
+__all__ = ["RIFilter"]
+
+
+@register_filter("ri")
+class RIFilter(IntermediateFilter):
+
+    def build(self, dataset, *, n_order: int = 10,
+              extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
+              side: str = "r", encoding: str | None = None,
+              build_backend: str = "numpy", **opts) -> Approximation:
+        self._check_build_backend(build_backend)
+        self._check_kind(kind)
+        if opts:
+            raise TypeError(f"unexpected build options {sorted(opts)}")
+        enc = encoding or ("R" if side == "r" else "S")
+        store = ri.build_ri(dataset, n_order, extent, enc)
+        return Approximation(filter=self.name, store=store, n_order=n_order,
+                             extent=extent, kind=kind,
+                             meta={"build_opts": {"encoding": enc}})
+
+    @staticmethod
+    def _device(approx) -> ri.RIDeviceStore:
+        """The store's device form, built once and cached in ``meta``."""
+        if "device_store" not in approx.meta:
+            approx.meta["device_store"] = ri.RIDeviceStore(approx.store)
+        return approx.meta["device_store"]
+
+    def verdicts(self, approx_r, approx_s, pairs, *,
+                 predicate: str = "intersects", backend: str = "numpy",
+                 device=None, **opts) -> np.ndarray:
+        self._check(predicate, backend)
+        if opts:
+            raise TypeError(f"unexpected filter options {sorted(opts)}")
+        if backend == "sequential":
+            return self.verdicts_seq(approx_r, approx_s, pairs,
+                                     predicate=predicate)
+        pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        stores = ((approx_r.store, approx_s.store) if backend == "numpy"
+                  else (self._device(approx_r), self._device(approx_s)))
+        return ri.ri_trichotomy_rows(*stores, pairs[:, 0], pairs[:, 1],
+                                     backend=backend, device=device)
+
+    def to_device(self, approx_r, approx_s, device) -> None:
+        for approx in (approx_r, approx_s):
+            self._device(approx).to(device)
+
+    def status_lane(self, approx_r, approx_s, ri_rows, si_rows, *,
+                    predicate: str = "intersects", backend: str = "numpy",
+                    device=None, rows=None, **opts):
+        """The RI verdicts of every frame row on the device
+        (``core.ri.ri_status_rows``, over ``rows`` when given); the numpy
+        and sequential backends keep the uploaded host lane."""
+        self._check(predicate, backend)
+        if backend in ("numpy", "sequential"):
+            return super().status_lane(approx_r, approx_s, ri_rows, si_rows,
+                                       predicate=predicate, backend=backend,
+                                       device=device, **opts)
+        if opts:
+            raise TypeError(f"unexpected filter options {sorted(opts)}")
+        return ri.ri_status_rows(self._device(approx_r),
+                                 self._device(approx_s), ri_rows, si_rows,
+                                 rows=rows, backend=backend, device=device)
+
+    def _verdict_one(self, approx_r, approx_s, i, j, *, predicate) -> int:
+        return ri.ri_verdict_pair(approx_r.store, i, approx_s.store, j)

@@ -136,17 +136,18 @@ def test_cuda_backends_need_a_cuda_device(datasets):
 
 
 @pytest.mark.parametrize("kw,match", [
-    ({"filter": "ra"}, "ROADMAP A6"),
+    ({"filter": "ri", "build_opts": {"build_backend": "sequential"}},
+     "ROADMAP A7"),
     ({"plan_mode": "adaptive"}, "ROADMAP A8"),
     ({"r_kind": "line"}, "ROADMAP A1"),
     ({"mbr_index": object()}, "ROADMAP A8"),
-    ({"filter": "ri"}, "ROADMAP A6"),
-    ({"filter": "none"}, "ROADMAP A6"),
+    ({"filter": "ri", "r_kind": "line"}, "ROADMAP A1"),
+    ({"filter": "5cch", "plan_mode": "adaptive"}, "ROADMAP A8"),
 ])
 def test_uncovered_knobs_raise(datasets, kw, match):
     _, _, R, S = datasets
     with pytest.raises(NotImplementedError, match=match):
-        JoinPlan(R, S, device="cpu", **kw)
+        JoinPlan(R, S, device="cpu", **kw).build()
 
 
 @pytest.mark.parametrize("predicate", ["within", "linestring", "selection"])
