@@ -50,10 +50,11 @@ reference package. Phases, any failure exits non-zero:
    the APRIL run's; the fused runs give the staged pairs, order and
    counts, their stages pass ``set_sync_debug_mode("error")``, and the
    kernel equals its plain version on each recorded frame;
-6. the host filters ``none``, ``5cch``, ``ra`` and ``april-c`` at the
-   ``DATASET_SPECS`` counts (T1 1200 x T2 4000, ``n_order=12``), staged and
-   fused: each one's staged and fused pairs, order and counts equal, and
-   equal as sets the APRIL result at that size;
+6. the host filters ``none``, ``5cch``, ``ra`` and ``april-c`` at a third
+   of the main path's counts, the ``DATASET_SPECS`` counts (T1 1200 x T2
+   4000, ``n_order=12``), staged and fused: each one's staged and fused
+   pairs, order and counts equal, and equal as sets the APRIL result at
+   that size;
 7. the staged APRIL runs, the fused APRIL run and the staged RI run once
    more under ``torch.profiler``: device time per kernel and the device
    busy share of the host wall time (the RI kernel must show launches);
@@ -86,7 +87,7 @@ F32_OPS_PER_S = 67e12
 SWEEP_OPS_PER_COUPLE = 77
 #: first candidate rows held against the plain versions in phase 3
 COMPARE_ROWS = 65536
-#: timed calls per kernel and plain version in phase 6
+#: timed calls per kernel and plain version in phase 8
 REPS = 5
 #: the port's own kernels, by the names the profiler's trace gives them
 PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
@@ -95,6 +96,9 @@ PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
 #: random rows and code-bit densities of the RI kernel's stream sweep
 RI_SWEEP_ROWS = 65536
 RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
+#: the host filters run at the main path's counts over this (DATASET_SPECS
+#: has T1 1200 and T2 4000, a third of the smoke's 3600 x 12000)
+HOST_SCALE = 3
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 
@@ -193,11 +197,11 @@ def _sync_checked(run, label, status) -> None:
 
 def _ri_bound_bytes(x, y, ri, si, xor_y) -> int:
     """Bytes the RI filter must move over rows (ri, si), each input read
-    once: the row indices and the verdicts; the offsets and the interval
-    lists (start, end and bit offset of each interval) of every object the
-    rows name; and the code words that the fragments cover on both sides,
-    counting each row's fragments up to its first hit (the merge stops
-    there)."""
+    once: the row indices and the verdicts; the offset entries that bound
+    the interval lists of the objects the rows name; the start and end of
+    each of those intervals; and, of the fragments up to each row's first
+    hit (the merge stops there), each interval's bit offset and the code
+    words they cover on both sides."""
     import torch
     from repro_torch.kernels.ri_and.ref import (_word_buckets,
                                                 aligned_and_plain,
@@ -205,6 +209,8 @@ def _ri_bound_bytes(x, y, ri, si, xor_y) -> int:
     n = ri.numel()
     dev = ri.device
     ux, uy = torch.unique(ri), torch.unique(si)
+    n_off = sum(torch.unique(torch.cat([u, u + 1])).numel()
+                for u in (ux, uy))
     n_int = int((x.off[ux + 1] - x.off[ux]).sum()
                 + (y.off[uy + 1] - y.off[uy]).sum())
     b, gx, gy, lo, hi = ri_fragments_plain(x, y, ri, si)
@@ -219,6 +225,7 @@ def _ri_bound_bytes(x, y, ri, si, xor_y) -> int:
     first = torch.full((n,), b.numel(), dtype=torch.int64, device=dev)
     first.scatter_reduce_(0, b[hit], f[hit], "amin")
     need = f <= first[b]
+    n_bit_off = sum(torch.unique(g[need]).numel() for g in (gx, gy))
     words = 0
     for st, bit in ((x, x_bit[need]), (y, y_bit[need])):
         # the union of the word ranges [bit / 32, (bit + n_bits - 1) / 32]
@@ -228,7 +235,7 @@ def _ri_bound_bytes(x, y, ri, si, xor_y) -> int:
         diff.index_add_(0, bit >> 5, ones)
         diff.index_add_(0, ((bit + n_bits[need] - 1) >> 5) + 1, -ones)
         words += int((torch.cumsum(diff, 0) > 0).sum())
-    return n * (16 + 1) + 16 * (ux.numel() + uy.numel() + n_int) + 4 * words
+    return (n * (16 + 1) + 8 * (n_off + n_int + n_bit_off) + 4 * words)
 
 
 def _ri_sweep(X, Y, rows_list, dev) -> int:
@@ -262,10 +269,6 @@ def main() -> int:
     ap.add_argument("--r-count", type=int, default=3600)
     ap.add_argument("--s-count", type=int, default=12000)
     ap.add_argument("--n-order", type=int, default=12)
-    ap.add_argument("--host-r-count", type=int, default=1200,
-                    help="T1 count of the host filters' runs")
-    ap.add_argument("--host-s-count", type=int, default=4000,
-                    help="T2 count of the host filters' runs")
     args = ap.parse_args()
 
     import torch
@@ -573,6 +576,7 @@ def main() -> int:
                 raise AssertionError("[ri-staged] result set != the APRIL "
                                      "run's")
             results[label], stats[label] = res, st
+            ri_frame = (x, y, fr, fs, xor_y)
             detail = "verdicts == numpy RI verdicts; set == APRIL's"
         else:
             _same_run(label, res, st, results["ri-staged"],
@@ -600,8 +604,8 @@ def main() -> int:
 
     # 6. the host filters at the DATASET_SPECS counts, staged and fused
     t_phase = time.perf_counter()
-    R2 = make_dataset("T1", seed=0, count=args.host_r_count)
-    S2 = make_dataset("T2", seed=1, count=args.host_s_count)
+    R2 = make_dataset("T1", seed=0, count=args.r_count // HOST_SCALE)
+    S2 = make_dataset("T2", seed=1, count=args.s_count // HOST_SCALE)
     want_set = _pair_set(JoinPlan(R2, S2, filter="april",
                                   n_order=args.n_order).build().execute(
         "intersects")[0])
@@ -698,9 +702,8 @@ def main() -> int:
             _ms(lambda: compact_mask(indec_mask)),
             _ms(lambda: compact_mask_plain(indec_mask))),
         "ri_trichotomy": (
-            _ms(lambda: ri_trichotomy(ri_x, ri_y, ri_all, si_all, False)),
-            _ms(lambda: ri_trichotomy_plain(ri_x, ri_y, ri_all, si_all,
-                                            False))),
+            _ms(lambda: ri_trichotomy(*ri_frame)),
+            _ms(lambda: ri_trichotomy_plain(*ri_frame))),
     }
     # the library calls that compute the scan's function (perm and count),
     # and the scan alone, which does no permutation and no scatter
@@ -714,16 +717,16 @@ def main() -> int:
           f"{cumsum_ms} ms", flush=True)
     k_perm, k_count = compact_mask(indec_mask)
     p_perm, p_count = compact_mask_plain(indec_mask)
-    k_ri = ri_trichotomy(ri_x, ri_y, ri_all, si_all, False)
-    p_ri = ri_trichotomy_plain(ri_x, ri_y, ri_all, si_all, False)
+    # B5 on the frame, stores and encoding flag the ri-staged run gave it
+    k_ri = ri_trichotomy(*ri_frame)
+    p_ri = ri_trichotomy_plain(*ri_frame)
     bounds = {
         "april_trichotomy": (tri_bytes, 0),
         "interval_overlap": (ov_bytes, 0),
         "edges_intersect": (sweep_bytes, couples * SWEEP_OPS_PER_COUPLE),
         # a bool read and an int32 written per row, and the int32 count
         "exclusive_scan": (rows * 5 + 4, 0),
-        "ri_trichotomy": (_ri_bound_bytes(ri_x, ri_y, ri_all, si_all, False),
-                          0),
+        "ri_trichotomy": (_ri_bound_bytes(*ri_frame), 0),
     }
     errs = {
         "april_trichotomy": int((k_tri.int() - p_tri.int()).abs().max()),

@@ -27,13 +27,12 @@ version or the kernel itself (``kernels/ri_and``).
 """
 from __future__ import annotations
 
-import contextlib
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
-from ..device import check_backend_device, resolve_device, upload
+from ..device import InputLog, check_backend_device, resolve_device, upload
 from ..kernels.ri_and import (RIStoreTensors, pack_stream_words,
                               ri_trichotomy, ri_trichotomy_plain)
 from . import rasterize
@@ -402,27 +401,20 @@ def _device_store(s) -> RIDeviceStore:
     return s if isinstance(s, RIDeviceStore) else RIDeviceStore(s)
 
 
-_FRAME_LOG: list | None = None
+_FRAMES = InputLog()
 
 
-@contextlib.contextmanager
 def record_frames():
     """Collect the device inputs ``(x, y, ri, si, xor_y)`` of every device
     RI filter call run inside the block, one tuple per call, so that the
     ALIGNEDAND kernel can be replayed on exactly what a join gave it."""
-    global _FRAME_LOG
-    prev, _FRAME_LOG = _FRAME_LOG, []
-    try:
-        yield _FRAME_LOG
-    finally:
-        _FRAME_LOG = prev
+    return _FRAMES.record()
 
 
 def _run(backend, X: RIDeviceStore, Y: RIDeviceStore, rows, dev):
     x, y = X.to(dev), Y.to(dev)
     xor_y = X.encoding == Y.encoding
-    if _FRAME_LOG is not None:
-        _FRAME_LOG.append((x, y, rows[0], rows[1], xor_y))
+    _FRAMES.add((x, y, rows[0], rows[1], xor_y))
     fn = ri_trichotomy if backend == "cuda" else ri_trichotomy_plain
     return fn(x, y, rows[0], rows[1], xor_y)
 

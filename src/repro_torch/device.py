@@ -8,10 +8,12 @@ whatever device they are given.
 """
 from __future__ import annotations
 
+import contextlib
+
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "check_backend_device", "upload"]
+__all__ = ["resolve_device", "check_backend_device", "upload", "InputLog"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -42,3 +44,25 @@ def upload(a: np.ndarray, dev: torch.device) -> torch.Tensor:
     if dev.type != "cuda":
         return t.to(dev)
     return t.pin_memory().to(dev, non_blocking=True)
+
+
+class InputLog:
+    """Where a module notes the inputs it gave a kernel, so that the kernel
+    can be replayed on exactly what a join gave it. ``add`` does nothing
+    unless a ``record()`` block is open; inside one, each ``add`` appends
+    its item to the list the block yields."""
+
+    def __init__(self) -> None:
+        self._items: list | None = None
+
+    def add(self, item) -> None:
+        if self._items is not None:
+            self._items.append(item)
+
+    @contextlib.contextmanager
+    def record(self):
+        prev, self._items = self._items, []
+        try:
+            yield self._items
+        finally:
+            self._items = prev

@@ -15,7 +15,6 @@ and identical ``JoinStats`` counts.
 """
 from __future__ import annotations
 
-import contextlib
 import time
 from dataclasses import dataclass
 from typing import Callable
@@ -24,7 +23,7 @@ import numpy as np
 import torch
 
 from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
-from ..device import upload
+from ..device import InputLog, upload
 from ..kernels.compact import compact_mask, compact_mask_plain
 from . import refine as RF
 from .mbr_join import _prepare, candidate_rows, pair_mask_lane
@@ -54,10 +53,9 @@ def to_host(*lanes: torch.Tensor) -> tuple[np.ndarray, ...]:
                  else row.astype(bool) for row, t in zip(packed, lanes))
 
 
-_CHAIN_LOG: list | None = None
+_CHAINS = InputLog()
 
 
-@contextlib.contextmanager
 def record_chains():
     """Collect the :class:`CandidateSet` of every fused execution run inside
     the block, as its stages left it before the gather, one per execution:
@@ -65,12 +63,7 @@ def record_chains():
     the ``valid`` and ``status`` lanes, and so the INDECISIVE lane
     (``status == INDECISIVE``) the compaction was given. The kernels can
     then be replayed on exactly what a join gave them."""
-    global _CHAIN_LOG
-    prev, _CHAIN_LOG = _CHAIN_LOG, []
-    try:
-        yield _CHAIN_LOG
-    finally:
-        _CHAIN_LOG = prev
+    return _CHAINS.record()
 
 
 # ---------------------------------------------------------------------------
@@ -238,8 +231,7 @@ def execute_fused(plan, predicate: str, stats):
     RF.device_geometry(plan.R, plan.device)
     RF.device_geometry(plan.S, plan.device)
     cs = build_stage_plan(plan, predicate).run(stats=stats)
-    if _CHAIN_LOG is not None:
-        _CHAIN_LOG.append(cs)
+    _CHAINS.add(cs)
 
     t0 = time.perf_counter()
     stats.extra.update(n_frame=len(cs), n_escalated=0)

@@ -23,14 +23,12 @@ host once, at the end of the chain.
 """
 from __future__ import annotations
 
-import contextlib
-
 import numpy as np
 import torch
 
 from ..core import geometry
 from ..core.geometry import polygon_edges, segments_intersect, size_buckets
-from ..device import check_backend_device, resolve_device
+from ..device import InputLog, check_backend_device, resolve_device
 from ..kernels.refine import edges_intersect, edges_intersect_plain
 
 __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
@@ -153,28 +151,21 @@ def _intersects_batch_np(vr, nr, vs, ns, rep_r, rep_s, mr, ms,
 # float32 device sweep + float64 host escalation
 # ---------------------------------------------------------------------------
 
-_SWEEP_LOG: list | None = None
+_SWEEPS = InputLog()
 
 
-@contextlib.contextmanager
 def record_sweeps():
     """Collect the device inputs ``(a0, a1, am, b0, b1, bm)`` of every edge
     sweep run inside the block, one tuple per bucket in launch order, so
     that the sweep kernel can be replayed on exactly what a join gave it."""
-    global _SWEEP_LOG
-    prev, _SWEEP_LOG = _SWEEP_LOG, []
-    try:
-        yield _SWEEP_LOG
-    finally:
-        _SWEEP_LOG = prev
+    return _SWEEPS.record()
 
 
 def _sweep(backend: str, dev: torch.device, a0, a1, am, b0, b1, bm):
     """(hit, unc) numpy lanes of the float32 sweep on ``dev``."""
     t = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
               for x in (a0, a1, am, b0, b1, bm))
-    if _SWEEP_LOG is not None:
-        _SWEEP_LOG.append(t)
+    _SWEEPS.add(t)
     fn = edges_intersect_plain if backend == "torch" else edges_intersect
     hit, unc = fn(*t)
     return hit.cpu().numpy(), unc.cpu().numpy()

@@ -21,6 +21,7 @@ from repro.spatial.mbr_join import mbr_join as r_mbr_join  # noqa: E402
 
 import repro_torch  # noqa: E402
 from repro_torch import JoinPlan, JoinStats, make_dataset  # noqa: E402
+from repro_torch.spatial import get_filter  # noqa: E402
 from repro_torch.core import hilbert  # noqa: E402
 from repro_torch.core.april import build_april  # noqa: E402
 from repro_torch.spatial.mbr_join import mbr_join  # noqa: E402
@@ -148,6 +149,14 @@ def test_uncovered_knobs_raise(datasets, kw, match):
     _, _, R, S = datasets
     with pytest.raises(NotImplementedError, match=match):
         JoinPlan(R, S, device="cpu", **kw).build()
+
+
+@pytest.mark.parametrize("name", ["ri", "5cch", "ra", "april-c"])
+def test_filter_builds_of_lines_raise(datasets, name):
+    """The filters' own kind check, reached without JoinPlan's."""
+    _, _, R, _ = datasets
+    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        get_filter(name).build(R, n_order=6, kind="line")
 
 
 @pytest.mark.parametrize("predicate", ["within", "linestring", "selection"])
