@@ -61,8 +61,24 @@ reference package. Phases, any failure exits non-zero:
 8. each kernel timed at the main path's shapes with CUDA events beside
    its plain version and, for the scan, the library calls that compute the
    same function (a stable ``torch.argsort`` and a sum, ``library_ms``)
-   and the scan alone (``torch.cumsum``, printed beside it), printed as one
-   JSON ``kernels`` line.
+   and the scan alone (``torch.cumsum``, printed beside it);
+9. the APRIL block-sparse attention kernel (``april_attention``, the LM
+   bridge; no join runs it): on the reference's own test grid
+   (``tests/test_kernels.py``: BH 2, S 256, D 64, blocks 64, f32 and bf16,
+   causal, local 96, local 64 with softcap 30 and full; causal at D 32
+   with blocks 128/64 and 64/128) against its plain version and the dense
+   oracle; then at full width, bf16, blocks 128, against its plain
+   version with the launch count reset before and read after each call:
+   gemma2-2b's local layer (8 heads over 4 kv heads repeated, S 32768, D
+   256, window 4096, softcap 50), its global layer (causal, softcap 50,
+   S 8192) and qwen1.5-4b's causal layer (20 heads, S 4096, D 128, beside
+   ``scaled_dot_product_attention`` as ``library_ms``); the gemma2-2b
+   local call once more under ``torch.profiler``. Tolerances: 2e-5 in
+   f32 and 2e-2 in bf16, atol and rtol, as the reference's tests state.
+
+Every kernel's row of the JSON ``kernels`` line carries ``tol`` (0 for the
+exact kernels, the bf16 tolerance for the attention kernel) and the run
+fails unless ``max_abs_err <= tol``.
 
 Each phase prints its seconds. The last line is ``{"ok": true, "device":
 {...}}``.
@@ -82,6 +98,8 @@ import numpy as np
 #: published H100 SXM peaks (NVIDIA data sheet) for the roofline bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: the bf16 tensor-core peak, the least time the attention could take
+BF16_OPS_PER_S = 989e12
 #: float32 operations per (a edge, b edge) couple of the sweep: 4 x 7 for
 #: the orientations, 4 sign tests, 11 scale, 7 mag, 3 tol, 8 near0, 16 boxes
 SWEEP_OPS_PER_COUPLE = 77
@@ -92,7 +110,8 @@ REPS = 5
 #: the port's own kernels, by the names the profiler's trace gives them
 PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
                 "edges_intersect_kernel", "tile_counts_kernel",
-                "scan_sums_kernel", "scatter_kernel", "ri_trichotomy_kernel")
+                "scan_sums_kernel", "scatter_kernel", "ri_trichotomy_kernel",
+                "april_attention_kernel")
 #: random rows and code-bit densities of the RI kernel's stream sweep
 RI_SWEEP_ROWS = 65536
 RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
@@ -101,6 +120,25 @@ RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
 HOST_SCALE = 3
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
+#: the attention kernel's tolerances (the reference's tests), by dtype
+ATTN_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the reference's test grid of the attention kernel: (dtype, BH, S, D,
+#: block_q, block_kv, mask_kind, window, softcap, seed)
+ATTN_GRID = tuple(
+    [(dt, 2, 256, 64, 64, 64, kind, window, cap, 11)
+     for dt in ("float32", "bfloat16")
+     for kind, window, cap in (("causal", 0, None), ("local", 96, None),
+                               ("local", 64, 30.0), ("full", 0, None))]
+    + [("float32", 1, S, 32, bq, bkv, "causal", 0, None, S)
+       for S, bq, bkv in ((256, 128, 64), (512, 64, 128))])
+#: full-width attention layers from the repo's configurations: (label,
+#: query heads, kv heads, S, D, mask_kind, window, softcap, seed); bf16,
+#: blocks 128 x 128
+ATTN_SHAPES = (
+    ("gemma2-2b local", 8, 4, 32768, 256, "local", 4096, 50.0, 21),
+    ("gemma2-2b global", 8, 4, 8192, 256, "causal", 0, 50.0, 22),
+    ("qwen1.5-4b causal", 20, 20, 4096, 128, "causal", 0, None, 23),
+)
 
 
 def _ms(fn) -> float:
@@ -154,7 +192,14 @@ def _profile(fn) -> dict:
             calls[key] = calls.get(key, 0) + 1
     busy = sum(by_name.values())
     top = dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:8])
-    ours = {k: [by_name[k], calls[k]] for k in PORT_KERNELS if k in by_name}
+    ours: dict[str, list] = {}
+    for key, us in by_name.items():
+        # a template kernel's trace name carries "void " and its arguments
+        base = key.removeprefix("void ").split("<")[0]
+        if base in PORT_KERNELS:
+            acc = ours.setdefault(base, [0.0, 0])
+            acc[0] += us
+            acc[1] += calls[key]
     return {"wall_us": wall_us, "device_busy_us": busy,
             "device_busy_share": busy / wall_us, "top_device_us": top,
             "port_kernels_us_and_launches": ours}
@@ -262,6 +307,131 @@ def _ri_sweep(X, Y, rows_list, dev) -> int:
                         f"codes of density {dens}, xor_y={xor_y}")
                 n += rows[0].numel()
     return n
+
+
+def _allowed_positions(S: int, kind: str, window: int) -> int:
+    """(q, k) positions of one head that the dense mask allows, Sq = Skv =
+    S."""
+    q = np.arange(S, dtype=np.int64)
+    if kind == "causal":
+        return int((q + 1).sum())
+    if kind == "local":
+        return int(np.minimum(q + 1, window).sum())
+    return S * S
+
+
+def _attention_phase(dev) -> dict:
+    """Phase 9: the attention kernel on the reference's test grid and at
+    full width; returns its row of the ``kernels`` line (the gemma2-2b local
+    layer)."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.april_attention import (
+        april_attention, april_attention_blocks, april_attention_plain,
+        april_attention_ref, build_block_intervals)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("the f32 plain version must run without TF32")
+    t_phase = time.perf_counter()
+    worst = {}
+    for (dtype, BH, S, D, bq, bkv, kind, window, cap, seed) in ATTN_GRID:
+        rng = np.random.default_rng(seed)
+        q, k, v = (torch.from_numpy(rng.normal(size=(BH, S, D)).astype(
+            np.float32)).to(dev, getattr(torch, dtype)) for _ in range(3))
+        kw = dict(block_q=bq, block_kv=bkv, mask_kind=kind, window=window,
+                  softcap=cap)
+        iv = torch.from_numpy(build_block_intervals(S, S, bq, bkv, kind,
+                                                    window)).to(dev)
+        got = april_attention(q, k, v, **kw)
+        plain = april_attention_plain(q, k, v, iv, scale=1.0 / D ** 0.5,
+                                      **kw)
+        dense = april_attention_ref(q, k, v, mask_kind=kind, window=window,
+                                    softcap=cap)
+        torch.cuda.synchronize()
+        tol = ATTN_TOL[dtype]
+        for name, want in (("plain version", plain), ("dense oracle", dense)):
+            if not torch.allclose(got.float(), want.float(), atol=tol,
+                                  rtol=tol):
+                raise AssertionError(
+                    f"april_attention kernel != {name} on {dtype} S {S} D "
+                    f"{D} blocks {bq}/{bkv} {kind} {window} softcap {cap}")
+        err = float((got.float() - plain.float()).abs().max())
+        worst[dtype] = max(worst.get(dtype, 0.0), err)
+    print(f"april_attention kernel == plain version and dense oracle on the "
+          f"reference's {len(ATTN_GRID)}-case test grid; max |kernel - plain| "
+          f"{json.dumps(worst)}; tolerances {json.dumps(ATTN_TOL)}",
+          flush=True)
+
+    gen = torch.Generator(device=dev)
+    for (label, heads, kv_heads, S, D, kind, window, cap, seed) in ATTN_SHAPES:
+        gen.manual_seed(seed)
+        q = torch.randn((heads, S, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((kv_heads, S, D), generator=gen, device=dev)
+                .to(torch.bfloat16).repeat_interleave(heads // kv_heads, 0)
+                for _ in range(2))
+        kw = dict(block_q=128, block_kv=128, mask_kind=kind, window=window,
+                  softcap=cap)
+        iv = torch.from_numpy(build_block_intervals(S, S, 128, 128, kind,
+                                                    window)).to(dev)
+        scale = 1.0 / D ** 0.5
+        april_attention_blocks.launches = 0
+        got = april_attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        launches = april_attention_blocks.launches
+        if launches != 1:
+            raise AssertionError(f"[{label}] {launches} kernel launches, "
+                                 "not 1")
+        plain = april_attention_plain(q, k, v, iv, scale=scale, **kw)
+        tol = ATTN_TOL["bfloat16"]
+        if not torch.allclose(got.float(), plain.float(), atol=tol, rtol=tol):
+            raise AssertionError(f"[{label}] april_attention kernel != plain "
+                                 "version")
+        err = float((got.float() - plain.float()).abs().max())
+        del plain
+        ms = _ms(lambda: april_attention(q, k, v, **kw))
+        plain_ms = _ms(lambda: april_attention_plain(q, k, v, iv, scale=scale,
+                                                     **kw))
+        library_ms = None
+        if cap is None and kind == "causal":
+            # the same function in one PyTorch call, a yardstick only
+            def sdpa():
+                return F.scaled_dot_product_attention(
+                    q[None], k[None], v[None], is_causal=True)[0]
+            library_ms = _ms(sdpa)
+            lib_err = float((sdpa().float() - got.float()).abs().max())
+            print(f"[{label}] scaled_dot_product_attention: max |kernel - "
+                  f"sdpa| {lib_err}", flush=True)
+        n_allowed = heads * _allowed_positions(S, kind, window)
+        t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3
+        t_ops = 4 * D * n_allowed / BF16_OPS_PER_S * 1e3
+        row = {"name": "april_attention", "route": "cuda",
+               "source": "src/repro_torch/csrc/april_attention.cu",
+               "replaces": "src/repro/kernels/april_attention/"
+                           "april_attention.py:102",
+               "launches": launches, "max_abs_err": err, "tol": tol,
+               "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "library_ms": library_ms}
+        visited = heads * int((iv[:, 3] - iv[:, 0]).sum())
+        print(f"[{label}] BH {heads} ({kv_heads} kv heads), S {S}, D {D}, "
+              f"{kind} {window}, softcap {cap}: {visited} visited (q block, "
+              f"kv block) pairs, {n_allowed} allowed positions,"
+              f" bytes bound {t_bytes} ms, operations bound {t_ops} ms "
+              f"(4 D a position over the bf16 peak; tanh not counted): "
+              f"{json.dumps(row)}", flush=True)
+        if label == "gemma2-2b local":
+            kernel_row = row
+            prof = _profile(lambda: april_attention(q, k, v, **kw))
+            print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
+            ours = prof["port_kernels_us_and_launches"].get(
+                "april_attention_kernel")
+            if not ours or ours[1] <= 0:
+                raise AssertionError("the profile shows no "
+                                     "april_attention_kernel launch")
+        del q, k, v, got
+    print(f"phase 9 ok: attention kernel ({time.perf_counter() - t_phase:.1f}"
+          f" s)", flush=True)
+    return kernel_row
 
 
 def main() -> int:
@@ -767,15 +937,20 @@ def main() -> int:
             "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": library.get(name)})
-    if any(k["max_abs_err"] for k in kernels):
-        raise AssertionError("a kernel disagrees with its plain version at "
-                             "the main path's shapes")
+            "library_ms": library.get(name), "tol": 0})
     print(f"shapes: {rows} candidate rows (the scan's and the RI kernel's "
           f"frame), {stats['default'].n_indecisive} INDECISIVE rows, "
           f"{couples} edge couples kept by the CMBR masks; reps {REPS}; "
           f"phase 8 {time.perf_counter() - t_phase:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
+
+    # 9. the attention kernel, which no join runs
+    kernels.append(_attention_phase(dev))
+    bad = [k["name"] for k in kernels if not k["max_abs_err"] <= k["tol"]]
+    if bad:
+        raise AssertionError(f"kernels disagree with their plain versions "
+                             f"beyond their tolerance: {bad}")
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

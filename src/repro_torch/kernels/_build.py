@@ -35,6 +35,7 @@ SOURCES = {
     "refine": ("refine.cu", ["-fmad=false"]),
     "compact": ("compact.cu", []),
     "ri_and": ("ri_and.cu", []),
+    "april_attention": ("april_attention.cu", []),
 }
 
 _LOCK = threading.Lock()
