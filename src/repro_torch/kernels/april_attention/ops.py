@@ -8,7 +8,7 @@ the CPU it runs the plain PyTorch version (``ref.py``); on a CUDA device it
 launches the kernel on the current stream, or raises. There is no fallback
 from one to the other. Kernel launches are counted in
 ``april_attention_blocks.launches``. :func:`april_attention` builds the
-table for a mask and calls it.
+table for a mask and runs it the same way, checking q, k and v once.
 """
 from __future__ import annotations
 
@@ -144,6 +144,13 @@ def april_attention_blocks(q, k, v, intervals, *, scale=None, block_q=128,
     (a_lo, f_lo, f_hi, a_hi)) and masks those outside ``[f_lo, f_hi)``."""
     _check_qkv(q, k, v, block_q, block_kv, mask_kind)
     _check_table(q, intervals, block_q)
+    return _run(q, k, v, intervals, scale, block_q, block_kv, mask_kind,
+                window, softcap)
+
+
+def _run(q, k, v, intervals, scale, block_q, block_kv, mask_kind, window,
+         softcap) -> torch.Tensor:
+    """:func:`april_attention_blocks` on checked tensors."""
     scale = float(scale) if scale is not None else 1.0 / q.shape[2] ** 0.5
     softcap = None if softcap is None else float(softcap)
     dev = q.device
@@ -178,11 +185,10 @@ def april_attention(q, k, v, *, scale=None, block_q=128, block_kv=128,
                     mask_kind="causal", window=0, softcap=None):
     """Block-interval attention. q: [BH, Sq, D]; k/v: [BH, Skv, D]. Builds
     the mask's interval table, uploads it to q's device without a host
-    sync, and runs :func:`april_attention_blocks` on it."""
+    sync, and runs it as :func:`april_attention_blocks` does."""
     _check_qkv(q, k, v, block_q, block_kv, mask_kind)
     Sq, Skv = q.shape[1], k.shape[1]
     iv = upload(_intervals(Sq, Skv, block_q, block_kv, mask_kind, window),
                 q.device)
-    return april_attention_blocks(
-        q, k, v, iv, scale=scale, block_q=block_q, block_kv=block_kv,
-        mask_kind=mask_kind, window=window, softcap=softcap)
+    return _run(q, k, v, iv, scale, block_q, block_kv, mask_kind, window,
+                softcap)

@@ -11,19 +11,38 @@ scores, ``p`` rounded to v's dtype before the PV product and ``l == 0``
 read as 1 in the final divide. It batches every q block into one step per
 visited offset, so a step's products cover the whole grid. Runs on any
 device; the CPU tests and the on-card comparison in ``chip_smoke.py`` use
-it.
+it, and both read their test grid from :data:`TEST_GRID`.
 """
 from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "MASK_KINDS", "dense_mask", "april_attention_ref",
-           "april_attention_plain"]
+__all__ = ["NEG_INF", "MASK_KINDS", "TEST_GRID", "TEST_TOL", "dense_mask",
+           "april_attention_ref", "april_attention_plain"]
 
 #: the masked score: finite, so a row whose first visited block is fully
 #: masked carries exp(0) until a later block rescales it away
 NEG_INF = -1e30
 MASK_KINDS = ("causal", "local", "full")
+
+#: the kernel's test grid, one tuple a case: (dtype, BH, S, D, block_q,
+#: block_kv, mask_kind, window, softcap, seed). First the JAX package's own
+#: cases (``tests/test_kernels.py``): BH 2, S 256, D 64, blocks 64, f32 and
+#: bf16 over causal, local 96, local 64 with softcap 30 and full; causal at
+#: D 32 with blocks 128/64 and 64/128. Then f32 at the head widths of the
+#: full-width layers, blocks 128: D 256 local 160 with softcap 30, and D
+#: 128 causal.
+TEST_GRID = tuple(
+    [(dt, 2, 256, 64, 64, 64, kind, window, cap, 11)
+     for dt in ("float32", "bfloat16")
+     for kind, window, cap in (("causal", 0, None), ("local", 96, None),
+                               ("local", 64, 30.0), ("full", 0, None))]
+    + [("float32", 1, S, 32, bq, bkv, "causal", 0, None, S)
+       for S, bq, bkv in ((256, 128, 64), (512, 64, 128))]
+    + [("float32", 2, 512, 256, 128, 128, "local", 160, 30.0, 31),
+       ("float32", 2, 512, 128, 128, 128, "causal", 0, None, 32)])
+#: the test grid's tolerances by dtype, atol and rtol (the reference's)
+TEST_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def dense_mask(Sq: int, Skv: int, mask_kind: str, window: int = 0,

@@ -1,7 +1,8 @@
 """The port's APRIL block-sparse attention held to the JAX package: the
 interval tables array for array; ``april_attention`` on CPU tensors (the
 plain version) against the reference's Pallas kernel in interpret mode and
-its dense oracle, on the reference's own test grid; the dense oracle
+its dense oracle, on the reference's own test grid and f32 cases at D 128
+and 256 (``TEST_GRID``, which the on-card check shares); the dense oracle
 against the reference's; ``april_attention_blocks`` against
 ``april_attention_pallas`` on hand-made tables; and the wrapper's checks.
 Inputs are made with numpy from a seed and rounded to bf16 in each
@@ -25,23 +26,19 @@ from repro.kernels.april_attention.ref import (  # noqa: E402
     april_attention_ref as r_april_attention_ref, dense_mask as r_dense_mask)
 
 from repro_torch.kernels.april_attention import (  # noqa: E402
-    april_attention, april_attention_blocks, april_attention_plain,
-    april_attention_ref, build_block_intervals, dense_mask)
+    TEST_GRID, TEST_TOL, april_attention, april_attention_blocks,
+    april_attention_plain, april_attention_ref, build_block_intervals,
+    dense_mask)
 
-TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+TOL = TEST_TOL
 TORCH_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 JAX_DTYPES = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
 
-#: tests/test_kernels.py's grid: (dtype, BH, S, D, block_q, block_kv,
-#: mask_kind, window, softcap, seed)
-SWEEP = [(dt, 2, 256, 64, 64, 64, kind, window, softcap, 11)
-         for dt in ("float32", "bfloat16")
-         for kind, window, softcap in [
-             ("causal", 0, None), ("local", 96, None), ("local", 64, 30.0),
-             ("full", 0, None)]]
-BLOCKS = [("float32", 1, S, 32, bq, bkv, "causal", 0, None, S)
-          for S, bq, bkv in [(256, 128, 64), (512, 64, 128)]]
-GRID = SWEEP + BLOCKS
+#: (dtype, BH, S, D, block_q, block_kv, mask_kind, window, softcap, seed):
+#: the port's test grid, which holds tests/test_kernels.py's cases, and
+#: the D 64 sweep among them
+GRID = list(TEST_GRID)
+SWEEP = [case for case in GRID if case[3] == 64]
 
 
 def _arrays(seed, shape):
