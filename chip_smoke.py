@@ -62,32 +62,40 @@ reference package. Phases, any failure exits non-zero:
    its plain version and, for the scan, the library calls that compute the
    same function (a stable ``torch.argsort`` and a sum, ``library_ms``)
    and the scan alone (``torch.cumsum``, printed beside it);
-9. the APRIL block-sparse attention kernel (``april_attention``, the LM
-   bridge; no join runs it): on its test grid (``TEST_GRID``: the
-   reference's cases from ``tests/test_kernels.py``, BH 2, S 256, D 64,
-   blocks 64, f32 and bf16, causal, local 96, local 64 with softcap 30 and
-   full, causal at D 32 with blocks 128/64 and 64/128; then f32 at D 256
-   and D 128, blocks 128) against its plain version and the dense oracle,
-   at 2e-5 in f32 and 2e-2 in bf16, atol and rtol, as the reference's
-   tests state; then at full width, bf16, blocks 128, against its plain
-   version with the launch count reset before and read after each call:
+9. the APRIL block-sparse attention kernels (``april_attention``, the LM
+   bridge; no join runs it: bf16 on the tensor cores, f32 on the CUDA
+   cores): on the test grid (``TEST_GRID``: the reference's cases from
+   ``tests/test_kernels.py``, BH 2, S 256, D 64, blocks 64, f32 and bf16,
+   causal, local 96, local 64 with softcap 30 and full, causal at D 32
+   with blocks 128/64 and 64/128; then f32 and bf16 at D 256 and D 128,
+   blocks 128, and bf16 with kv blocks of 96) against the plain version and
+   the dense oracle, at 2e-5 in f32 and 2e-2 in bf16, atol and rtol, as the
+   reference's tests state, and bf16 also on the row error; the
+   tensor-core kernel's registers, spills and shared memory a instance
+   (``kernel_attrs``); then at full width, bf16, blocks 128, against the
+   plain version with the launch count reset before and read after each
+   call:
    gemma2-2b's local layer (8 heads over 4 kv heads repeated, S 32768, D
    256, window 4096, softcap 50), its global layer (causal, softcap 50,
-   S 8192) and qwen1.5-4b's causal layer (20 heads, S 4096, D 128). Each
+   S 8192) and qwen1.5-4b's causal layer (20 heads, S 4096, D 128), and
+   the qwen layer once more in f32 for the CUDA-core kernel. Each
    head's q is drawn at a logit std from ``ATTN_TEMPS`` (1 to 12), so hot
    heads reach the softcap's range. bf16 outputs are gated on the row
-   error (``_row_rel_err``, at most ``ATTN_REL_TOL``), and wrong versions
+   error (``row_rel_err``, at most ``ROW_REL_TOL``), and wrong versions
    of the plain function (one kv block dropped, the softcap off, the
    window one key longer) must read above that gate. Each layer is timed
    beside one PyTorch call for the same function (``library_ms``):
    ``scaled_dot_product_attention`` for qwen, compiled ``flex_attention``
    with the softcap as ``score_mod`` for gemma2-2b; the gemma2-2b local
-   call runs once more under ``torch.profiler``.
+   call runs once more under ``torch.profiler``, whose trace must name the
+   tensor-core kernel; each layer's kernel and library call are also
+   timed on the device alone (``_device_ms``).
 
 Every kernel's row of the JSON ``kernels`` line carries ``tol``: 0 for the
 exact kernels, which must have ``max_abs_err <= tol``; the attention
 kernel's row carries its row error ``rel_err``, which must be at most
-``tol`` (``ATTN_REL_TOL``).
+``tol`` (``ROW_REL_TOL``), and ``kernel``, the name of the kernel that
+ran.
 
 Each phase prints its seconds. The last line is ``{"ok": true, "device":
 {...}}``.
@@ -121,7 +129,7 @@ REPS = 5
 PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
                 "edges_intersect_kernel", "tile_counts_kernel",
                 "scan_sums_kernel", "scatter_kernel", "ri_trichotomy_kernel",
-                "april_attention_kernel")
+                "april_attention_kernel", "april_attention_tc_kernel")
 #: random rows and code-bit densities of the RI kernel's stream sweep
 RI_SWEEP_ROWS = 65536
 RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
@@ -130,24 +138,23 @@ RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
 HOST_SCALE = 3
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
-#: the attention kernel's gate on bf16 outputs, beside the test grid's
-#: allclose tolerances: the largest over output rows of max |kernel -
-#: plain| over the RMS of the plain row (``_row_rel_err``). The sound
-#: kernel reads about 0.03 (one bf16 ulp of a row's largest values, and p
-#: rounded to bf16 under another running max); each wrong control of
-#: phase 9 must read above it
-ATTN_REL_TOL = 0.1
 #: logit std of each head of the full-width draws (q is drawn at these
 #: multiples of a unit normal, cycling over the heads): cool heads spread
 #: their softmax over thousands of keys, hot ones reach the softcap's range
 ATTN_TEMPS = (1.0, 1.0, 2.0, 4.0, 6.0, 8.0, 10.0, 12.0)
 #: full-width attention layers from the repo's configurations: (label,
-#: query heads, kv heads, S, D, mask_kind, window, softcap, seed); bf16,
-#: blocks 128 x 128
+#: dtype, query heads, kv heads, S, D, mask_kind, window, softcap, seed);
+#: blocks 128 x 128. bf16 runs on the tensor cores; the qwen layer once
+#: more in f32 times the CUDA-core kernel
 ATTN_SHAPES = (
-    ("gemma2-2b local", 8, 4, 32768, 256, "local", 4096, 50.0, 21),
-    ("gemma2-2b global", 8, 4, 8192, 256, "causal", 0, 50.0, 22),
-    ("qwen1.5-4b causal", 20, 20, 4096, 128, "causal", 0, None, 23),
+    ("gemma2-2b local", "bfloat16", 8, 4, 32768, 256, "local", 4096, 50.0,
+     21),
+    ("gemma2-2b global", "bfloat16", 8, 4, 8192, 256, "causal", 0, 50.0,
+     22),
+    ("qwen1.5-4b causal", "bfloat16", 20, 20, 4096, 128, "causal", 0, None,
+     23),
+    ("qwen1.5-4b causal f32", "float32", 20, 20, 4096, 128, "causal", 0,
+     None, 23),
 )
 
 
@@ -165,6 +172,27 @@ def _ms(fn) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / REPS
+
+
+def _device_ms(fn) -> float:
+    """Mean device milliseconds of one ``fn`` call over ``REPS`` calls, each
+    enqueued behind a sleep kernel, so that the events around it time the
+    device and not the host's enqueue (the host work of a call is in
+    ``_ms``)."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(REPS):
+        torch.cuda._sleep(20_000_000)       # about 10 ms of device time
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        total += start.elapsed_time(end)
+    return total / REPS
 
 
 def _nbytes(*tensors) -> int:
@@ -330,16 +358,6 @@ def _allowed_positions(S: int, kind: str, window: int) -> int:
     return S * S
 
 
-def _row_rel_err(got, want) -> float:
-    """The largest over output rows of max |got - want| over the RMS of the
-    ``want`` row (an all-zero row counts against 1)."""
-    import torch
-    g, w = got.float(), want.float()
-    err = (g - w).abs().amax(-1)
-    rms = w.square().mean(-1).sqrt()
-    return float((err / torch.where(rms > 0, rms, 1.0)).max())
-
-
 def _drop_one_block(iv):
     """The table with the first visited kv block of the middle q block
     left out: a wrong table, for the gate's control."""
@@ -383,13 +401,16 @@ def _library(q, k, v, kind, window, cap, scale):
         block_mask=block_mask, scale=scale)[0])
 
 
-def _attention_phase(dev) -> dict:
-    """Phase 9: the attention kernel on its test grid and at full width;
-    returns its row of the ``kernels`` line (the gemma2-2b local layer)."""
+def _attention_phase(dev) -> list:
+    """Phase 9: the attention kernels on the test grid and at full width;
+    returns their rows of the ``kernels`` line: the tensor-core kernel's
+    at the gemma2-2b local layer, the CUDA-core kernel's at the f32 qwen
+    layer."""
     import torch
     from repro_torch.kernels.april_attention import (
-        TEST_GRID, TEST_TOL, april_attention, april_attention_blocks,
-        april_attention_plain, april_attention_ref, build_block_intervals)
+        ROW_REL_TOL, TEST_GRID, TEST_TOL, april_attention,
+        april_attention_blocks, april_attention_plain, april_attention_ref,
+        build_block_intervals, kernel_attrs, row_rel_err)
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the f32 plain version must run without TF32")
     t_phase = time.perf_counter()
@@ -417,8 +438,8 @@ def _attention_phase(dev) -> dict:
                 raise AssertionError(f"april_attention kernel != {name} on "
                                      f"{case}")
         if dtype == "bfloat16":
-            rel = _row_rel_err(got, plain)
-            if rel > ATTN_REL_TOL:
+            rel = row_rel_err(got, plain)
+            if rel > ROW_REL_TOL:
                 raise AssertionError(f"april_attention kernel != plain "
                                      f"version on {case}: row error {rel}")
             worst_rel = max(worst_rel, rel)
@@ -427,18 +448,25 @@ def _attention_phase(dev) -> dict:
     print(f"april_attention kernel == plain version and dense oracle on its "
           f"{len(TEST_GRID)}-case test grid; max |kernel - plain| "
           f"{json.dumps(worst)}, tolerances {json.dumps(TEST_TOL)}; bf16 "
-          f"row error {worst_rel} (gate {ATTN_REL_TOL})", flush=True)
+          f"row error {worst_rel} (gate {ROW_REL_TOL})", flush=True)
+    attrs = {f"D {D} block_q {bq} kv tile {kt}": a
+             for (D, bq, kt), a in kernel_attrs().items()}
+    print(f"april_attention_tc_kernel instances (registers a thread, local "
+          f"spill bytes a thread, dynamic shared memory bytes): "
+          f"{json.dumps(attrs)}", flush=True)
 
     gen = torch.Generator(device=dev)
-    for (label, heads, kv_heads, S, D, kind, window, cap, seed) in ATTN_SHAPES:
+    rows = []
+    for (label, dtype, heads, kv_heads, S, D, kind, window, cap,
+         seed) in ATTN_SHAPES:
         gen.manual_seed(seed)
         temps = torch.tensor(ATTN_TEMPS, device=dev).repeat(
             -(-heads // len(ATTN_TEMPS)))[:heads]
         q = (torch.randn((heads, S, D), generator=gen, device=dev)
-             * temps[:, None, None]).to(torch.bfloat16)
+             * temps[:, None, None]).to(getattr(torch, dtype))
         k, v = (torch.randn((kv_heads, S, D), generator=gen, device=dev)
-                .to(torch.bfloat16).repeat_interleave(heads // kv_heads, 0)
-                for _ in range(2))
+                .to(getattr(torch, dtype))
+                .repeat_interleave(heads // kv_heads, 0) for _ in range(2))
         kw = dict(block_q=128, block_kv=128, mask_kind=kind, window=window,
                   softcap=cap)
         iv = torch.from_numpy(build_block_intervals(S, S, 128, 128, kind,
@@ -452,9 +480,9 @@ def _attention_phase(dev) -> dict:
             raise AssertionError(f"[{label}] {launches} kernel launches, "
                                  "not 1")
         plain = april_attention_plain(q, k, v, iv, scale=scale, **kw)
-        rel = _row_rel_err(got, plain)
+        rel = row_rel_err(got, plain)
         err = float((got.float() - plain.float()).abs().max())
-        if rel > ATTN_REL_TOL:
+        if rel > ROW_REL_TOL or (dtype == "float32" and err > TEST_TOL[dtype]):
             raise AssertionError(f"[{label}] april_attention kernel != plain "
                                  f"version: row error {rel}, max abs {err}")
         # wrong versions the gate must refuse
@@ -468,9 +496,9 @@ def _attention_phase(dev) -> dict:
                 {**kw, "window": window + 1})
         readings = {}
         for name, (c_iv, c_kw) in controls.items():
-            readings[name] = _row_rel_err(april_attention_plain(
+            readings[name] = row_rel_err(april_attention_plain(
                 q, k, v, c_iv, scale=scale, **c_kw), plain)
-            if readings[name] <= ATTN_REL_TOL:
+            if readings[name] <= ROW_REL_TOL:
                 raise AssertionError(f"[{label}] the gate passes a wrong "
                                      f"version ({name}): row error "
                                      f"{readings[name]}")
@@ -479,58 +507,80 @@ def _attention_phase(dev) -> dict:
         plain_ms = _ms(lambda: april_attention_plain(q, k, v, iv, scale=scale,
                                                      **kw))
         if label == "gemma2-2b local":
-            # now and then the profiler's trace holds no device event at
-            # all, not even the table's upload: such a trace is taken
-            # again, at most three times in all
+            # a trace window of a few ms now and then loses every device
+            # event, or cuts the kernel short: the device's timestamps,
+            # mapped onto the host's clock, can fall a few ms outside it.
+            # The call is padded with 0.1 s of host time on each side, and
+            # an empty trace is taken again, at most three times in all
+            def padded():
+                time.sleep(0.1)
+                april_attention(q, k, v, **kw)
+                torch.cuda.synchronize()
+                time.sleep(0.1)
+
             for _ in range(3):
-                prof = _profile(lambda: april_attention(q, k, v, **kw))
+                prof = _profile(padded)
                 print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
                 if prof["device_busy_us"] > 0:
                     break
             ours = prof["port_kernels_us_and_launches"].get(
-                "april_attention_kernel")
+                "april_attention_tc_kernel")
             if not ours or ours[1] <= 0:
                 raise AssertionError("the profile shows no "
-                                     "april_attention_kernel launch")
+                                     "april_attention_tc_kernel launch")
         t0 = time.perf_counter()
         lib_name, lib = _library(q, k, v, kind, window, cap, scale)
         lib_out = lib()
         torch.cuda.synchronize()
         lib_first_s = time.perf_counter() - t0
-        lib_rel = _row_rel_err(lib_out, got)
+        lib_rel = row_rel_err(lib_out, got)
         del lib_out
-        if lib_rel > ATTN_REL_TOL:
+        if lib_rel > ROW_REL_TOL:
             raise AssertionError(f"[{label}] {lib_name} is not the same "
                                  f"function: row error {lib_rel}")
         library_ms = _ms(lib)
+        device = {"kernel": _device_ms(lambda: april_attention(q, k, v,
+                                                               **kw)),
+                  lib_name: _device_ms(lib)}
         n_allowed = heads * _allowed_positions(S, kind, window)
         t_bytes = 4 * q.numel() * q.element_size() / HBM_BYTES_PER_S * 1e3
-        t_ops = 4 * D * n_allowed / BF16_OPS_PER_S * 1e3
-        row = {"name": "april_attention", "route": "cuda",
-               "source": "src/repro_torch/csrc/april_attention.cu",
+        # f32 products run on the CUDA cores: TF32 would break f32
+        peak = BF16_OPS_PER_S if dtype == "bfloat16" else F32_OPS_PER_S
+        t_ops = 4 * D * n_allowed / peak * 1e3
+        tc = dtype == "bfloat16"
+        row = {"name": "april_attention" if tc else "april_attention_f32",
+               "route": "cuda",
+               "kernel": ("april_attention_tc_kernel" if tc
+                          else "april_attention_kernel"),
+               "source": ("src/repro_torch/csrc/april_attention_tc.cu" if tc
+                          else "src/repro_torch/csrc/april_attention.cu"),
                "replaces": "src/repro/kernels/april_attention/"
                            "april_attention.py:102",
                "launches": launches, "max_abs_err": err, "rel_err": rel,
-               "tol": ATTN_REL_TOL, "ms": ms, "plain_ms": plain_ms,
+               "tol": ROW_REL_TOL, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "library_ms": library_ms}
+        if not tc:      # f32 is held to its allclose tolerance
+            del row["rel_err"]
+            row["tol"] = TEST_TOL[dtype]
         visited = heads * int((iv[:, 3] - iv[:, 0]).sum())
         print(f"[{label}] BH {heads} ({kv_heads} kv heads), S {S}, D {D}, "
               f"{kind} {window}, softcap {cap}, logit std {ATTN_TEMPS}: "
               f"{visited} visited (q block, kv block) pairs, {n_allowed} "
               f"allowed positions, bytes bound {t_bytes} ms, operations "
-              f"bound {t_ops} ms (4 D a position over the bf16 peak; tanh "
-              f"not counted); row error of the wrong controls "
+              f"bound {t_ops} ms (4 D a position over the {dtype} peak; "
+              f"tanh not counted); row error of the wrong controls "
               f"{json.dumps(readings)}; library {lib_name}, row error "
               f"{lib_rel} against the kernel, first call {lib_first_s:.1f} "
-              f"s: {json.dumps(row)}", flush=True)
-        if label == "gemma2-2b local":
-            kernel_row = row
+              f"s; device ms of one call {json.dumps(device)}: "
+              f"{json.dumps(row)}", flush=True)
+        if label in ("gemma2-2b local", "qwen1.5-4b causal f32"):
+            rows.append(row)
         del q, k, v, got
-    print(f"phase 9 ok: attention kernel ({time.perf_counter() - t_phase:.1f}"
-          f" s)", flush=True)
-    return kernel_row
+    print(f"phase 9 ok: attention kernels "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return rows
 
 
 def main() -> int:
@@ -1050,7 +1100,7 @@ def main() -> int:
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
     # 9. the attention kernel, which no join runs
-    kernels.append(_attention_phase(dev))
+    kernels.extend(_attention_phase(dev))
     bad = [k["name"] for k in kernels
            if not k.get("rel_err", k["max_abs_err"]) <= k["tol"]]
     if bad:

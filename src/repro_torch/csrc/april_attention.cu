@@ -1,19 +1,22 @@
-// APRIL block-sparse flash attention, for Hopper (sm_90a).
+// APRIL block-sparse flash attention in f32, on the CUDA cores (sm_90a).
 //
 // Replaces the TPU kernel april_attention_pallas
-// (src/repro/kernels/april_attention/april_attention.py:102). The mask's
-// (q block x kv block) raster is classified as APRIL classifies raster
-// cells: per q block one A-interval [a_lo, a_hi) of kv blocks to visit and
-// one F-interval [f_lo, f_hi) of Full blocks that need no mask; the blocks
-// of A outside F are Partial and get the causal or local(window) mask. The
-// TPU kernel walks the whole (BH, nq, nk) grid in order, skips blocks with
-// pl.when and keeps the online-softmax state in VMEM scratch across the kv
-// axis.
+// (src/repro/kernels/april_attention/april_attention.py:102) for f32
+// inputs; bf16 inputs run on the tensor cores in csrc/april_attention_tc.cu.
+// The CUDA cores are the only place the f32 products run in full f32: the
+// tensor cores' TF32 keeps about three decimal digits and would break the
+// f32 contract of 2e-5. The mask's (q block x kv block) raster is
+// classified as APRIL classifies raster cells: per q block one A-interval
+// [a_lo, a_hi) of kv blocks to visit and one F-interval [f_lo, f_hi) of
+// Full blocks that need no mask; the blocks of A outside F are Partial and
+// get the causal or local(window) mask. The TPU kernel walks the whole
+// (BH, nq, nk) grid in order, skips blocks with pl.when and keeps the
+// online-softmax state in VMEM scratch across the kv axis.
 //
 // Here one block of 16 warps owns one (bh, q block). It reads its own
 // interval row and loops ki over [a_lo, a_hi) only, so Empty blocks are
-// never loaded. The q block is staged once in shared memory as f32; each kv
-// block is staged in chunks of 32 rows of K and V (f32), which inherit the
+// never loaded. The q block is staged once in shared memory; each kv
+// block is staged in chunks of 32 rows of K and V, which inherit the
 // block's Full/Partial class, so one chunk serves every q row of the block
 // and D up to 256 fits (at D = 256, q block 128: 213,504 bytes of dynamic
 // shared memory). A warp owns q block / 16 rows. For the scores lane j
@@ -21,29 +24,21 @@
 // the warp's rows (float4 reads; the K rows are padded by 4 floats so the
 // lanes' reads fall on distinct banks); then per row: scale, softcap
 // (softcap * tanhf(s / softcap)), the mask on Partial blocks only, and the
-// online softmax in f32 with the finite NEG_INF = -1e30, whose first fully
-// masked chunk carries exp(0) until a later one rescales it away with
-// alpha = exp(-1e30 - m) = 0 (with -inf that step gives NaN). For bf16
-// inputs p is rounded to bf16 before the PV product, as p.astype(v.dtype)
-// does. For PV the accumulator of a row is spread across the warp's lanes
-// (D / 32 values a lane), and the chunk's p values are broadcast from
-// shared memory. The last step divides by l, read as 1 where l == 0, and
-// writes q's dtype. Row m and l live one row per lane and travel by
-// shuffle, to keep the accumulator's registers free.
+// online softmax with the finite NEG_INF = -1e30, whose first fully masked
+// chunk carries exp(0) until a later one rescales it away with
+// alpha = exp(-1e30 - m) = 0 (with -inf that step gives NaN). For PV the
+// accumulator of a row is spread across the warp's lanes (D / 32 values a
+// lane), and the chunk's p values are broadcast from shared memory. The
+// last step divides by l, read as 1 where l == 0. Row m and l live one row
+// per lane and travel by shuffle, to keep the accumulator's registers
+// free.
 //
-// What bounds it on the H100: operations. Attention over the allowed (q, k)
-// positions costs 4 D operations each; at gemma2-2b's local layer (S =
-// 32768, D = 256, window 4096) that is about 1.03e12, 1.04 ms at the bf16
-// tensor-core peak against 0.16 ms to move q, k, v and the output once.
-// This design runs on the CUDA cores in f32 (67 TFLOP/s, so about 15 ms at
-// best for that layer) and its score loop also waits on shared memory (a
-// float4 of K per lane and a broadcast float4 of q per row for every four
-// multiply-adds). It is the simple version that is right first: every
-// product and sum in f32 without TF32, expf and tanhf without fast math.
-// The next design moves both products onto the tensor cores (mma.sync,
-// then wgmma fed by TMA).
+// What bounds it on the H100: operations, 4 D an allowed (q, k) position,
+// here at the CUDA cores' f32 rate of 67 TFLOP/s; the score loop also
+// waits on shared memory (a float4 of K per lane and a broadcast float4 of
+// q per row for every four multiply-adds). Every product and sum is f32
+// without TF32, expf and tanhf without fast math.
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -56,26 +51,6 @@ constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
-}
-
-__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  return make_float4(a.x, a.y, b.x, b.y);
-}
-
-__device__ __forceinline__ void store1(float* p, float x) { *p = x; }
-
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
-// p as the PV product sees it: rounded to the inputs' type.
-__device__ __forceinline__ float round_p(float x, const float*) { return x; }
-
-__device__ __forceinline__ float round_p(float x, const __nv_bfloat16*) {
-  return __bfloat162float(__float2bfloat16_rn(x));
 }
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -102,13 +77,16 @@ constexpr size_t smem_bytes() {
 
 // One block per (bh, q block): blockIdx.x = bh * nq + qi. D = 32 DT, q block
 // = 16 ROWS rows (ROWS a multiple of 4).
-template <typename T, int DT, int ROWS>
+template <int DT, int ROWS>
 __global__ void __launch_bounds__(kThreads, 1)
-april_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, const int32_t* __restrict__ iv,
-                       T* __restrict__ out, int nq, int64_t Sq, int64_t Skv,
-                       int block_kv, float scale, bool has_softcap,
-                       float softcap, int mask_kind, int window) {
+april_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       const int32_t* __restrict__ iv,
+                       float* __restrict__ out, int nq, int64_t Sq,
+                       int64_t Skv, int block_kv, float scale,
+                       bool has_softcap, float softcap, int mask_kind,
+                       int window) {
   constexpr int D = 32 * DT;
   constexpr int BQ = kWarps * ROWS;
   constexpr int KS = D + 4;             // K row stride in shared memory
@@ -129,10 +107,10 @@ april_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int64_t f_hi = iv[4 * qi + 2];
   const int64_t a_hi = iv[4 * qi + 3] < nk ? iv[4 * qi + 3] : nk;
 
-  const T* kb = k + bh * Skv * D;
-  const T* vb = v + bh * Skv * D;
+  const float* kb = k + bh * Skv * D;
+  const float* vb = v + bh * Skv * D;
   {
-    const T* qb = q + (bh * Sq + static_cast<int64_t>(qi) * BQ) * D;
+    const float* qb = q + (bh * Sq + static_cast<int64_t>(qi) * BQ) * D;
     for (int i = threadIdx.x; i < BQ * D / 4; i += kThreads)
       reinterpret_cast<float4*>(qs)[i] = load4(qb + 4 * i);
   }
@@ -208,7 +186,7 @@ april_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
         }
 #pragma unroll
         for (int t = 0; t < DT; ++t) acc[r][t] *= alpha;
-        s[r] = round_p(p, q);
+        s[r] = p;
       }
 #pragma unroll
       for (int r = 0; r < ROWS; r += 4)
@@ -237,18 +215,18 @@ april_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* ob = out + (bh * Sq + qpos0) * D;
+  float* ob = out + (bh * Sq + qpos0) * D;
 #pragma unroll
   for (int r = 0; r < ROWS; ++r) {
     const float l = __shfl_sync(kFull, l_lane, r);
     const float denom = l == 0.f ? 1.f : l;
 #pragma unroll
     for (int t = 0; t < DT; ++t)
-      store1(ob + r * D + lane + 32 * t, acc[r][t] / denom);
+      ob[r * D + lane + 32 * t] = acc[r][t] / denom;
   }
 }
 
-template <typename T, int DT, int ROWS>
+template <int DT, int ROWS>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int32_t* iv, void* out, int64_t BH, int64_t Sq,
                    int64_t Skv, int block_kv, float scale, bool has_softcap,
@@ -256,7 +234,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
                    cudaStream_t stream) {
   constexpr int BQ = kWarps * ROWS;
   constexpr size_t smem = smem_bytes<DT, ROWS>();
-  auto kernel = april_attention_kernel<T, DT, ROWS>;
+  auto kernel = april_attention_kernel<DT, ROWS>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -266,14 +244,14 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (blocks <= 0) return cudaSuccess;
   if (blocks > 0x7fffffff) return cudaErrorInvalidConfiguration;
   kernel<<<static_cast<unsigned int>(blocks), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), iv, static_cast<T*>(out),
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), iv, static_cast<float*>(out),
       static_cast<int>(nq), Sq, Skv, block_kv, scale, has_softcap, softcap,
       mask_kind, window);
   return cudaGetLastError();
 }
 
-template <typename T, int ROWS>
+template <int ROWS>
 cudaError_t launch_d(int64_t D, const void* q, const void* k, const void* v,
                      const int32_t* iv, void* out, int64_t BH, int64_t Sq,
                      int64_t Skv, int block_kv, float scale, bool has_softcap,
@@ -281,65 +259,44 @@ cudaError_t launch_d(int64_t D, const void* q, const void* k, const void* v,
                      cudaStream_t stream) {
   switch (D) {
     case 32:
-      return launch<T, 1, ROWS>(q, k, v, iv, out, BH, Sq, Skv, block_kv,
-                                scale, has_softcap, softcap, mask_kind,
-                                window, stream);
+      return launch<1, ROWS>(q, k, v, iv, out, BH, Sq, Skv, block_kv, scale,
+                             has_softcap, softcap, mask_kind, window, stream);
     case 64:
-      return launch<T, 2, ROWS>(q, k, v, iv, out, BH, Sq, Skv, block_kv,
-                                scale, has_softcap, softcap, mask_kind,
-                                window, stream);
+      return launch<2, ROWS>(q, k, v, iv, out, BH, Sq, Skv, block_kv, scale,
+                             has_softcap, softcap, mask_kind, window, stream);
     case 128:
-      return launch<T, 4, ROWS>(q, k, v, iv, out, BH, Sq, Skv, block_kv,
-                                scale, has_softcap, softcap, mask_kind,
-                                window, stream);
+      return launch<4, ROWS>(q, k, v, iv, out, BH, Sq, Skv, block_kv, scale,
+                             has_softcap, softcap, mask_kind, window, stream);
     case 256:
-      return launch<T, 8, ROWS>(q, k, v, iv, out, BH, Sq, Skv, block_kv,
-                                scale, has_softcap, softcap, mask_kind,
-                                window, stream);
+      return launch<8, ROWS>(q, k, v, iv, out, BH, Sq, Skv, block_kv, scale,
+                             has_softcap, softcap, mask_kind, window, stream);
     default:
       return cudaErrorInvalidValue;
   }
 }
 
-template <typename T>
-cudaError_t launch_t(int block_q, int64_t D, const void* q, const void* k,
-                     const void* v, const int32_t* iv, void* out, int64_t BH,
-                     int64_t Sq, int64_t Skv, int block_kv, float scale,
-                     bool has_softcap, float softcap, int mask_kind,
-                     int window, cudaStream_t stream) {
-  if (block_q == 64)
-    return launch_d<T, 4>(D, q, k, v, iv, out, BH, Sq, Skv, block_kv, scale,
-                          has_softcap, softcap, mask_kind, window, stream);
-  if (block_q == 128)
-    return launch_d<T, 8>(D, q, k, v, iv, out, BH, Sq, Skv, block_kv, scale,
-                          has_softcap, softcap, mask_kind, window, stream);
-  return cudaErrorInvalidValue;
-}
-
 }  // namespace
 
-// q [BH, Sq, D], k/v [BH, Skv, D] (dtype 0: float32, 1: bfloat16), iv [Sq /
-// block_q, 4] int32 (a_lo, f_lo, f_hi, a_hi), out like q. mask_kind 0:
-// causal, 1: local(window), 2: full. Returns the launch's cudaError_t; a
-// shape the kernel is not built for returns cudaErrorInvalidValue.
+// q [BH, Sq, D], k/v [BH, Skv, D] float32, iv [Sq / block_q, 4] int32
+// (a_lo, f_lo, f_hi, a_hi), out like q. mask_kind 0: causal, 1:
+// local(window), 2: full. Returns the launch's cudaError_t; a shape the
+// kernel is not built for returns cudaErrorInvalidValue.
 extern "C" int april_attention_launch(
     const void* q, const void* k, const void* v, const int32_t* iv, void* out,
     int64_t BH, int64_t Sq, int64_t Skv, int64_t D, int block_q, int block_kv,
-    int dtype, float scale, int has_softcap, float softcap, int mask_kind,
-    int window, void* stream) {
+    float scale, int has_softcap, float softcap, int mask_kind, int window,
+    void* stream) {
   if (block_q <= 0 || block_kv <= 0 || block_kv % kChunk != 0 ||
       Sq % block_q != 0 || Skv % block_kv != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
-  if (dtype == 0)
-    err = launch_t<float>(block_q, D, q, k, v, iv, out, BH, Sq, Skv, block_kv,
-                          scale, has_softcap != 0, softcap, mask_kind, window,
-                          st);
-  else if (dtype == 1)
-    err = launch_t<__nv_bfloat16>(block_q, D, q, k, v, iv, out, BH, Sq, Skv,
-                                  block_kv, scale, has_softcap != 0, softcap,
-                                  mask_kind, window, st);
+  if (block_q == 64)
+    err = launch_d<4>(D, q, k, v, iv, out, BH, Sq, Skv, block_kv, scale,
+                      has_softcap != 0, softcap, mask_kind, window, st);
+  else if (block_q == 128)
+    err = launch_d<8>(D, q, k, v, iv, out, BH, Sq, Skv, block_kv, scale,
+                      has_softcap != 0, softcap, mask_kind, window, st);
   else
     err = cudaErrorInvalidValue;
   return static_cast<int>(err);

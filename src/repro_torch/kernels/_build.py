@@ -36,6 +36,7 @@ SOURCES = {
     "compact": ("compact.cu", []),
     "ri_and": ("ri_and.cu", []),
     "april_attention": ("april_attention.cu", []),
+    "april_attention_tc": ("april_attention_tc.cu", []),
 }
 
 _LOCK = threading.Lock()

@@ -1,14 +1,18 @@
-"""Wrapper of the APRIL block-sparse attention kernel
-(``csrc/april_attention.cu``) and the interval tables that steer it.
+"""Wrapper of the APRIL block-sparse attention kernels and the interval
+tables that steer them.
 
 :func:`build_block_intervals` is the APRIL A/F classification of the
 (q block x kv block) raster of the mask. :func:`april_attention_blocks`
 takes a table and checks its tensors, then dispatches on their device: on
 the CPU it runs the plain PyTorch version (``ref.py``); on a CUDA device it
-launches the kernel on the current stream, or raises. There is no fallback
-from one to the other. Kernel launches are counted in
-``april_attention_blocks.launches``. :func:`april_attention` builds the
-table for a mask and runs it the same way, checking q, k and v once.
+launches, on the current stream, the kernel of the tensors' dtype, or
+raises: bf16 runs on the tensor cores (``csrc/april_attention_tc.cu``,
+wgmma fed by TMA), f32 on the CUDA cores (``csrc/april_attention.cu``).
+There is no fallback from one to another. Kernel launches are counted in
+``april_attention_blocks.launches``, one a call. :func:`april_attention`
+builds the table for a mask and runs it the same way, checking q, k and v
+once. :func:`kernel_attrs` reads the tensor-core kernel's registers,
+spills and shared memory.
 """
 from __future__ import annotations
 
@@ -24,16 +28,25 @@ from ..interval_join.ops import _cuda_device, _raise_on
 from .ref import MASK_KINDS, april_attention_plain
 
 __all__ = ["build_block_intervals", "april_attention_blocks",
-           "april_attention", "HEAD_DIMS", "BLOCK_QS", "KV_CHUNK"]
+           "april_attention", "kernel_attrs", "HEAD_DIMS", "BLOCK_QS",
+           "KV_CHUNK", "KV_TILES"]
 
 _P = ctypes.c_void_p
 
-#: head widths and q-block heights the kernel is built for, and the kv rows
-#: it stages at a time (block_kv must be a multiple of it)
+#: head widths and q-block heights the kernels are built for, and the kv
+#: rows they stage at a time (block_kv must be a multiple of it)
 HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_QS = (64, 128)
 KV_CHUNK = 32
-_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+#: the tensor-core kernel's kv tiles: 128 keys where D <= 128 and block_kv
+#: is a multiple of 128, else 64 where it is a multiple of 64, else 32
+KV_TILES = (128, 64, 32)
+_DTYPES = (torch.float32, torch.bfloat16)
+#: both kernels' launch: q, k, v, table, out; BH, Sq, Skv, D; block_q,
+#: block_kv; scale, has_softcap, softcap, mask_kind, window; stream
+_LAUNCH_ARGS = ([_P] * 5 + [ctypes.c_int64] * 4 + [ctypes.c_int] * 2
+                + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
+                   ctypes.c_int, _P])
 
 
 def build_block_intervals(Sq: int, Skv: int, block_q: int, block_kv: int,
@@ -83,15 +96,39 @@ def _intervals(Sq, Skv, block_q, block_kv, mask_kind, window) -> np.ndarray:
                                  window)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = load("april_attention")
-    if lib.april_attention_launch.argtypes is None:
-        lib.april_attention_launch.argtypes = (
-            [_P] * 5 + [ctypes.c_int64] * 4 + [ctypes.c_int] * 3
-            + [ctypes.c_float, ctypes.c_int, ctypes.c_float, ctypes.c_int,
-               ctypes.c_int, _P])
-        lib.april_attention_launch.restype = ctypes.c_int
-    return lib
+def _launcher(dtype: torch.dtype):
+    """The launch function of ``dtype``'s kernel, its ctypes bound."""
+    if dtype == torch.bfloat16:
+        fn = load("april_attention_tc").april_attention_tc_launch
+    else:
+        fn = load("april_attention").april_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = _LAUNCH_ARGS
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def kernel_attrs() -> dict:
+    """Registers a thread, local (spill) bytes a thread and dynamic shared
+    memory bytes of every instance of the tensor-core (bf16) kernel, keyed
+    by (D, block_q, kv tile keys), as ``cudaFuncGetAttributes`` reads them
+    on the card."""
+    fn = load("april_attention_tc").april_attention_tc_attrs
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                       ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+    out = {}
+    for D in HEAD_DIMS:
+        for bq in BLOCK_QS:
+            for kt in KV_TILES:
+                if kt == 128 and D > 128:     # not built: no room for it
+                    continue
+                buf = (ctypes.c_int * 3)()
+                _raise_on(fn(D, bq, kt, buf), "april_attention_tc_attrs")
+                out[(D, bq, kt)] = dict(zip(
+                    ("regs", "spill_bytes", "smem_bytes"), buf))
+    return out
 
 
 def _check_qkv(q, k, v, block_q, block_kv, mask_kind) -> None:
@@ -160,19 +197,22 @@ def _run(q, k, v, intervals, scale, block_q, block_kv, mask_kind, window,
             block_kv=block_kv, mask_kind=mask_kind, window=window,
             softcap=softcap)
     _cuda_device(dev, "april_attention")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("q, k, v: the kernel reads 16-byte aligned rows; "
-                         "pass tensors that start on a 16-byte boundary")
     BH, Sq, D = q.shape
+    # the kernels read 16-byte vectors, and TMA (bf16) wants 16-byte
+    # aligned bases and row pitches
+    if any(t.data_ptr() % 16 for t in (q, k, v)) \
+            or D * q.element_size() % 16:
+        raise ValueError("q, k, v: the kernels read 16-byte aligned rows; "
+                         "pass tensors that start on a 16-byte boundary")
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    rc = _lib().april_attention_launch(
+    rc = _launcher(q.dtype)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), intervals.data_ptr(),
-        out.data_ptr(), BH, Sq, k.shape[1], D, block_q, block_kv,
-        _DTYPES[q.dtype], scale, int(softcap is not None),
-        0.0 if softcap is None else softcap, MASK_KINDS.index(mask_kind),
-        int(window), torch.cuda.current_stream(dev).cuda_stream)
+        out.data_ptr(), BH, Sq, k.shape[1], D, block_q, block_kv, scale,
+        int(softcap is not None), 0.0 if softcap is None else softcap,
+        MASK_KINDS.index(mask_kind), int(window),
+        torch.cuda.current_stream(dev).cuda_stream)
     _raise_on(rc, "april_attention")
     april_attention_blocks.launches += 1
     return out

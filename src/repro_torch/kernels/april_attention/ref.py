@@ -17,8 +17,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["NEG_INF", "MASK_KINDS", "TEST_GRID", "TEST_TOL", "dense_mask",
-           "april_attention_ref", "april_attention_plain"]
+__all__ = ["NEG_INF", "MASK_KINDS", "TEST_GRID", "TEST_TOL", "ROW_REL_TOL",
+           "dense_mask", "row_rel_err", "april_attention_ref",
+           "april_attention_plain"]
 
 #: the masked score: finite, so a row whose first visited block is fully
 #: masked carries exp(0) until a later block rescales it away
@@ -29,9 +30,11 @@ MASK_KINDS = ("causal", "local", "full")
 #: block_kv, mask_kind, window, softcap, seed). First the JAX package's own
 #: cases (``tests/test_kernels.py``): BH 2, S 256, D 64, blocks 64, f32 and
 #: bf16 over causal, local 96, local 64 with softcap 30 and full; causal at
-#: D 32 with blocks 128/64 and 64/128. Then f32 at the head widths of the
-#: full-width layers, blocks 128: D 256 local 160 with softcap 30, and D
-#: 128 causal.
+#: D 32 with blocks 128/64 and 64/128. Then f32 and bf16 at the head
+#: widths of the full-width layers, blocks 128: D 256 local 160 with
+#: softcap 30, and D 128 causal; and bf16 with kv blocks of 96 keys (S 384,
+#: q blocks 64, local 100), which the tensor-core kernel walks in tiles of
+#: 32 keys, the first of them fully masked for some rows.
 TEST_GRID = tuple(
     [(dt, 2, 256, 64, 64, 64, kind, window, cap, 11)
      for dt in ("float32", "bfloat16")
@@ -39,10 +42,20 @@ TEST_GRID = tuple(
                                ("local", 64, 30.0), ("full", 0, None))]
     + [("float32", 1, S, 32, bq, bkv, "causal", 0, None, S)
        for S, bq, bkv in ((256, 128, 64), (512, 64, 128))]
-    + [("float32", 2, 512, 256, 128, 128, "local", 160, 30.0, 31),
-       ("float32", 2, 512, 128, 128, 128, "causal", 0, None, 32)])
+    + [(dt, 2, 512, 256, 128, 128, "local", 160, 30.0, seed)
+       for dt, seed in (("float32", 31), ("bfloat16", 41))]
+    + [(dt, 2, 512, 128, 128, 128, "causal", 0, None, seed)
+       for dt, seed in (("float32", 32), ("bfloat16", 42))]
+    + [("bfloat16", 2, 384, 64, 64, 96, "local", 100, None, 43)])
 #: the test grid's tolerances by dtype, atol and rtol (the reference's)
 TEST_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+#: the gate on bf16 outputs beside the allclose tolerances: the largest
+#: row error (:func:`row_rel_err`) a kernel may show against its plain
+#: version. A sound kernel reads about 0.03 (one bf16 ulp of a row's
+#: largest values, and p rounded to bf16 under another running max); a
+#: kernel that drops a kv block, the softcap or a key of the window reads
+#: several times more than 1
+ROW_REL_TOL = 0.1
 
 
 def dense_mask(Sq: int, Skv: int, mask_kind: str, window: int = 0,
@@ -55,6 +68,15 @@ def dense_mask(Sq: int, Skv: int, mask_kind: str, window: int = 0,
     if mask_kind == "local":
         return (kpos <= qpos) & (kpos > qpos - window)
     return torch.ones((Sq, Skv), dtype=torch.bool, device=device)
+
+
+def row_rel_err(got, want) -> float:
+    """The largest over output rows of max |got - want| over the RMS of the
+    ``want`` row (an all-zero row counts against 1)."""
+    g, w = got.float(), want.float()
+    err = (g - w).abs().amax(-1)
+    rms = w.square().mean(-1).sqrt()
+    return float((err / torch.where(rms > 0, rms, 1.0)).max())
 
 
 def april_attention_ref(q, k, v, *, scale=None, mask_kind="causal",
