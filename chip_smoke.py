@@ -88,7 +88,7 @@ reference package. Phases, any failure exits non-zero:
    ``scaled_dot_product_attention`` for qwen, compiled ``flex_attention``
    with the softcap as ``score_mod`` for gemma2-2b; the gemma2-2b local
    call runs once more under ``torch.profiler``, whose trace must name the
-   tensor-core kernel; each layer's kernel and library call are also
+   tensor-core kernel once; each layer's kernel and library call are also
    timed on the device alone (``_device_ms``).
 
 Every kernel's row of the JSON ``kernels`` line carries ``tol``: 0 for the
@@ -130,6 +130,9 @@ PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
                 "edges_intersect_kernel", "tile_counts_kernel",
                 "scan_sums_kernel", "scatter_kernel", "ri_trichotomy_kernel",
                 "april_attention_kernel", "april_attention_tc_kernel")
+#: profiler sessions taken before a kernel that a trace must name counts
+#: as absent (``_profile_showing``)
+PROFILE_TRIES = 5
 #: random rows and code-bit densities of the RI kernel's stream sweep
 RI_SWEEP_ROWS = 65536
 RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
@@ -203,21 +206,41 @@ def _profile(fn) -> dict:
     """Run ``fn`` once under ``torch.profiler`` and sum the device events
     of its Chrome trace: microseconds per kernel name and per copy kind,
     the device busy share of the host wall time, and the port's own
-    kernels' microseconds and launches."""
+    kernels' microseconds and launches.
+
+    A profiler session that starts tracing and recording at once loses
+    its first device record late in this script (a memcpy, or the kernel
+    itself when it came first). So the trace starts on a warm-up step that
+    runs one small device op, and ``fn`` runs alone in the one active step
+    after it, whose trace is read. Such a session still loses records now
+    and then (all of them, or the kernel alone), which
+    ``_profile_showing`` takes again."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
+    traces = []
+
+    def keep(prof) -> None:
+        with tempfile.TemporaryDirectory() as tmp:
+            trace = str(Path(tmp) / "trace.json")
+            prof.export_chrome_trace(trace)
+            with open(trace) as f:
+                traces.append(json.load(f)["traceEvents"])
+
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1),
+                 on_trace_ready=keep) as prof:
+        torch.ones(1, device="cuda").add_(1)
+        torch.cuda.synchronize()
+        prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    with tempfile.TemporaryDirectory() as tmp:
-        trace = str(Path(tmp) / "trace.json")
-        prof.export_chrome_trace(trace)
-        with open(trace) as f:
-            events = json.load(f)["traceEvents"]
+        prof.step()
+    if len(traces) != 1:
+        raise AssertionError(f"the profiler gave {len(traces)} traces, not 1")
+    events = traces[0]
     by_name: dict[str, float] = {}
     calls: dict[str, int] = {}
     for e in events:
@@ -241,6 +264,27 @@ def _profile(fn) -> dict:
     return {"wall_us": wall_us, "device_busy_us": busy,
             "device_busy_share": busy / wall_us, "top_device_us": top,
             "port_kernels_us_and_launches": ours}
+
+
+def _profile_showing(label, fn, kernel, launches=None) -> dict:
+    """``_profile(fn)``, printed, until its trace names ``kernel`` (as
+    many as ``launches`` times, when given): a trace without it is taken
+    again, ``PROFILE_TRIES`` sessions in all, since a session can lose
+    device records; a trace can lose launches but never add them, so a
+    count other than ``launches`` fails at once."""
+    for attempt in range(1, PROFILE_TRIES + 1):
+        prof = _profile(fn)
+        print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
+        seen = prof["port_kernels_us_and_launches"].get(kernel, [0.0, 0])[1]
+        if seen and launches not in (None, seen):
+            raise AssertionError(f"[{label}] the profile shows {seen} "
+                                 f"{kernel} launches, not {launches}")
+        if seen:
+            return prof
+        print(f"profile [{label}]: session {attempt} of {PROFILE_TRIES} "
+              f"shows no {kernel} launch", flush=True)
+    raise AssertionError(f"[{label}] the profile shows no {kernel} launch "
+                         f"in {PROFILE_TRIES} sessions")
 
 
 def _reset(wrappers) -> None:
@@ -507,27 +551,8 @@ def _attention_phase(dev) -> list:
         plain_ms = _ms(lambda: april_attention_plain(q, k, v, iv, scale=scale,
                                                      **kw))
         if label == "gemma2-2b local":
-            # a trace window of a few ms now and then loses every device
-            # event, or cuts the kernel short: the device's timestamps,
-            # mapped onto the host's clock, can fall a few ms outside it.
-            # The call is padded with 0.1 s of host time on each side, and
-            # an empty trace is taken again, at most three times in all
-            def padded():
-                time.sleep(0.1)
-                april_attention(q, k, v, **kw)
-                torch.cuda.synchronize()
-                time.sleep(0.1)
-
-            for _ in range(3):
-                prof = _profile(padded)
-                print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
-                if prof["device_busy_us"] > 0:
-                    break
-            ours = prof["port_kernels_us_and_launches"].get(
-                "april_attention_tc_kernel")
-            if not ours or ours[1] <= 0:
-                raise AssertionError("the profile shows no "
-                                     "april_attention_tc_kernel launch")
+            _profile_showing(label, lambda: april_attention(q, k, v, **kw),
+                             "april_attention_tc_kernel", launches=1)
         t0 = time.perf_counter()
         lib_name, lib = _library(q, k, v, kind, window, cap, scale)
         lib_out = lib()
@@ -981,12 +1006,12 @@ def main() -> int:
                                                  plan.approx_s)
         run = JoinPlan(R, S, filter=filt, n_order=args.n_order,
                        **opts).build(prebuilt=pre)
-        prof = _profile(lambda: run.execute("intersects"))
-        print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
-    ri_prof = prof["port_kernels_us_and_launches"].get("ri_trichotomy_kernel")
-    if not ri_prof or ri_prof[1] <= 0:
-        raise AssertionError("the RI profile shows no ri_trichotomy_kernel "
-                             "launch")
+        if filt == "ri":
+            _profile_showing(label, lambda: run.execute("intersects"),
+                             "ri_trichotomy_kernel")
+        else:
+            prof = _profile(lambda: run.execute("intersects"))
+            print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
     print(f"phase 7 ok: profiles ({time.perf_counter() - t_phase:.1f} s)",
           flush=True)
 
