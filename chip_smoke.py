@@ -29,10 +29,12 @@ reference package. Phases, any failure exits non-zero:
    the fused runs' the staged default run's, with the same ``JoinStats``
    counts; a sample of candidates must agree with the float64 per-pair
    oracle. The kernels' inputs are recorded from the runs themselves: the
-   edge sweep's buckets in the staged runs (``refine.record_sweeps``),
-   each fused run's device frame and lanes (``fused.record_chains``). The
-   sweep kernel is held exactly against its plain version on every
-   recorded bucket; the trichotomy kernel on each fused run's whole frame
+   edge sweep's ragged CSR input in the staged runs
+   (``refine.record_sweeps``; each staged run must make exactly one sweep
+   launch, over every bucket's rows), each fused run's device frame and
+   lanes (``fused.record_chains``). The sweep kernel is held exactly
+   against its plain version on each recorded call; the trichotomy kernel
+   on each fused run's whole frame
    (the status lane the run wrote must equal the plain version under its
    ``valid`` lane), and the compaction kernel against its plain version
    and the argsort oracle on each fused run's INDECISIVE lane;
@@ -47,13 +49,16 @@ reference package. Phases, any failure exits non-zero:
    read after each run. The staged run's verdicts, replayed by the kernel
    on the frame it recorded (``ri.record_frames``), equal the plain
    version and the numpy verdicts row for row, and its result set equals
-   the APRIL run's; the fused runs give the staged pairs, order and
-   counts, their stages pass ``set_sync_debug_mode("error")``, and the
-   kernel equals its plain version on each recorded frame;
+   the APRIL run's, and it makes one edge sweep launch, which equals its
+   plain version on the call it recorded; the fused runs give the staged
+   pairs, order and counts, their stages pass
+   ``set_sync_debug_mode("error")``, and the kernel equals its plain
+   version on each recorded frame;
 6. the host filters ``none``, ``5cch``, ``ra`` and ``april-c`` at a third
    of the main path's counts, the ``DATASET_SPECS`` counts (T1 1200 x T2
-   4000, ``n_order=12``), staged and fused: each one's staged and fused
-   pairs, order and counts equal, and equal as sets the APRIL result at
+   4000, ``n_order=12``), staged (one edge sweep launch each) and fused:
+   each one's staged and fused pairs, order and counts equal, and equal
+   as sets the APRIL result at
    that size;
 7. the staged APRIL runs, the fused APRIL run and the staged RI run once
    more under ``torch.profiler``: device time per kernel and the device
@@ -61,7 +66,10 @@ reference package. Phases, any failure exits non-zero:
 8. each kernel timed at the main path's shapes with CUDA events beside
    its plain version and, for the scan, the library calls that compute the
    same function (a stable ``torch.argsort`` and a sum, ``library_ms``)
-   and the scan alone (``torch.cumsum``, printed beside it);
+   and the scan alone (``torch.cumsum``, printed beside it); the edge
+   sweep on the one call of the default staged run, also on the device
+   alone, its byte bound from the CSR (16 bytes a kept edge, 16 a row of
+   offsets, 2 a row of lanes);
 9. the APRIL block-sparse attention kernels (``april_attention``, the LM
    bridge; no join runs it: bf16 on the tensor cores, f32 on the CUDA
    cores): on the test grid (``TEST_GRID``: the reference's cases from
@@ -70,15 +78,16 @@ reference package. Phases, any failure exits non-zero:
    with blocks 128/64 and 64/128; then f32 and bf16 at D 256 and D 128,
    blocks 128, and bf16 with kv blocks of 96) against the plain version and
    the dense oracle, at 2e-5 in f32 and 2e-2 in bf16, atol and rtol, as the
-   reference's tests state, and bf16 also on the row error; the
-   tensor-core kernel's registers, spills and shared memory a instance
-   (``kernel_attrs``); then at full width, bf16, blocks 128, against the
+   reference's tests state, and bf16 also on the row error; both kernels'
+   registers, spills and shared memory a instance (``kernel_attrs``; no
+   f32 instance may spill); every f32 instance on ``F32_INSTANCE_CASES``
+   at 2e-5; then at full width, bf16, blocks 128, against the
    plain version with the launch count reset before and read after each
    call:
-   gemma2-2b's local layer (8 heads over 4 kv heads repeated, S 32768, D
-   256, window 4096, softcap 50), its global layer (causal, softcap 50,
-   S 8192) and qwen1.5-4b's causal layer (20 heads, S 4096, D 128), and
-   the qwen layer once more in f32 for the CUDA-core kernel. Each
+   qwen1.5-4b's causal layer in f32 for the CUDA-core kernel (20 heads, S
+   4096, D 128), then in bf16 gemma2-2b's local layer (8 heads over 4 kv
+   heads repeated, S 32768, D 256, window 4096, softcap 50), its global
+   layer (causal, softcap 50, S 8192) and the qwen layer. Each
    head's q is drawn at a logit std from ``ATTN_TEMPS`` (1 to 12), so hot
    heads reach the softcap's range. bf16 outputs are gated on the row
    error (``row_rel_err``, at most ``ROW_REL_TOL``), and wrong versions
@@ -87,9 +96,10 @@ reference package. Phases, any failure exits non-zero:
    beside one PyTorch call for the same function (``library_ms``):
    ``scaled_dot_product_attention`` for qwen, compiled ``flex_attention``
    with the softcap as ``score_mod`` for gemma2-2b; the gemma2-2b local
-   call runs once more under ``torch.profiler``, whose trace must name the
-   tensor-core kernel once; each layer's kernel and library call are also
-   timed on the device alone (``_device_ms``).
+   call and the qwen f32 call run once more under ``torch.profiler``,
+   whose trace must name the tensor-core kernel, or the CUDA-core kernel,
+   once; each layer's kernel and library call are also timed on the
+   device alone (``_device_ms``).
 
 Every kernel's row of the JSON ``kernels`` line carries ``tol``: 0 for the
 exact kernels, which must have ``max_abs_err <= tol``; the attention
@@ -147,18 +157,26 @@ COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
 ATTN_TEMPS = (1.0, 1.0, 2.0, 4.0, 6.0, 8.0, 10.0, 12.0)
 #: full-width attention layers from the repo's configurations: (label,
 #: dtype, query heads, kv heads, S, D, mask_kind, window, softcap, seed);
-#: blocks 128 x 128. bf16 runs on the tensor cores; the qwen layer once
-#: more in f32 times the CUDA-core kernel
+#: blocks 128 x 128. bf16 runs on the tensor cores; the qwen layer in f32
+#: times the CUDA-core kernel. The two profiled layers come first: after
+#: ``torch.compile`` has built a yardstick, a profiler session in this
+#: process can record no device event at all
 ATTN_SHAPES = (
+    ("qwen1.5-4b causal f32", "float32", 20, 20, 4096, 128, "causal", 0,
+     None, 23),
     ("gemma2-2b local", "bfloat16", 8, 4, 32768, 256, "local", 4096, 50.0,
      21),
     ("gemma2-2b global", "bfloat16", 8, 4, 8192, 256, "causal", 0, 50.0,
      22),
     ("qwen1.5-4b causal", "bfloat16", 20, 20, 4096, 128, "causal", 0, None,
      23),
-    ("qwen1.5-4b causal f32", "float32", 20, 20, 4096, 128, "causal", 0,
-     None, 23),
 )
+
+
+#: the f32 attention kernel's small cases, run at every instance (head
+#: width x q block): (S, block_kv, mask_kind, window, softcap)
+F32_INSTANCE_CASES = ((512, 64, "causal", 0, None),
+                      (384, 96, "local", 100, 30.0))
 
 
 def _ms(fn) -> float:
@@ -322,6 +340,15 @@ def _sync_checked(run, label, status) -> None:
                              "another status lane")
 
 
+def _one_sweep(label, launches, sweeps) -> None:
+    """A staged run's refine made one edge sweep call, through the kernel,
+    over a CSR input it recorded."""
+    n = launches["edges_intersect_csr"]
+    if n != 1 or len(sweeps) != 1:
+        raise AssertionError(f"[{label}] {n} edge sweep launches over "
+                             f"{len(sweeps)} recorded calls, not 1 and 1")
+
+
 def _ri_bound_bytes(x, y, ri, si, xor_y) -> int:
     """Bytes the RI filter must move over rows (ri, si), each input read
     once: the row indices and the verdicts; the offset entries that bound
@@ -330,7 +357,7 @@ def _ri_bound_bytes(x, y, ri, si, xor_y) -> int:
     hit (the merge stops there), each interval's bit offset and the code
     words they cover on both sides."""
     import torch
-    from repro_torch.kernels.ri_and.ref import (_word_buckets,
+    from repro_torch.kernels.ri_and.ref import (_unbiased, _word_buckets,
                                                 aligned_and_plain,
                                                 ri_fragments_plain)
     n = ri.numel()
@@ -342,8 +369,8 @@ def _ri_bound_bytes(x, y, ri, si, xor_y) -> int:
                 + (y.off[uy + 1] - y.off[uy]).sum())
     b, gx, gy, lo, hi = ri_fragments_plain(x, y, ri, si)
     n_bits = 3 * (hi - lo)
-    x_bit = x.bit_off[gx] + 3 * (lo - x.starts[gx].to(torch.int64))
-    y_bit = y.bit_off[gy] + 3 * (lo - y.starts[gy].to(torch.int64))
+    x_bit = x.bit_off[gx] + 3 * (lo - _unbiased(x.starts[gx]))
+    y_bit = y.bit_off[gy] + 3 * (lo - _unbiased(y.starts[gy]))
     hit = torch.zeros(b.numel(), dtype=torch.bool, device=dev)
     for sel in _word_buckets((n_bits + 31) // 32):
         hit[sel] = aligned_and_plain(x.words, x_bit[sel], y.words, y_bit[sel],
@@ -455,6 +482,7 @@ def _attention_phase(dev) -> list:
         ROW_REL_TOL, TEST_GRID, TEST_TOL, april_attention,
         april_attention_blocks, april_attention_plain, april_attention_ref,
         build_block_intervals, kernel_attrs, row_rel_err)
+    from repro_torch.kernels.april_attention.ops import BLOCK_QS, HEAD_DIMS
     if torch.backends.cuda.matmul.allow_tf32:
         raise AssertionError("the f32 plain version must run without TF32")
     t_phase = time.perf_counter()
@@ -494,10 +522,43 @@ def _attention_phase(dev) -> list:
           f"{json.dumps(worst)}, tolerances {json.dumps(TEST_TOL)}; bf16 "
           f"row error {worst_rel} (gate {ROW_REL_TOL})", flush=True)
     attrs = {f"D {D} block_q {bq} kv tile {kt}": a
-             for (D, bq, kt), a in kernel_attrs().items()}
+             for (D, bq, kt), a in kernel_attrs(torch.bfloat16).items()}
     print(f"april_attention_tc_kernel instances (registers a thread, local "
           f"spill bytes a thread, dynamic shared memory bytes): "
           f"{json.dumps(attrs)}", flush=True)
+    attrs32 = {f"D {D} block_q {bq}": a
+               for (D, bq), a in kernel_attrs(torch.float32).items()}
+    print(f"april_attention_kernel (f32) instances (registers a thread, "
+          f"local spill bytes a thread, dynamic shared memory bytes): "
+          f"{json.dumps(attrs32)}", flush=True)
+    spills = [k for k, a in attrs32.items() if a["spill_bytes"]]
+    if spills:
+        raise AssertionError(f"f32 attention instances spill: {spills}")
+    # every f32 instance, its tiles straddling kv blocks of 96 keys
+    worst32 = 0.0
+    for D in HEAD_DIMS:
+        for bq in BLOCK_QS:
+            for S, bkv, kind, window, cap in F32_INSTANCE_CASES:
+                rng = np.random.default_rng(D + bq + S)
+                q, k, v = (torch.from_numpy(rng.normal(size=(2, S, D))
+                                            .astype(np.float32)).to(dev)
+                           for _ in range(3))
+                kw = dict(block_q=bq, block_kv=bkv, mask_kind=kind,
+                          window=window, softcap=cap)
+                iv = torch.from_numpy(build_block_intervals(
+                    S, S, bq, bkv, kind, window)).to(dev)
+                err = float((april_attention(q, k, v, **kw)
+                             - april_attention_plain(
+                                 q, k, v, iv, scale=1.0 / D ** 0.5, **kw))
+                            .abs().max())
+                if err > TEST_TOL["float32"]:
+                    raise AssertionError(f"april_attention_kernel (f32) != "
+                                         f"plain version at D {D}, block_q "
+                                         f"{bq}, {kind} {window}: {err}")
+                worst32 = max(worst32, err)
+    print(f"april_attention_kernel (f32) == plain version on all "
+          f"{len(attrs32)} instances x {len(F32_INSTANCE_CASES)} cases; max "
+          f"|kernel - plain| {worst32}", flush=True)
 
     gen = torch.Generator(device=dev)
     rows = []
@@ -550,9 +611,11 @@ def _attention_phase(dev) -> list:
         ms = _ms(lambda: april_attention(q, k, v, **kw))
         plain_ms = _ms(lambda: april_attention_plain(q, k, v, iv, scale=scale,
                                                      **kw))
-        if label == "gemma2-2b local":
+        if label in ("gemma2-2b local", "qwen1.5-4b causal f32"):
             _profile_showing(label, lambda: april_attention(q, k, v, **kw),
-                             "april_attention_tc_kernel", launches=1)
+                             "april_attention_tc_kernel"
+                             if dtype == "bfloat16"
+                             else "april_attention_kernel", launches=1)
         t0 = time.perf_counter()
         lib_name, lib = _library(q, k, v, kind, window, cap, scale)
         lib_out = lib()
@@ -585,7 +648,7 @@ def _attention_phase(dev) -> list:
                "tol": ROW_REL_TOL, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": max(t_bytes, t_ops),
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "library_ms": library_ms}
+               "library_ms": library_ms, "device_ms": device["kernel"]}
         if not tc:      # f32 is held to its allclose tolerance
             del row["rel_err"]
             row["tol"] = TEST_TOL[dtype]
@@ -635,7 +698,8 @@ def main() -> int:
     from repro_torch.kernels.interval_join import (
         april_trichotomy, april_trichotomy_plain, interval_overlap,
         interval_overlap_plain)
-    from repro_torch.kernels.refine import edges_intersect, edges_intersect_plain
+    from repro_torch.kernels.refine import (edges_intersect_csr,
+                                            edges_intersect_csr_plain)
     from repro_torch.kernels.ri_and import ri_trichotomy, ri_trichotomy_plain
     from repro_torch.core import ri as ri_mod
     from repro_torch.spatial import fused
@@ -734,7 +798,7 @@ def main() -> int:
     # 4. the main path, default order then the degenerate order; the edge
     # sweep's inputs are recorded from the path itself
     t_phase = time.perf_counter()
-    wrappers = (april_trichotomy, interval_overlap, edges_intersect,
+    wrappers = (april_trichotomy, interval_overlap, edges_intersect_csr,
                 compact_mask)
     launches, results, stats, sweeps = {}, {}, {}, {}
     for label, opts in (("default", {}),
@@ -786,7 +850,7 @@ def main() -> int:
               flush=True)
         print(json.dumps(st.to_dict()), flush=True)
         _same_run(label, res, st, results["default"], stats["default"])
-        if launches[label]["edges_intersect"] != 0:
+        if launches[label]["edges_intersect_csr"] != 0:
             raise AssertionError(f"[{label}] the fused chain ran the float32 "
                                  "edge sweep")
         stats[label] = st
@@ -821,14 +885,16 @@ def main() -> int:
               f"compaction kernel == plain == oracle on the {m.numel()}-row "
               f"INDECISIVE lane ({int(kc)} set)", flush=True)
         del cs, chains, got, want, wrote, m, kp, pp, op
-    need = {"default": ("april_trichotomy", "edges_intersect"),
-            "degenerate": ("interval_overlap", "edges_intersect"),
+    need = {"default": ("april_trichotomy", "edges_intersect_csr"),
+            "degenerate": ("interval_overlap", "edges_intersect_csr"),
             "fused-numpy": ("april_trichotomy", "compact_mask"),
             "fused-torch": ("april_trichotomy", "compact_mask")}
     for label, names in need.items():
         for name in names:
             if launches[label][name] <= 0:
                 raise AssertionError(f"[{label}] {name} never launched")
+    for label in ("default", "degenerate"):
+        _one_sweep(label, launches[label], sweeps[label])
     by_pair = [r[np.lexsort(r.T[::-1])] for r in results.values()]
     if not np.array_equal(*by_pair):
         raise AssertionError("the two join orders give different pair sets")
@@ -846,21 +912,23 @@ def main() -> int:
         if exact != ((int(i), int(j)) in in_res):
             raise AssertionError(f"pair ({i}, {j}) disagrees with the "
                                  "float64 oracle")
-    # the edge sweep kernel against its plain version on every bucket the
-    # two main path runs gave it
+    # the edge sweep kernel against its plain version on the one call each
+    # of the two main path runs gave it
     n_diff = 0
     for t in sweeps["default"] + sweeps["degenerate"]:
-        kh, ku = edges_intersect(*t)
-        ph, pu = edges_intersect_plain(*t)
+        kh, ku = edges_intersect_csr(*t)
+        ph, pu = edges_intersect_csr_plain(*t)
         n_diff += int((kh != ph).sum()) + int((ku != pu).sum())
     torch.cuda.synchronize()
     if n_diff:
         raise AssertionError(f"edges_intersect kernel != plain version on "
                              f"{n_diff} lanes")
+    rows_swept = [t[2].numel() - 1 for t in sweeps["default"]
+                  + sweeps["degenerate"]]
     print(f"phase 4 ok: staged pairs and order == numpy path, fused == "
           f"staged; {len(sample)} sampled candidates == float64 oracle; edge "
-          f"sweep kernel == plain version on {len(sweeps['default'])} + "
-          f"{len(sweeps['degenerate'])} recorded buckets "
+          f"sweep kernel == plain version on the one recorded call of each "
+          f"staged run ({rows_swept} rows) "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
     # 5. the RI path: set-up, the kernel on random code streams, then the
@@ -897,7 +965,8 @@ def main() -> int:
         run = JoinPlan(R, S, filter="ri", n_order=args.n_order,
                        **opts).build(prebuilt=(ri_r, ri_s))
         with ri_mod.record_frames() as frames, \
-                fused.record_chains() as chains:
+                fused.record_chains() as chains, \
+                refine_mod.record_sweeps() as ri_sweeps:
             res, st = run.execute("intersects")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -943,12 +1012,19 @@ def main() -> int:
             del cs
         if launches[label]["ri_trichotomy"] <= 0:
             raise AssertionError(f"[{label}] ri_trichotomy never launched")
-        need = "edges_intersect" if label == "ri-staged" else "compact_mask"
-        if launches[label][need] <= 0:
-            raise AssertionError(f"[{label}] {need} never launched")
+        if label == "ri-staged":
+            _one_sweep(label, launches[label], ri_sweeps)
+            kh, ku = edges_intersect_csr(*ri_sweeps[0])
+            ph, pu = edges_intersect_csr_plain(*ri_sweeps[0])
+            torch.cuda.synchronize()
+            if not (torch.equal(kh, ph) and torch.equal(ku, pu)):
+                raise AssertionError(f"[{label}] edges_intersect kernel != "
+                                     "plain version on the run's sweep")
+        elif launches[label]["compact_mask"] <= 0:
+            raise AssertionError(f"[{label}] compact_mask never launched")
         print(f"[{label}] ri_trichotomy kernel == plain version on the "
               f"recorded {fr.numel()}-row frame; {detail}", flush=True)
-        del frames, chains, got, want
+        del frames, chains, ri_sweeps, got, want
     print(f"phase 5 ok: RI path ({time.perf_counter() - t_phase:.1f} s)",
           flush=True)
 
@@ -979,11 +1055,14 @@ def main() -> int:
                   f"{json.dumps(launches[label])}; "
                   f"{json.dumps(st.to_dict())}", flush=True)
             need = ["compact_mask"] if mode == "fused" else \
-                ["edges_intersect"] + (["interval_overlap"]
-                                       if name == "april-c" else [])
+                ["interval_overlap"] if name == "april-c" else []
             for k in need:
                 if launches[label][k] <= 0:
                     raise AssertionError(f"[{label}] {k} never launched")
+            n_sweeps = launches[label]["edges_intersect_csr"]
+            if n_sweeps != (mode == "staged"):
+                raise AssertionError(f"[{label}] {n_sweeps} edge sweep "
+                                     "launches, not one a staged refine")
             runs[mode] = (res, st)
         _same_run(f"{name}-fused", *runs["fused"], *runs["staged"])
         if _pair_set(runs["staged"][0]) != want_set:
@@ -1024,18 +1103,16 @@ def main() -> int:
     p_tri = april_trichotomy_plain(*tri, ri_all, si_all)
     k_ov = interval_overlap(lists["xa"], lists["ya"], ri_all, si_all)
     p_ov = interval_overlap_plain(lists["xa"], lists["ya"], ri_all, si_all)
-    sw = sweeps["default"]
-    sweep_err = 0
-    for t in sw:
-        kh, ku = edges_intersect(*t)
-        ph, pu = edges_intersect_plain(*t)
-        sweep_err = max(sweep_err, int((kh != ph).sum() > 0),
-                        int((ku != pu).sum() > 0))
-    # the couples of edges the CMBR masks keep, and the kernel's bytes:
-    # float32 endpoints and a mask byte per edge, two verdict bytes per row
-    couples = sum(int((t[2].sum(1) * t[5].sum(1)).sum()) for t in sw)
-    sweep_bytes = sum(t[0].shape[0] * ((t[0].shape[1] + t[3].shape[1]) * 17
-                                       + 2) for t in sw)
+    (sw,) = sweeps["default"]
+    kh, ku = edges_intersect_csr(*sw)
+    ph, pu = edges_intersect_csr_plain(*sw)
+    sweep_err = max(int((kh != ph).sum() > 0), int((ku != pu).sum() > 0))
+    # the couples of the edges the CMBR masks keep, and the kernel's bytes
+    # from the CSR: 16 per kept edge (two float32 endpoints), 16 per row of
+    # offsets (one int64 a side), 2 per row of lanes
+    sw_rows = sw[2].numel() - 1
+    couples = int((torch.diff(sw[2]) * torch.diff(sw[5])).sum())
+    sweep_bytes = 16 * (sw[0].shape[0] + sw[3].shape[0]) + 18 * sw_rows
     timings = {
         "april_trichotomy": (
             _ms(lambda: april_trichotomy(*tri, ri_all, si_all)),
@@ -1046,8 +1123,8 @@ def main() -> int:
             _ms(lambda: interval_overlap_plain(lists["xa"], lists["ya"],
                                                ri_all, si_all))),
         "edges_intersect": (
-            _ms(lambda: [edges_intersect(*t) for t in sw]),
-            _ms(lambda: [edges_intersect_plain(*t) for t in sw])),
+            _ms(lambda: edges_intersect_csr(*sw)),
+            _ms(lambda: edges_intersect_csr_plain(*sw))),
         "exclusive_scan": (
             _ms(lambda: compact_mask(indec_mask)),
             _ms(lambda: compact_mask_plain(indec_mask))),
@@ -1103,7 +1180,8 @@ def main() -> int:
                           "src/repro/kernels/ri_and/ri_and.py:69",
                           "ri-staged"),
     }
-    counter = {"exclusive_scan": "compact_mask"}
+    counter = {"exclusive_scan": "compact_mask",
+               "edges_intersect": "edges_intersect_csr"}
     kernels = []
     for name, (source, replaces, run_label) in meta.items():
         nbytes, ops = bounds[name]
@@ -1118,9 +1196,12 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library.get(name), "tol": 0})
+    sweep_device_ms = _device_ms(lambda: edges_intersect_csr(*sw))
     print(f"shapes: {rows} candidate rows (the scan's and the RI kernel's "
           f"frame), {stats['default'].n_indecisive} INDECISIVE rows, "
-          f"{couples} edge couples kept by the CMBR masks; reps {REPS}; "
+          f"{couples} edge couples kept by the CMBR masks over "
+          f"{sw[0].shape[0]} + {sw[3].shape[0]} kept edges of {sw_rows} "
+          f"sweep rows, edge sweep device ms {sweep_device_ms}; reps {REPS}; "
           f"phase 8 {time.perf_counter() - t_phase:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 

@@ -36,7 +36,7 @@ from ..device import InputLog, check_backend_device, resolve_device, upload
 from ..kernels.ri_and import (RIStoreTensors, pack_stream_words,
                               ri_trichotomy, ri_trichotomy_plain)
 from . import rasterize
-from .hilbert import xy2d
+from .hilbert import u32_to_biased_i32, xy2d
 from .intervalize import runs_from_sorted
 from .join import (INDECISIVE, TRUE_HIT, TRUE_NEG, _check_frame,
                    check_filter_backend)
@@ -54,10 +54,6 @@ FULL, STRONG, WEAK = 0, 1, 2
 CODE_R = {FULL: (0, 1, 1), STRONG: (1, 0, 1), WEAK: (1, 0, 0)}
 CODE_S = {FULL: (1, 0, 1), STRONG: (0, 1, 1), WEAK: (0, 1, 0)}
 XOR_MASK = (1, 1, 0)
-
-#: interval ends are held as int32 on the device
-MAX_DEVICE_ORDER = 15
-
 
 @dataclass
 class RIStore:
@@ -358,23 +354,21 @@ def ri_filter_batch(store_x: RIStore, store_y: RIStore,
 # ---------------------------------------------------------------------------
 
 class RIDeviceStore:
-    """One RI store laid out for the ALIGNEDAND kernel: CSR int32 interval
-    starts and ends, int64 bit offsets, and the whole code stream packed
+    """One RI store laid out for the ALIGNEDAND kernel: CSR interval starts
+    and inclusive lasts as biased int32 (APRIL's device lists' layout,
+    :func:`~repro_torch.core.hilbert.u32_to_biased_i32`), so every order up
+    to 16 fits, int64 bit offsets, and the whole code stream packed
     LSB-first into uint32 words plus one zero pad word. :meth:`to`
     uploads the arrays to a device once and caches them there."""
 
-    __slots__ = ("store", "off", "starts", "ends", "bit_off", "words",
+    __slots__ = ("store", "off", "starts", "lasts", "bit_off", "words",
                  "_device")
 
     def __init__(self, store: RIStore):
-        if store.n_order > MAX_DEVICE_ORDER:
-            raise ValueError(
-                f"RI device stores hold Hilbert ids as int32: n_order "
-                f"{store.n_order} > {MAX_DEVICE_ORDER}")
         self.store = store
         self.off = np.ascontiguousarray(store.off, np.int64)
-        self.starts = np.ascontiguousarray(store.ints[:, 0], np.int32)
-        self.ends = np.ascontiguousarray(store.ints[:, 1], np.int32)
+        self.starts = u32_to_biased_i32(store.ints[:, 0])
+        self.lasts = u32_to_biased_i32(store.ints[:, 1] - np.uint64(1))
         self.bit_off = np.ascontiguousarray(store.bit_off, np.int64)
         self.words = pack_stream_words(store.bits)
         self._device: dict[str, RIStoreTensors] = {}
@@ -392,7 +386,7 @@ class RIDeviceStore:
         if key not in self._device:
             self._device[key] = RIStoreTensors(
                 *(torch.from_numpy(a).to(dev) for a in (
-                    self.off, self.starts, self.ends, self.bit_off,
+                    self.off, self.starts, self.lasts, self.bit_off,
                     self.words)))
         return self._device[key]
 

@@ -39,10 +39,14 @@ namespace {
 
 constexpr int kThreads = 256;
 
+// Interval ends are biased int32 (the uint32 Hilbert id minus 2^31) with
+// inclusive lasts, as APRIL's device lists hold them, so ids of every order
+// up to 16 fit; biased ids compare as the ids do, and a difference taken in
+// int64 is the ids' difference.
 struct Store {
   const int64_t* off;       // [P+1] row offsets into the interval arrays
-  const int32_t* starts;    // [I] half-open interval starts
-  const int32_t* ends;      // [I] half-open interval ends
+  const int32_t* starts;    // [I] biased interval starts
+  const int32_t* lasts;     // [I] biased inclusive interval lasts
   const int64_t* bit_off;   // [I+1] stream bit of each interval's codes
   const uint32_t* words;    // packed LSB-first code stream + a zero pad word
 };
@@ -93,20 +97,19 @@ __global__ void ri_trichotomy_kernel(Store x, Store y, bool xor_y,
   const int64_t b_end = y.off[s + 1];
   bool overlap = false;
   while (a < a_end && b < b_end) {
-    const int32_t xs = x.starts[a], xe = x.ends[a];
-    const int32_t ys = y.starts[b], ye = y.ends[b];
-    if (xs < ye && ys < xe) {
-      const int32_t lo = xs > ys ? xs : ys;
-      const int32_t hi = xe < ye ? xe : ye;
-      if (aligned_and(x.words, x.bit_off[a] + 3 * static_cast<int64_t>(lo - xs),
-                      y.words, y.bit_off[b] + 3 * static_cast<int64_t>(lo - ys),
-                      3 * static_cast<int64_t>(hi - lo), xor_y)) {
+    const int64_t xs = x.starts[a], xl = x.lasts[a];
+    const int64_t ys = y.starts[b], yl = y.lasts[b];
+    if (xs <= yl && ys <= xl) {
+      const int64_t lo = xs > ys ? xs : ys;
+      const int64_t hi = (xl < yl ? xl : yl) + 1;
+      if (aligned_and(x.words, x.bit_off[a] + 3 * (lo - xs), y.words,
+                      y.bit_off[b] + 3 * (lo - ys), 3 * (hi - lo), xor_y)) {
         out[row] = 1;                                   // TRUE_HIT
         return;
       }
       overlap = true;
     }
-    if (xe <= ye) {
+    if (xl <= yl) {
       ++a;
     } else {
       ++b;
@@ -118,9 +121,9 @@ __global__ void ri_trichotomy_kernel(Store x, Store y, bool xor_y,
 }  // namespace
 
 extern "C" int ri_trichotomy_launch(
-    const int64_t* x_off, const int32_t* x_starts, const int32_t* x_ends,
+    const int64_t* x_off, const int32_t* x_starts, const int32_t* x_lasts,
     const int64_t* x_bit_off, const uint32_t* x_words,
-    const int64_t* y_off, const int32_t* y_starts, const int32_t* y_ends,
+    const int64_t* y_off, const int32_t* y_starts, const int32_t* y_lasts,
     const int64_t* y_bit_off, const uint32_t* y_words, int xor_y,
     const int64_t* ri, const int64_t* si, int64_t n, int8_t* out,
     void* stream) {
@@ -129,8 +132,8 @@ extern "C" int ri_trichotomy_launch(
         static_cast<unsigned int>((n + kThreads - 1) / kThreads);
     ri_trichotomy_kernel<<<blocks, kThreads, 0,
                            static_cast<cudaStream_t>(stream)>>>(
-        Store{x_off, x_starts, x_ends, x_bit_off, x_words},
-        Store{y_off, y_starts, y_ends, y_bit_off, y_words}, xor_y != 0, ri, si,
+        Store{x_off, x_starts, x_lasts, x_bit_off, x_words},
+        Store{y_off, y_starts, y_lasts, y_bit_off, y_words}, xor_y != 0, ri, si,
         n, out);
   }
   return static_cast<int>(cudaGetLastError());

@@ -4,15 +4,17 @@ tables that steer them.
 :func:`build_block_intervals` is the APRIL A/F classification of the
 (q block x kv block) raster of the mask. :func:`april_attention_blocks`
 takes a table and checks its tensors, then dispatches on their device: on
-the CPU it runs the plain PyTorch version (``ref.py``); on a CUDA device it
-launches, on the current stream, the kernel of the tensors' dtype, or
-raises: bf16 runs on the tensor cores (``csrc/april_attention_tc.cu``,
-wgmma fed by TMA), f32 on the CUDA cores (``csrc/april_attention.cu``).
-There is no fallback from one to another. Kernel launches are counted in
-``april_attention_blocks.launches``, one a call. :func:`april_attention`
-builds the table for a mask and runs it the same way, checking q, k and v
-once. :func:`kernel_attrs` reads the tensor-core kernel's registers,
-spills and shared memory.
+the CPU it runs the plain PyTorch version (``ref.py``) at any dtype, head
+width and block size the reference takes; on a CUDA device it launches, on
+the current stream, the kernel of the tensors' dtype, or raises: bf16 runs
+on the tensor cores (``csrc/april_attention_tc.cu``, wgmma fed by TMA),
+f32 on the CUDA cores (``csrc/april_attention.cu``, register-tiled, K and
+V by cp.async), and only at the head widths and q blocks they are built
+for. There is no fallback from one to another. Kernel launches are
+counted in ``april_attention_blocks.launches``, one a call.
+:func:`april_attention` builds the table for a mask and runs it the same
+way, checking q, k and v once. :func:`kernel_attrs` reads either kernel's
+registers, spills and shared memory.
 """
 from __future__ import annotations
 
@@ -33,8 +35,9 @@ __all__ = ["build_block_intervals", "april_attention_blocks",
 
 _P = ctypes.c_void_p
 
-#: head widths and q-block heights the kernels are built for, and the kv
-#: rows they stage at a time (block_kv must be a multiple of it)
+#: head widths and q-block heights the kernels are built for, and the
+#: tensor-core kernel's smallest kv tile (on the card block_kv must be a
+#: multiple of it); the plain version takes any of them
 HEAD_DIMS = (32, 64, 128, 256)
 BLOCK_QS = (64, 128)
 KV_CHUNK = 32
@@ -108,30 +111,37 @@ def _launcher(dtype: torch.dtype):
     return fn
 
 
-def kernel_attrs() -> dict:
+def kernel_attrs(dtype: torch.dtype = torch.bfloat16) -> dict:
     """Registers a thread, local (spill) bytes a thread and dynamic shared
-    memory bytes of every instance of the tensor-core (bf16) kernel, keyed
-    by (D, block_q, kv tile keys), as ``cudaFuncGetAttributes`` reads them
-    on the card."""
-    fn = load("april_attention_tc").april_attention_tc_attrs
+    memory bytes of every instance of ``dtype``'s kernel, as
+    ``cudaFuncGetAttributes`` reads them on the card: the tensor-core
+    (bf16) kernel's keyed by (D, block_q, kv tile keys), the CUDA-core (f32)
+    kernel's by (D, block_q)."""
+    if dtype not in _DTYPES:
+        raise TypeError(f"kernel_attrs: float32 or bfloat16, got {dtype}")
+    tc = dtype == torch.bfloat16
+    fn = (load("april_attention_tc").april_attention_tc_attrs if tc
+          else load("april_attention").april_attention_attrs)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                       ctypes.POINTER(ctypes.c_int)]
+        fn.argtypes = ([ctypes.c_int64, ctypes.c_int]
+                       + [ctypes.c_int] * tc + [ctypes.POINTER(ctypes.c_int)])
         fn.restype = ctypes.c_int
+    # kv tiles of 128 keys are not built at D 256: no room for them
+    keys = ([(D, bq, kt) for D in HEAD_DIMS for bq in BLOCK_QS
+             for kt in KV_TILES if kt < 128 or D <= 128] if tc
+            else [(D, bq) for D in HEAD_DIMS for bq in BLOCK_QS])
     out = {}
-    for D in HEAD_DIMS:
-        for bq in BLOCK_QS:
-            for kt in KV_TILES:
-                if kt == 128 and D > 128:     # not built: no room for it
-                    continue
-                buf = (ctypes.c_int * 3)()
-                _raise_on(fn(D, bq, kt, buf), "april_attention_tc_attrs")
-                out[(D, bq, kt)] = dict(zip(
-                    ("regs", "spill_bytes", "smem_bytes"), buf))
+    for key in keys:
+        buf = (ctypes.c_int * 3)()
+        _raise_on(fn(*key, buf), "kernel_attrs")
+        out[key] = dict(zip(("regs", "spill_bytes", "smem_bytes"), buf))
     return out
 
 
 def _check_qkv(q, k, v, block_q, block_kv, mask_kind) -> None:
+    """What every device takes: [BH, S, D] tensors of one dtype on one
+    device, blocks that divide S, a known mask. The kernels' own limits
+    are :func:`_check_kernel_shapes`, for CUDA tensors."""
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dim() != 3:
             raise ValueError(f"{name}: expected [BH, S, D], got "
@@ -141,24 +151,32 @@ def _check_qkv(q, k, v, block_q, block_kv, mask_kind) -> None:
         if t.dtype != q.dtype or t.device != q.device:
             raise TypeError(f"{name}: {t.dtype} on {t.device}, q is "
                             f"{q.dtype} on {q.device}")
-    if q.dtype not in _DTYPES:
-        raise TypeError(f"q, k, v: float32 or bfloat16, got {q.dtype}")
+    if not q.is_floating_point():
+        raise TypeError(f"q, k, v: a floating dtype, got {q.dtype}")
     BH, Sq, D = q.shape
     if k.shape != v.shape or k.shape[0] != BH or k.shape[2] != D:
         raise ValueError(f"k and v must be [BH, Skv, D] with q's BH and D: "
                          f"q {tuple(q.shape)}, k {tuple(k.shape)}, "
                          f"v {tuple(v.shape)}")
     Skv = k.shape[1]
-    if Sq % block_q or Skv % block_kv:
+    if block_q <= 0 or block_kv <= 0 or Sq % block_q or Skv % block_kv:
         raise ValueError(f"Sq {Sq} and Skv {Skv} must be multiples of "
                          f"block_q {block_q} and block_kv {block_kv}")
-    if D not in HEAD_DIMS or block_q not in BLOCK_QS \
-            or block_kv <= 0 or block_kv % KV_CHUNK:
-        raise ValueError(f"the kernel takes D in {HEAD_DIMS}, block_q in "
-                         f"{BLOCK_QS} and block_kv a multiple of {KV_CHUNK}; "
-                         f"got D {D}, block_q {block_q}, block_kv {block_kv}")
     if mask_kind not in MASK_KINDS:
         raise ValueError(f"mask_kind: one of {MASK_KINDS}, got {mask_kind!r}")
+
+
+def _check_kernel_shapes(q, block_q, block_kv) -> None:
+    """The CUDA kernels' limits: the dtypes, head widths and q blocks they
+    are built for, kv blocks in whole 32-key tiles."""
+    if q.dtype not in _DTYPES:
+        raise TypeError(f"q, k, v: the kernels take float32 or bfloat16, "
+                        f"got {q.dtype}")
+    D = q.shape[2]
+    if D not in HEAD_DIMS or block_q not in BLOCK_QS or block_kv % KV_CHUNK:
+        raise ValueError(f"the kernels take D in {HEAD_DIMS}, block_q in "
+                         f"{BLOCK_QS} and block_kv a multiple of {KV_CHUNK}; "
+                         f"got D {D}, block_q {block_q}, block_kv {block_kv}")
 
 
 def _check_table(q, intervals, block_q) -> None:
@@ -197,6 +215,7 @@ def _run(q, k, v, intervals, scale, block_q, block_kv, mask_kind, window,
             block_kv=block_kv, mask_kind=mask_kind, window=window,
             softcap=softcap)
     _cuda_device(dev, "april_attention")
+    _check_kernel_shapes(q, block_q, block_kv)
     BH, Sq, D = q.shape
     # the kernels read 16-byte vectors, and TMA (bf16) wants 16-byte
     # aligned bases and row pitches

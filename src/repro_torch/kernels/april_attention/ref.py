@@ -79,20 +79,27 @@ def row_rel_err(got, want) -> float:
     return float((err / torch.where(rms > 0, rms, 1.0)).max())
 
 
+def _compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """f64 inputs compute in f64, every other dtype in f32."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
 def april_attention_ref(q, k, v, *, scale=None, mask_kind="causal",
                         window=0, softcap=None):
-    """Dense masked attention in f32; rows with no allowed key are 0."""
+    """Dense masked attention in f32 (f64 for f64 inputs); rows with no
+    allowed key are 0."""
     BH, Sq, D = q.shape
     Skv = k.shape[1]
+    ct = _compute_dtype(q.dtype)
     scale = scale if scale is not None else (1.0 / D ** 0.5)
-    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) * scale
+    s = torch.einsum("bqd,bkd->bqk", q.to(ct), k.to(ct)) * scale
     if softcap is not None:
         s = softcap * torch.tanh(s / softcap)
     mask = dense_mask(Sq, Skv, mask_kind, window, device=q.device)
     s = torch.where(mask[None], s, NEG_INF)
     p = torch.exp(s - torch.amax(s, dim=-1, keepdim=True))
     p = p / torch.clamp(torch.sum(p, dim=-1, keepdim=True), min=1e-30)
-    out = torch.einsum("bqk,bkd->bqd", p, v.float())
+    out = torch.einsum("bqk,bkd->bqd", p, v.to(ct))
     row_any = mask.any(dim=1)[None, :, None]
     out = torch.where(row_any, out, 0.0)
     return out.to(q.dtype)
@@ -103,22 +110,23 @@ def april_attention_plain(q, k, v, intervals, *, scale, block_q, block_kv,
     """[BH, Sq, D] in q's dtype: block-sparse attention steered by the
     [nq, 4] table of (a_lo, f_lo, f_hi, a_hi) rows in kv-block units. The
     A-interval is clipped to the kv blocks that exist, as the TPU grid
-    clips it."""
+    clips it. f64 inputs compute in f64, every other dtype in f32."""
     BH, Sq, D = q.shape
     Skv = k.shape[1]
     nq, nk = Sq // block_q, Skv // block_kv
     dev = q.device
+    ct = _compute_dtype(q.dtype)
     iv = intervals.to(device=dev, dtype=torch.int64)
     a_lo = iv[:, 0].clamp(0, nk)
     f_lo, f_hi = iv[:, 1], iv[:, 2]
     a_hi = iv[:, 3].clamp(0, nk)
     n_steps = int((a_hi - a_lo).clamp(min=0).max()) if nq else 0
-    qb = q.reshape(BH, nq, block_q, D).float()
-    kb = k.reshape(BH, nk, block_kv, D).float()
+    qb = q.reshape(BH, nq, block_q, D).to(ct)
+    kb = k.reshape(BH, nk, block_kv, D).to(ct)
     vb = v.reshape(BH, nk, block_kv, D)
-    m = torch.full((BH, nq, block_q, 1), NEG_INF, device=dev)
-    l = torch.zeros((BH, nq, block_q, 1), device=dev)
-    acc = torch.zeros((BH, nq, block_q, D), device=dev)
+    m = torch.full((BH, nq, block_q, 1), NEG_INF, dtype=ct, device=dev)
+    l = torch.zeros((BH, nq, block_q, 1), dtype=ct, device=dev)
+    acc = torch.zeros((BH, nq, block_q, D), dtype=ct, device=dev)
     qpos = (torch.arange(nq, device=dev)[:, None] * block_q
             + torch.arange(block_q, device=dev))[:, :, None]   # [nq, bq, 1]
     koff = torch.arange(block_kv, device=dev)
@@ -142,7 +150,7 @@ def april_attention_plain(q, k, v, intervals, *, scale, block_q, block_kv,
         alpha = torch.exp(m - m_new)
         p = torch.exp(s - m_new)
         l_new = l * alpha + torch.sum(p, dim=-1, keepdim=True)
-        pv = torch.matmul(p.to(v.dtype).float(), vb[:, kic].float())
+        pv = torch.matmul(p.to(v.dtype).to(ct), vb[:, kic].to(ct))
         acc = torch.where(live, acc * alpha + pv, acc)
         m = torch.where(live, m_new, m)
         l = torch.where(live, l_new, l)

@@ -21,7 +21,7 @@ __all__ = ["ri_trichotomy"]
 _P = ctypes.c_void_p
 
 _DTYPES = (("off", torch.int64), ("starts", torch.int32),
-           ("ends", torch.int32), ("bit_off", torch.int64),
+           ("lasts", torch.int32), ("bit_off", torch.int64),
            ("words", torch.uint32))
 
 
@@ -45,12 +45,12 @@ def _check_store(name: str, st: RIStoreTensors, dev: torch.device) -> None:
         if not t.is_contiguous():
             raise ValueError(f"{name}.{field}: must be contiguous")
     n_int = st.starts.numel()
-    if st.off.numel() < 1 or st.ends.numel() != n_int \
+    if st.off.numel() < 1 or st.lasts.numel() != n_int \
             or st.bit_off.numel() != n_int + 1 or st.words.numel() < 1:
         raise ValueError(
-            f"{name}: expected off [P+1], starts/ends [I], bit_off [I+1] and "
+            f"{name}: expected off [P+1], starts/lasts [I], bit_off [I+1] and "
             f"at least the pad word, got {st.off.numel()}, {n_int}, "
-            f"{st.ends.numel()}, {st.bit_off.numel()}, {st.words.numel()}")
+            f"{st.lasts.numel()}, {st.bit_off.numel()}, {st.words.numel()}")
 
 
 def ri_trichotomy(x: RIStoreTensors, y: RIStoreTensors, ri: torch.Tensor,

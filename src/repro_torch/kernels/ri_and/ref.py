@@ -1,7 +1,9 @@
 """Plain PyTorch versions of the RI filter's ALIGNEDAND kernel.
 
 An RI store side is :class:`RIStoreTensors`: CSR interval lists (``off``
-[P+1] int64 row offsets into half-open int32 ``starts``/``ends``), the bit
+[P+1] int64 row offsets into ``starts`` and inclusive ``lasts``, biased
+int32 as APRIL's device lists hold them, so Hilbert ids up to order 16 fit;
+every difference is taken after unbiasing into int64), the bit
 offset of every interval's code run (``bit_off`` [I+1] int64), and the
 whole 3-bit cell-code stream packed LSB-first into uint32 ``words`` (stream
 bit ``t`` is bit ``t % 32`` of word ``t // 32``), with one zero pad word at
@@ -38,6 +40,7 @@ TRUE_NEG, TRUE_HIT, INDECISIVE = 0, 1, 2
 MASK_WORDS = (0xDB6DB6DB, 0xB6DB6DB6, 0x6DB6DB6D)
 
 _KEY_SHIFT = 33
+_KEY_BIAS = 1 << 31
 _U32 = 0xFFFFFFFF
 #: bound on the [fragments, words] working set of one bucket chunk
 _CHUNK_ELEMS = 1 << 22
@@ -46,8 +49,8 @@ _CHUNK_ELEMS = 1 << 22
 class RIStoreTensors(NamedTuple):
     """One RI store side as tensors on one device."""
     off: torch.Tensor      # [P+1] int64
-    starts: torch.Tensor   # [I] int32, half-open interval starts
-    ends: torch.Tensor     # [I] int32, half-open interval ends
+    starts: torch.Tensor   # [I] int32, biased interval starts
+    lasts: torch.Tensor    # [I] int32, biased inclusive interval lasts
     bit_off: torch.Tensor  # [I+1] int64
     words: torch.Tensor    # [ceil(bits/32) + 1] uint32, last word zero
 
@@ -76,6 +79,11 @@ def pack_stream_words(bits: np.ndarray) -> np.ndarray:
     buf = np.zeros(4 * nw, np.uint8)
     buf[: len(raw)] = raw
     return buf.view("<u4").astype(np.uint32)
+
+
+def _unbiased(ids: torch.Tensor) -> torch.Tensor:
+    """Biased int32 Hilbert ids as their int64 values in [0, 2^32)."""
+    return ids.to(torch.int64) + _KEY_BIAS
 
 
 def _aligned_words(w64: torch.Tensor, bit: torch.Tensor) -> torch.Tensor:
@@ -141,16 +149,17 @@ def ri_fragments_plain(x: RIStoreTensors, y: RIStoreTensors,
     ystart = torch.cumsum(cy, 0) - cy
     if bx.numel() == 0 or by.numel() == 0:
         return (empty,) * 5
+    # row index in the high bits, the unbiased id (< 2^32) in the low 33
     ykey = by << _KEY_SHIFT
-    ys_keys = ykey + y.starts[gy].to(torch.int64)
-    ye_keys = ykey + y.ends[gy].to(torch.int64)
+    ys_keys = ykey + _unbiased(y.starts[gy])
+    yl_keys = ykey + _unbiased(y.lasts[gy])
     xkey = bx << _KEY_SHIFT
-    xs = x.starts[gx].to(torch.int64)
-    xe = x.ends[gx].to(torch.int64)
+    xs = _unbiased(x.starts[gx])
+    xl = _unbiased(x.lasts[gx])
     seg0 = ystart[bx]
-    # first y with ye > xs; one past the last y with ys < xe
-    lo_idx = torch.searchsorted(ye_keys, xkey + xs, right=True) - seg0
-    hi_idx = torch.searchsorted(ys_keys, xkey + xe) - seg0
+    # first y with last >= x start; one past the last y with start <= x last
+    lo_idx = torch.searchsorted(yl_keys, xkey + xs) - seg0
+    hi_idx = torch.searchsorted(ys_keys, xkey + xl, right=True) - seg0
     n_frag = torch.clamp(hi_idx - lo_idx, min=0)
     rep = torch.repeat_interleave(
         torch.arange(n_frag.numel(), device=dev), n_frag)
@@ -161,8 +170,8 @@ def ri_fragments_plain(x: RIStoreTensors, y: RIStoreTensors,
     b = bx[rep]
     gxf = gx[rep]
     gyf = y.off[si[b]] + lo_idx[rep] + k
-    lo = torch.maximum(x.starts[gxf], y.starts[gyf]).to(torch.int64)
-    hi = torch.minimum(x.ends[gxf], y.ends[gyf]).to(torch.int64)
+    lo = torch.maximum(_unbiased(x.starts[gxf]), _unbiased(y.starts[gyf]))
+    hi = torch.minimum(_unbiased(x.lasts[gxf]), _unbiased(y.lasts[gyf])) + 1
     return b, gxf, gyf, lo, hi
 
 
@@ -190,8 +199,8 @@ def ri_trichotomy_plain(x: RIStoreTensors, y: RIStoreTensors,
     hit = torch.zeros(n, dtype=torch.bool, device=dev)
     ovl[b] = True
     n_bits = 3 * (hi - lo)
-    x_bit = x.bit_off[gx] + 3 * (lo - x.starts[gx].to(torch.int64))
-    y_bit = y.bit_off[gy] + 3 * (lo - y.starts[gy].to(torch.int64))
+    x_bit = x.bit_off[gx] + 3 * (lo - _unbiased(x.starts[gx]))
+    y_bit = y.bit_off[gy] + 3 * (lo - _unbiased(y.starts[gy]))
     for sel in _word_buckets((n_bits + 31) // 32):
         got = aligned_and_plain(x.words, x_bit[sel], y.words, y_bit[sel],
                                 n_bits[sel], xor_y)

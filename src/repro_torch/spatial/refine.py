@@ -10,11 +10,12 @@ Backends (``refine_backend`` on ``JoinPlan``):
   branch-free containment by representative points;
 * ``torch`` / ``cuda`` — the edge x edge sweep runs in float32 with a
   relative guard band, through the sweep's plain PyTorch version on any
-  device (``torch``) or the CUDA kernel (``cuda``). Definite crossings come
-  from the sweep; rows with none get the host closed-PiP of the
-  representative points against the unpruned rings; rows that tripped the
-  band are re-checked on the host in float64. Every backend is
-  verdict-identical to ``sequential``.
+  device (``torch``) or the CUDA kernel (``cuda``), once per refine call:
+  the CMBR-kept edges of every bucket's rows go up as one ragged CSR.
+  Definite crossings come from the sweep; rows with none get the host
+  closed-PiP of the representative points against the unpruned rings;
+  rows that tripped the band are re-checked on the host in float64, per
+  bucket. Every backend is verdict-identical to ``sequential``.
 
 The fused chain refines on the device instead (:func:`fused_refine_lanes`):
 float64 PyTorch twins of the reference's jnp cores over a front-packed
@@ -29,7 +30,7 @@ import torch
 from ..core import geometry
 from ..core.geometry import polygon_edges, segments_intersect, size_buckets
 from ..device import InputLog, check_backend_device, resolve_device
-from ..kernels.refine import edges_intersect, edges_intersect_plain
+from ..kernels.refine import edges_intersect_csr, edges_intersect_csr_plain
 
 __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
            "refine", "refine_pairs", "refine_pairs_seq", "device_geometry",
@@ -155,45 +156,88 @@ _SWEEPS = InputLog()
 
 
 def record_sweeps():
-    """Collect the device inputs ``(a0, a1, am, b0, b1, bm)`` of every edge
-    sweep run inside the block, one tuple per bucket in launch order, so
-    that the sweep kernel can be replayed on exactly what a join gave it."""
+    """Collect the device inputs ``(a0, a1, a_off, b0, b1, b_off)`` of
+    every edge sweep run inside the block, one CSR tuple per sweep call
+    (one per staged refine call), so that the sweep kernel can be replayed
+    on exactly what a join gave it."""
     return _SWEEPS.record()
 
 
-def _sweep(backend: str, dev: torch.device, a0, a1, am, b0, b1, bm):
-    """(hit, unc) numpy lanes of the float32 sweep on ``dev``."""
-    t = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-              for x in (a0, a1, am, b0, b1, bm))
+def _sweep(backend: str, dev: torch.device, csr):
+    """(hit, unc) numpy lanes of the float32 sweep on ``dev`` over ragged
+    CSR edges, one upload and one call."""
+    t = tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev) for x in csr)
     _SWEEPS.add(t)
-    fn = edges_intersect_plain if backend == "torch" else edges_intersect
+    fn = edges_intersect_csr_plain if backend == "torch" else \
+        edges_intersect_csr
     hit, unc = fn(*t)
     return hit.cpu().numpy(), unc.cpu().numpy()
 
 
-def _refine_device_intersects(backend, dev, R, S, p, vr, nr, vs, ns,
-                              rep_r, rep_s, use_cmbr) -> np.ndarray:
+def _bucket_rings(R, S, p, Va, Vb):
+    """The rows' rings cut to the bucket's widths, and their counts."""
+    return (R.verts[:, :Va][p[:, 0]], R.nverts[p[:, 0]],
+            S.verts[:, :Vb][p[:, 1]], S.nverts[p[:, 1]])
+
+
+def _kept_edges(R, S, p, Va, Vb, use_cmbr: bool):
+    """The edges of one bucket's rows that the sweep needs, float32, row
+    after row, a side at a time: ((a0, a1, a counts), (b0, b1, b counts))
+    with the CMBR masks applied when ``use_cmbr``."""
+    vr, nr, vs, ns = _bucket_rings(R, S, p, Va, Vb)
     a0, a1, am = polygon_edges(vr, nr)
     b0, b1, bm = polygon_edges(vs, ns)
-    ams, bms = am, bm
     if use_cmbr:
-        ams = am & _cmbr_mask(R.mbrs[p[:, 0]], S.mbrs[p[:, 1]], a0, a1)
-        bms = bm & _cmbr_mask(R.mbrs[p[:, 0]], S.mbrs[p[:, 1]], b0, b1)
-    hit, unc = _sweep(backend, dev, a0, a1, ams, b0, b1, bms)
-    out = hit & ~unc
-    # no definite crossing: containment via host closed-PiP of the reps
-    rest = ~hit & ~unc
-    if rest.any():
-        ones = np.ones((int(rest.sum()), 1), bool)
-        in_s = _pip_batch_np(rep_r[rest][:, None, :], ones,
-                             b0[rest], b1[rest], bm[rest])[:, 0]
-        in_r = _pip_batch_np(rep_s[rest][:, None, :], ones,
-                             a0[rest], a1[rest], am[rest])[:, 0]
-        out[rest] = in_s | in_r
-    # guard band tripped: full float64 re-check on host
-    if unc.any():
-        out[unc] = refine_pairs(R, S, p[unc], use_cmbr=use_cmbr,
-                                backend="numpy")
+        am = am & _cmbr_mask(R.mbrs[p[:, 0]], S.mbrs[p[:, 1]], a0, a1)
+        bm = bm & _cmbr_mask(R.mbrs[p[:, 0]], S.mbrs[p[:, 1]], b0, b1)
+    return tuple((p0[m].astype(np.float32), p1[m].astype(np.float32),
+                  m.sum(axis=1)) for p0, p1, m in ((a0, a1, am),
+                                                  (b0, b1, bm)))
+
+
+def _csr(pieces):
+    """Per-bucket kept edges concatenated into one ragged CSR (a0, a1,
+    a_off, b0, b1, b_off), the buckets' rows in turn."""
+    out = []
+    for side in zip(*pieces):
+        p0, p1, counts = (np.concatenate(x) for x in zip(*side))
+        out += [p0, p1, np.concatenate([[0], np.cumsum(counts)])]
+    return tuple(out)
+
+
+def _refine_device_intersects(backend, dev, R, S, pairs, buckets, rep_r,
+                              rep_s, use_cmbr) -> np.ndarray:
+    """The staged float32 sweep over every bucket's rows in one call, then
+    per bucket the host closed-PiP of the rows without a crossing and the
+    float64 re-check of the rows that tripped the band."""
+    pieces = [_kept_edges(R, S, pairs[sel], Va, Vb, use_cmbr)
+              for sel, Va, Vb in buckets]
+    hit, unc = _sweep(backend, dev, _csr(pieces))
+    out = np.zeros(len(pairs), bool)
+    pos = 0
+    for sel, Va, Vb in buckets:
+        h, u = hit[pos:pos + len(sel)], unc[pos:pos + len(sel)]
+        pos += len(sel)
+        p = pairs[sel]
+        res = h & ~u
+        # no definite crossing: containment via host closed-PiP of the
+        # reps against the unpruned rings
+        rest = ~h & ~u
+        if rest.any():
+            vr, nr, vs, ns = _bucket_rings(R, S, p[rest], Va, Vb)
+            a0, a1, am = polygon_edges(vr, nr)
+            b0, b1, bm = polygon_edges(vs, ns)
+            ones = np.ones((int(rest.sum()), 1), bool)
+            in_s = _pip_batch_np(rep_r[sel][rest][:, None, :], ones,
+                                 b0, b1, bm)[:, 0]
+            in_r = _pip_batch_np(rep_s[sel][rest][:, None, :], ones,
+                                 a0, a1, am)[:, 0]
+            res[rest] = in_s | in_r
+        # guard band tripped: full float64 re-check on host
+        if u.any():
+            res[u] = refine_pairs(R, S, p[u], use_cmbr=use_cmbr,
+                                  backend="numpy")
+        out[sel] = res
     return out
 
 
@@ -201,24 +245,21 @@ def _refine_device_intersects(backend, dev, R, S, p, vr, nr, vs, ns,
 # Bucketed public driver
 # ---------------------------------------------------------------------------
 
-def _bucketed(nvr: np.ndarray, nvs: np.ndarray, fn) -> np.ndarray:
-    """Run ``fn(sel, Va, Vb) -> bool[len(sel)]`` over power-of-two buckets
-    of the per-pair Er x Es tile size."""
-    out = np.zeros(len(nvr), bool)
+def _buckets(nvr: np.ndarray, nvs: np.ndarray):
+    """[(sel, Va, Vb)]: power-of-two buckets of the per-pair Er x Es tile
+    size, each with its widest rings."""
     sizes = np.maximum(nvr, 1) * np.maximum(nvs, 1)
-    for sel in size_buckets(sizes, _CHUNK_ELEMS):
-        Va = int(nvr[sel].max())
-        Vb = int(nvs[sel].max())
-        out[sel] = fn(sel, Va, Vb)
-    return out
+    return [(sel, int(nvr[sel].max()), int(nvs[sel].max()))
+            for sel in size_buckets(sizes, _CHUNK_ELEMS)]
 
 
 def refine_pairs(R, S, pairs: np.ndarray, use_cmbr: bool = True,
                  backend: str = "numpy", device=None) -> np.ndarray:
     """Exact intersection for candidate pairs [N,2] -> [N] bool, batched
-    over vertex-count buckets on the selected backend. ``device``
-    (``None`` -> ``"cuda"``) matters to the ``torch`` and ``cuda``
-    backends."""
+    over vertex-count buckets on the selected backend: ``numpy`` runs each
+    bucket on the host; ``torch`` and ``cuda`` run every bucket's float32
+    sweep in one call on ``device`` (``None`` -> ``"cuda"``) and the
+    rest per bucket on the host."""
     check_refine_backend(backend)
     dev = None
     if backend in ("torch", "cuda"):
@@ -233,21 +274,18 @@ def refine_pairs(R, S, pairs: np.ndarray, use_cmbr: bool = True,
     nvs = S.nverts[pairs[:, 1]]
     rep_r = _reps(R, pairs[:, 0])
     rep_s = _reps(S, pairs[:, 1])
-
-    def run(sel, Va, Vb):
+    buckets = _buckets(nvr, nvs)
+    if dev is not None:
+        return _refine_device_intersects(backend, dev, R, S, pairs, buckets,
+                                         rep_r, rep_s, use_cmbr)
+    out = np.zeros(len(pairs), bool)
+    for sel, Va, Vb in buckets:
         p = pairs[sel]
-        vr = R.verts[:, :Va][p[:, 0]]
-        vs = S.verts[:, :Vb][p[:, 1]]
-        nr, ns = nvr[sel], nvs[sel]
-        if dev is not None:
-            return _refine_device_intersects(
-                backend, dev, R, S, p, vr, nr, vs, ns, rep_r[sel],
-                rep_s[sel], use_cmbr)
-        return _intersects_batch_np(vr, nr, vs, ns, rep_r[sel], rep_s[sel],
-                                    R.mbrs[p[:, 0]], S.mbrs[p[:, 1]],
-                                    use_cmbr)
-
-    return _bucketed(nvr, nvs, run)
+        vr, nr, vs, ns = _bucket_rings(R, S, p, Va, Vb)
+        out[sel] = _intersects_batch_np(vr, nr, vs, ns, rep_r[sel],
+                                        rep_s[sel], R.mbrs[p[:, 0]],
+                                        S.mbrs[p[:, 1]], use_cmbr)
+    return out
 
 
 def refine(R, S, pairs: np.ndarray, predicate: str = "intersects",

@@ -156,12 +156,9 @@ def _bad_calls():
     return {
         "ragged S": ((torch.zeros(1, 100, 64),) * 3, iv, {}),
         "dtype mismatch": ((q, q.to(torch.bfloat16), q), iv, {}),
-        "float64": ((q.double(),) * 3, iv, {}),
         "device mismatch": ((q, q.to("meta"), q), iv, {}),
         "BH mismatch": ((q, torch.zeros(2, 128, 64), torch.zeros(2, 128, 64)),
                         iv, {}),
-        "D the kernel lacks": ((torch.zeros(1, 128, 48),) * 3, iv, {}),
-        "block_q the kernel lacks": ((q,) * 3, iv, {"block_q": 32}),
         "not contiguous": ((q, torch.zeros(1, 64, 128).transpose(1, 2), q),
                            iv, {}),
         "table shape": ((q,) * 3, iv[:, :3].contiguous(), {}),
@@ -182,11 +179,64 @@ def test_wrapper_raises(case):
             april_attention(*qkv, **kw)
 
 
+#: what the reference computes and the kernels are not built for: (dtype,
+#: D, block_q); S 256, blocks of 64 keys, local 96 with softcap 30
+BEYOND_KERNELS = {"float64": ("float64", 64, 64),
+                  "D the kernel lacks": ("float32", 48, 64),
+                  "block_q the kernel lacks": ("float32", 64, 32)}
+
+
+@pytest.mark.parametrize("case", sorted(BEYOND_KERNELS))
+def test_cpu_computes_beyond_the_kernels(case):
+    """On the CPU the plain version takes what the kernels do not, as the
+    reference does: f64, a head width and a q block without a kernel
+    instance. The reference runs without x64, so its f64 output is f32:
+    the port's f64 result is held to the port's dense oracle in f64, and
+    to the reference's kernel and oracle at the f32 tolerance."""
+    dtype, D, bq = BEYOND_KERNELS[case]
+    arrays = _arrays(17, (2, 256, D))
+    kw = dict(mask_kind="local", window=96, softcap=30.0)
+    qkv = [torch.from_numpy(a.astype(np.float64)).to(getattr(torch, dtype))
+           for a in arrays]
+    before = april_attention_blocks.launches
+    got = april_attention(*qkv, block_q=bq, block_kv=64, **kw)
+    assert april_attention_blocks.launches == before   # CPU: plain version
+    assert got.dtype == getattr(torch, dtype) and got.shape == (2, 256, D)
+    dense = april_attention_ref(*qkv, **kw)
+    assert dense.dtype == got.dtype
+    tol = 1e-12 if dtype == "float64" else TOL["float32"]
+    np.testing.assert_allclose(got.numpy(), dense.numpy(), atol=tol,
+                               rtol=tol)
+    jq = _jax(arrays, "float32")
+    want = r_april_attention(*jq, block_q=bq, block_kv=64, interpret=True,
+                             **kw)
+    _close(got, want, "float32")
+    _close(got, r_april_attention_ref(*jq, **kw), "float32")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (the kernel runs only on the card)")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(BEYOND_KERNELS))
+def test_kernel_raises_beyond_its_instances(case, cuda_device):
+    """On a CUDA tensor what the kernels are not built for raises; there is
+    no fallback to the plain version."""
+    dtype, D, bq = BEYOND_KERNELS[case]
+    qkv = [torch.zeros(2, 256, D, dtype=getattr(torch, dtype),
+                       device=cuda_device)] * 3
+    iv = torch.from_numpy(build_block_intervals(256, 256, bq, 64, "causal"))
+    before = april_attention_blocks.launches
+    with pytest.raises((ValueError, TypeError)):
+        april_attention(*qkv, block_q=bq, block_kv=64)
+    with pytest.raises((ValueError, TypeError)):
+        april_attention_blocks(*qkv, iv.to(cuda_device), block_q=bq,
+                               block_kv=64)
+    assert april_attention_blocks.launches == before
 
 
 @pytest.mark.cuda
@@ -207,3 +257,39 @@ def test_kernel_equals_plain_version(dtype, BH, S, D, bq, bkv, kind, window,
     _close(got.cpu(), want.cpu(), dtype)
     if dtype == "bfloat16":
         assert row_rel_err(got, want) <= ROW_REL_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bq", [64, 128])
+@pytest.mark.parametrize("D", [32, 64, 128, 256])
+def test_f32_kernel_instances_equal_plain_version(D, bq, cuda_device):
+    """Every instance of the CUDA-core kernel at 2e-5 against the plain
+    version: a causal mask, a local window with a softcap over kv blocks
+    of 96 keys (tiles straddle kv blocks), hand-made tables with empty and
+    clipped A-intervals; and no instance spills."""
+    from repro_torch.kernels.april_attention import kernel_attrs
+    attrs = kernel_attrs(torch.float32)[(D, bq)]
+    assert attrs["spill_bytes"] == 0, attrs
+    for S, bkv, kind, window, cap in ((512, 64, "causal", 0, None),
+                                      (384, 96, "local", 100, 30.0)):
+        qkv = [t.to(cuda_device) for t in _torch(_arrays(D + S, (2, S, D)),
+                                                 "float32")]
+        kw = dict(block_q=bq, block_kv=bkv, mask_kind=kind, window=window,
+                  softcap=cap)
+        got = april_attention(*qkv, **kw)
+        iv = torch.from_numpy(build_block_intervals(S, S, bq, bkv, kind,
+                                                    window))
+        want = april_attention_plain(*qkv, iv.to(cuda_device),
+                                     scale=1.0 / D ** 0.5, **kw)
+        _close(got.cpu(), want.cpu(), "float32")
+    if bq == 64:
+        for table in sorted(TABLES):
+            kind, window, rows = TABLES[table]
+            iv = torch.tensor(rows, dtype=torch.int32, device=cuda_device)
+            qkv = [t.to(cuda_device)
+                   for t in _torch(_arrays(5, (2, 256, D)), "float32")]
+            kw = dict(block_q=64, block_kv=64, mask_kind=kind,
+                      window=window, softcap=20.0 if kind == "local" else None)
+            got = april_attention_blocks(*qkv, iv, **kw)
+            want = april_attention_plain(*qkv, iv, scale=D ** -0.5, **kw)
+            _close(got.cpu(), want.cpu(), "float32")

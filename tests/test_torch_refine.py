@@ -20,8 +20,9 @@ from repro.spatial import refine as rrefine  # noqa: E402
 
 from repro_torch import state  # noqa: E402
 from repro_torch.core import geometry  # noqa: E402
-from repro_torch.kernels.refine import (edges_intersect,  # noqa: E402
-                                        edges_intersect_plain)
+from repro_torch.kernels.refine import (  # noqa: E402
+    edges_intersect, edges_intersect_csr, edges_intersect_csr_plain,
+    edges_intersect_plain, pack_edges)
 from repro_torch.spatial import refine  # noqa: E402
 
 #: pairs that go through the reference's Pallas path in interpret mode
@@ -70,6 +71,34 @@ def test_plain_sweep_lanes_match_pallas(B, Ea, Eb, seed):
     np.testing.assert_array_equal(got_h.numpy(), want_h)
     np.testing.assert_array_equal(got_u.numpy(), want_u)
     assert not want_h[0] and want_h.any()
+
+
+@pytest.mark.parametrize("B,Ea,Eb,seed", [(5, 7, 9, 4), (12, 30, 24, 5),
+                                          (3, 140, 5, 6), (9, 1, 200, 7)])
+def test_csr_sweep_lanes_match_pallas(B, Ea, Eb, seed):
+    """The ragged plain version over padded rows packed into CSR (rows
+    with no kept edge on one side or both among them) equals the Pallas
+    kernel's lanes on the padded rows bit for bit, and the padded wrapper,
+    which packs and calls it, too."""
+    rng = np.random.default_rng(seed)
+    a0, a1 = rng.uniform(0.2, 0.8, (2, B, Ea, 2))
+    b0, b1 = rng.uniform(0.2, 0.8, (2, B, Eb, 2))
+    am = rng.random((B, Ea)) < 0.7
+    bm = rng.random((B, Eb)) < 0.7
+    am[1 % B] = False
+    bm[2 % B] = False
+    am[0] = bm[0] = False
+    want_h, want_u = (np.asarray(x) for x in batch_edges_intersect(
+        a0, a1, am, b0, b1, bm, interpret=True))
+    t = [torch.from_numpy(x) for x in (a0, a1, am, b0, b1, bm)]
+    csr = pack_edges(*t[:3]) + pack_edges(*t[3:])
+    assert csr[2].tolist() == [0] + np.cumsum(am.sum(1)).tolist()
+    got_h, got_u = edges_intersect_csr_plain(*csr)
+    np.testing.assert_array_equal(got_h.numpy(), want_h)
+    np.testing.assert_array_equal(got_u.numpy(), want_u)
+    assert not (got_h[0] or got_u[0] or got_h[1 % B] or got_h[2 % B])
+    wh, wu = edges_intersect(*t)
+    assert torch.equal(wh, got_h) and torch.equal(wu, got_u)
 
 
 def test_sweep_guard_band_flags_touching_edges():
@@ -122,22 +151,25 @@ def test_refine_without_cmbr_pruning(t1t10):
 
 
 def test_record_sweeps_collects_each_bucket(t1t10):
-    """The recorded inputs cover every pair once, replay to sweep lanes
-    whose definite hits the join reports, and recording ends with the
-    block."""
+    """A refine call over several vertex-count buckets makes one sweep
+    call: the one recorded CSR input covers every pair once, replays to
+    sweep lanes whose definite hits the join reports, and recording ends
+    with the block."""
     R, S, Rt, St, pairs = t1t10
+    nvr, nvs = Rt.nverts[pairs[:, 0]], St.nverts[pairs[:, 1]]
+    assert len(refine._buckets(nvr, nvs)) > 1
     with refine.record_sweeps() as log:
         got = refine.refine_pairs(Rt, St, pairs, backend="torch",
                                   device="cpu")
-    assert len(log) > 0
-    assert sum(len(t[0]) for t in log) == len(pairs)
-    hits = 0
-    for t in log:
-        hit, unc = edges_intersect_plain(*t)
-        hits += int((hit & ~unc).sum())
-    assert 0 < hits <= int(got.sum())
+    assert len(log) == 1
+    a0, a1, a_off, b0, b1, b_off = log[0]
+    assert a_off.numel() == b_off.numel() == len(pairs) + 1
+    assert int(a_off[-1]) == len(a0) == len(a1)
+    assert int(b_off[-1]) == len(b0) == len(b1)
+    hit, unc = edges_intersect_csr_plain(*log[0])
+    assert 0 < int((hit & ~unc).sum()) <= int(got.sum())
     refine.refine_pairs(Rt, St, pairs[:4], backend="torch", device="cpu")
-    assert sum(len(t[0]) for t in log) == len(pairs)
+    assert len(log) == 1
 
 
 def test_touchy_geometry():
@@ -244,11 +276,23 @@ def test_cuda_sweep_equals_plain_version(cuda_device, t1t10):
                                         St.nverts[pairs[:, 1]])
     t = [torch.from_numpy(np.ascontiguousarray(x)).to(cuda_device)
          for x in (a0, a1, am, b0, b1, bm)]
-    n0 = edges_intersect.launches
+    n0 = edges_intersect_csr.launches
     kh, ku = edges_intersect(*t)
-    assert edges_intersect.launches == n0 + 1
+    assert edges_intersect_csr.launches == n0 + 1
     ph, pu = edges_intersect_plain(*t)
     assert torch.equal(kh, ph) and torch.equal(ku, pu)
+    # rows over the warp's couple limit go to the whole block; rows with
+    # no kept edge give False/False
+    rng = np.random.default_rng(8)
+    big = [torch.from_numpy(x).to(cuda_device) for x in (
+        *rng.uniform(0.2, 0.8, (2, 6, 300, 2)), rng.random((6, 300)) < 0.9,
+        *rng.uniform(0.2, 0.8, (2, 6, 200, 2)), rng.random((6, 200)) < 0.9)]
+    big[2][1] = False
+    csr = pack_edges(*big[:3]) + pack_edges(*big[3:])
+    kh, ku = edges_intersect_csr(*csr)
+    ph, pu = edges_intersect_csr_plain(*csr)
+    assert torch.equal(kh, ph) and torch.equal(ku, pu)
+    assert not (kh[1] or ku[1])
     np.testing.assert_array_equal(
         refine.refine_pairs(Rt, St, pairs, backend="cuda",
                             device=cuda_device),

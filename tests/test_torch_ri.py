@@ -196,10 +196,13 @@ def test_build_ri_device_store(t1t2):
     assert x.words[-1] == 0 and x.words.numel() == len(store.bits) // 32 + 2
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         ri.build_ri(R, 8, backend="sequential")
-    deep = ri.RIStore(16, store.extent, "R", store.off, store.ints,
-                      store.bit_off, store.bits)
-    with pytest.raises(ValueError, match="int32"):
-        ri.RIDeviceStore(deep)
+    # ends as biased int32 inclusive lasts, APRIL's device layout
+    np.testing.assert_array_equal(
+        x.starts.numpy().view(np.uint32) ^ np.uint32(1 << 31),
+        store.ints[:, 0])
+    np.testing.assert_array_equal(
+        x.lasts.numpy().view(np.uint32) ^ np.uint32(1 << 31),
+        store.ints[:, 1] - 1)
 
 
 # ---------------------------------------------------------------------------
@@ -318,6 +321,85 @@ def test_ri_join_matches_reference_staged(t1t2, mode, mbr_backend,
     assert plan.approx_s.store.encoding == "S"
 
 
+def _order16_datasets():
+    """Small rings at order 16 (cells of side 2^-16): stars around a point
+    of the left half (Hilbert ids under 2^31), two of the right half (ids
+    above 2^31) and the bottom-right corner, whose last cell (65535, 0)
+    has id 2^32 - 1, with a square over that cell so an interval ends at
+    2^32, and an L with a square in its notch. Reference datasets and the
+    port's copies."""
+    from repro.datagen.synthetic import PolygonDataset
+    from repro_torch import state
+    h = 2.0 ** -16
+    rng = np.random.default_rng(16)
+    centers = [(0.25, 0.3), (0.75, 0.6), (0.5 + 3 * h, 0.5 + 3 * h),
+               (1 - 3 * h, 3 * h)]
+    sides = ([], [])
+    for cx, cy in centers:
+        for side in sides:
+            for _ in range(2):
+                c = np.array([cx, cy]) + rng.uniform(-2, 2, 2) * h
+                ang = np.sort(rng.uniform(0, 2 * np.pi, 7))
+                r = rng.uniform(1, 4) * h
+                ring = c + r * np.stack([np.cos(ang), np.sin(ang)], 1)
+                side.append(np.clip(ring, 1e-7, 1 - 1e-7))
+    sides[0].append(np.array([[1 - 3 * h, 1e-7], [1 - 1e-7, 1e-7],
+                              [1 - 1e-7, 3 * h], [1 - 3 * h, 3 * h]]))
+    # an L and a square in its notch: MBRs overlap, no cell is shared
+    o = np.array([0.625, 0.125])
+    sides[0].append(o + h * np.array([[0, 0], [10, 0], [10, 2], [2, 2],
+                                      [2, 10], [0, 10]]))
+    sides[1].append(o + h * np.array([[6, 6], [9, 6], [9, 9], [6, 9]]))
+    out = []
+    for name, rings in zip(("R16", "S16"), sides):
+        V = max(len(v) for v in rings)
+        verts = np.zeros((len(rings), V, 2))
+        nv = np.array([len(v) for v in rings], np.int64)
+        for i, v in enumerate(rings):
+            verts[i, : len(v)] = v
+            verts[i, len(v):] = v[0]
+        out.append((PolygonDataset(name=name, verts=verts, nverts=nv),
+                    state.dataset_from_arrays(name, verts, nv)))
+    return out
+
+
+def test_ri_at_order_16_matches_reference():
+    """At order 16 Hilbert ids use all 32 bits: the device store's biased
+    int32 ends hold intervals above 2^31 and one that ends at 2^32. The
+    torch backend's verdicts equal the reference's numpy filter, and the
+    join staged and fused its staged numpy plan: pairs, order and
+    counts."""
+    (R0, R), (S0, S) = _order16_datasets()
+    ref_r = rri.build_ri(R0, 16, encoding="R")
+    ref_s = rri.build_ri(S0, 16, encoding="S")
+    got_r = ri.build_ri(R, 16, encoding="R")
+    got_s = ri.build_ri(S, 16, encoding="S")
+    for a, b in ((got_r, ref_r), (got_s, ref_s)):
+        for k in ("off", "ints", "bit_off", "bits"):
+            assert getattr(a, k).tobytes() == getattr(b, k).tobytes(), k
+    ends = np.concatenate([ref_r.ints[:, 1], ref_s.ints[:, 1]])
+    assert ends.max() == 2 ** 32
+    assert (np.concatenate([ref_r.ints[:, 0], ref_s.ints[:, 0]])
+            > 2 ** 31).any()
+    pairs = r_mbr_join(R0.mbrs, S0.mbrs)
+    want = rri.ri_filter_batch(ref_r, ref_s, pairs, backend="numpy")
+    assert set(np.unique(want)) == {0, 1, 2}
+    got = ri.ri_trichotomy_rows(got_r, got_s, pairs[:, 0], pairs[:, 1],
+                                backend="torch", device="cpu")
+    np.testing.assert_array_equal(got, want)
+    ref, rst = RJoinPlan(R0, S0, filter="ri", n_order=16).build().execute(
+        "intersects")
+    assert len(ref) > 0
+    for mode in ("staged", "fused"):
+        res, st = JoinPlan(R, S, filter="ri", n_order=16, device="cpu",
+                           pipeline_mode=mode,
+                           filter_backend="torch").build().execute(
+            "intersects")
+        np.testing.assert_array_equal(res, ref)
+        for k in COUNTS:
+            assert getattr(st, k) == getattr(rst, k), (mode, k)
+
+
 def test_ri_fused_chain_records_its_frame(t1t2):
     """The fused status lane is the plain RI verdicts of the chain's own
     device frame under its valid lane."""
@@ -365,3 +447,19 @@ def test_ri_kernel_equals_plain_version(stores, cuda_device):
             p = ri_trichotomy_plain(X, Y, *rows, xor_y)
             torch.cuda.synchronize()
             assert torch.equal(k, p), (key, bits)
+
+
+@pytest.mark.cuda
+def test_ri_kernel_at_order_16_equals_plain_version(cuda_device):
+    """The kernel reads the biased int32 ends at order 16, where intervals
+    lie above 2^31 and one ends at 2^32, as its plain version does."""
+    (R0, R), (S0, S) = _order16_datasets()
+    X, Y = (ri.RIDeviceStore(ri.build_ri(d, 16, encoding=e)).to(cuda_device)
+            for d, e in ((R, "R"), (S, "S")))
+    pairs = r_mbr_join(R0.mbrs, S0.mbrs)
+    rows = (_t(pairs[:, 0]).to(cuda_device), _t(pairs[:, 1]).to(cuda_device))
+    for xor_y in (False, True):
+        k = ri_trichotomy(X, Y, *rows, xor_y)
+        p = ri_trichotomy_plain(X, Y, *rows, xor_y)
+        torch.cuda.synchronize()
+        assert torch.equal(k, p), xor_y
