@@ -21,6 +21,9 @@ from repro_torch.core import join as tjoin  # noqa: E402
 from repro_torch.kernels.interval_join import (  # noqa: E402
     CSRLists, april_trichotomy, april_trichotomy_plain, interval_overlap,
     interval_overlap_plain)
+from repro_torch.kernels.interval_join.cases import (  # noqa: E402
+    CASES, GROUPS, SPECIAL_WIDTHS, U32_TOP, draw_pair_rows)
+from repro_torch.kernels.interval_join.ops import VARIANTS  # noqa: E402
 
 ORDERS = [("AA", "AF", "FA"), ("FA", "AA", "AF"), ("AF", "FA", "AA"),
           ("AA", "AF"), ("AA", "FA"), ("AA",)]
@@ -80,6 +83,104 @@ def test_plain_trichotomy_and_overlap_match_pallas(rows, wa, wf, seed):
                                                 interpret=True))
     got_ov = interval_overlap_plain(lists[0], lists[2], *rows_t)
     np.testing.assert_array_equal(got_ov.numpy(), want_ov)
+
+
+# ---------------------------------------------------------------------------
+# the window tiling's edges (kernels.interval_join.cases, also the card sweep)
+# ---------------------------------------------------------------------------
+
+def _drawn(seed, rows, **kw):
+    """Rows drawn by ``draw_pair_rows`` as the reference's IntervalLists
+    and the port's CPU lists, and the pair rows (n, n)."""
+    d = draw_pair_rows(seed, rows, **kw)
+    ref = {k: rjoin.IntervalLists(*d[k]) for k in ("xa", "xf", "ya", "yf")}
+    port = {k: tjoin.IntervalLists(*d[k]).to("cpu") for k in ref}
+    return d, ref, port, np.arange(rows)
+
+
+def _pallas_equals_plain(ref, port, ri, si):
+    """The Pallas kernels (interpret mode) and the plain versions agree row
+    for row: the trichotomy, and the overlap of each join B1 runs."""
+    packed = []
+    for k, idx in (("xa", ri), ("xf", ri), ("ya", si), ("yf", si)):
+        packed.extend(ref[k].pack(idx, max(1, int(ref[k].counts(idx).max()))))
+    rows_t = torch.from_numpy(ri), torch.from_numpy(si)
+    want = batch_april_trichotomy(*packed, interpret=True)
+    got = april_trichotomy_plain(port["xa"], port["xf"], port["ya"],
+                                 port["yf"], *rows_t)
+    np.testing.assert_array_equal(got.numpy(), want)
+    for x, y in (("xa", "ya"), ("xa", "yf"), ("xf", "ya")):
+        xs, xl, nx = ref[x].pack(ri, max(1, int(ref[x].counts(ri).max())))
+        ys, yl, ny = ref[y].pack(si, max(1, int(ref[y].counts(si).max())))
+        want_ov = np.asarray(batch_interval_overlap(xs, xl, nx, ys, yl, ny,
+                                                    interpret=True))
+        got_ov = interval_overlap_plain(port[x], port[y], *rows_t)
+        np.testing.assert_array_equal(got_ov.numpy(), want_ov,
+                                      err_msg=f"{x} x {y}")
+    return want
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tiling_edge_cases_match_pallas(case):
+    """Rows drawn at the window tiling's edges, one case at a time, paired
+    as drawn and shuffled: the plain versions equal the Pallas kernels."""
+    rows = 48
+    d, ref, port, own = _drawn(31 + CASES.index(case), rows, cases=(case,))
+    shuffled = np.random.default_rng(3).permutation(rows)
+    verdicts = np.concatenate([_pallas_equals_plain(ref, port, own, own),
+                               _pallas_equals_plain(ref, port, own, shuffled)])
+    if case == "gaps":
+        assert not verdicts[:rows].any()         # gaps never overlap
+    if case == "touching":
+        assert verdicts[:rows].all()             # they meet at one id
+
+
+@pytest.mark.parametrize("group", GROUPS)
+def test_group_boundary_widths_match_pallas(group):
+    """Lists of G - 1, G, G + 1 and 2G + 1 intervals, every case."""
+    widths = (group - 1, group, group + 1, 2 * group + 1)
+    d, ref, port, own = _drawn(41 + group, 56, widths=widths)
+    _pallas_equals_plain(ref, port, own, own)
+    w = np.diff(d["xa"][0])
+    assert set(widths) <= set(w.tolist()) | {0}
+
+
+def test_tiling_cases_cover_the_edges():
+    """The drawn rows hold what the card sweep relies on: every special
+    width on both sides, ends at INT32_MIN and INT32_MAX, y starts equal to
+    x lasts, empty rows, and F outside A only where drawn so."""
+    d = draw_pair_rows(17, 7 * 200)
+    for k in ("xa", "ya"):
+        w = set(np.diff(d[k][0]).tolist())
+        assert set(SPECIAL_WIDTHS) <= w, k
+        assert (d[k][1] == np.iinfo(np.int32).min).any(), k
+        assert (d[k][2] == np.iinfo(np.int32).max).any(), k
+    assert U32_TOP - 2**31 == np.iinfo(np.int32).max
+    touch = 0
+    for n in np.nonzero(d["case"] == CASES.index("touching"))[0]:
+        sl = lambda k, i: slice(d[k][0][n], d[k][0][n + 1])
+        xs, xl = d["xa"][1][sl("xa", n)], d["xa"][2][sl("xa", n)]
+        ys, yl = d["ya"][1][sl("ya", n)], d["ya"][2][sl("ya", n)]
+        touch += bool(np.isin(ys, xl).any() or np.isin(xs, yl).any())
+    assert touch == (d["case"] == CASES.index("touching")).sum()
+    ref = {k: rjoin.IntervalLists(*d[k]) for k in ("xa", "xf", "ya", "yf")}
+    outside = 0
+    for a, f in (("xa", "xf"), ("ya", "yf")):
+        for n in range(len(d["case"])):
+            fs = ref[f].starts[ref[f].off[n]:ref[f].off[n + 1]]
+            fl = ref[f].lasts[ref[f].off[n]:ref[f].off[n + 1]]
+            as_ = ref[a].starts[ref[a].off[n]:ref[a].off[n + 1]]
+            al = ref[a].lasts[ref[a].off[n]:ref[a].off[n + 1]]
+            k = np.searchsorted(al, fs)
+            inside = (k < len(al)) & (as_[np.minimum(k, len(al) - 1)] <= fs) \
+                & (fl <= al[np.minimum(k, len(al) - 1)]) if len(al) else \
+                np.zeros(len(fs), bool)
+            if d["case"][n] != CASES.index("f_outside_a"):
+                assert inside.all(), (a, n)
+            outside += not inside.all()
+    assert outside > 100
+    assert (np.diff(d["xa"][0]) == 0).any()
+    assert (np.diff(d["yf"][0]) == 0).any()
 
 
 def test_wrappers_run_plain_versions_on_cpu():
@@ -257,6 +358,28 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the kernels have no CPU mode")
     return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("case", CASES)
+def test_cuda_kernels_equal_plain_versions_at_tiling_edges(cuda_device, case,
+                                                          variant):
+    """Every design of the kernels equals the plain versions on the rows
+    the CPU tests hold to the Pallas kernels."""
+    from repro_torch.kernels.interval_join.ops import (
+        april_trichotomy_variant, interval_overlap_variant)
+    d = draw_pair_rows(31 + CASES.index(case), 480, cases=(case,))
+    L = {k: CSRLists(*(torch.from_numpy(a).to(cuda_device) for a in d[k]))
+         for k in ("xa", "xf", "ya", "yf")}
+    own = torch.arange(480, device=cuda_device)
+    tri = (L["xa"], L["xf"], L["ya"], L["yf"])
+    assert torch.equal(april_trichotomy_variant(variant, *tri, own, own),
+                       april_trichotomy_plain(*tri, own, own))
+    for x, y in (("xa", "ya"), ("xa", "yf"), ("xf", "ya")):
+        assert torch.equal(
+            interval_overlap_variant(variant, L[x], L[y], own, own),
+            interval_overlap_plain(L[x], L[y], own, own))
 
 
 @pytest.mark.cuda
