@@ -12,10 +12,9 @@ reference package. Phases, any failure exits non-zero:
    card, exactly: the trichotomy kernel, and the overlap kernel's AA join,
    on the first 65,536 candidate rows of the T1 x T2 join and on every
    row with a list wider than 256 intervals; the overlap kernel's AF and
-   FA joins on every AA survivor; both kernels, through their wrappers and
-   every design of ``interval_join.ops.VARIANTS``, on 65,536 pair rows
+   FA joins on every AA survivor; both kernels on 65,536 pair rows
    drawn at the window tiling's edges (``interval_join.cases``: widths 0,
-   1, G - 1, G, G + 1, 2G + 1 for G 8, 16, 32, 300 and 600, touching
+   1, W - 1, W, W + 1, 2W + 1 for W 8, 16 and 32, 300 and 600, touching
    ends, lists at INT32_MIN and INT32_MAX, empty lists, F inside and
    outside A), paired as drawn and shuffled, and with an empty F store on
    either side; the compaction (scan) kernel against its
@@ -76,11 +75,12 @@ reference package. Phases, any failure exits non-zero:
    sweep on the one call of the default staged run, also on the device
    alone, its byte bound from the CSR (16 bytes a kept edge, 16 a row of
    offsets, 2 a row of lanes); the interval joins on the device alone
-   (``device_ms``): the trichotomy kernel over the main frame and over the
-   fused torch-MBR run's frame, the overlap kernel as the degenerate order
-   launches it (AA over the frame, AF over the AA survivors), each design
-   of ``VARIANTS`` the same way, after the frames' list widths (mean, p99
-   and max of nx + ny a join, read on the card);
+   (``device_ms``): the trichotomy kernel over the main frame, and over
+   the fused torch-MBR run's frame with its own byte bound; the overlap
+   kernel over the main frame (AA), and as the degenerate order launches
+   it (AA over the frame, AF over the AA survivors) with the bound of both
+   launches; after the frames' list widths (mean, p99 and max of nx + ny
+   a join, read on the card);
 9. the APRIL block-sparse attention kernels (``april_attention``, the LM
    bridge; no join runs it: bf16 on the tensor cores, f32 on the CUDA
    cores): on the test grid (``TEST_GRID``: the reference's cases from
@@ -436,9 +436,9 @@ def _ri_sweep(X, Y, rows_list, dev) -> int:
 def _interval_join_sweep(dev) -> list:
     """B1 and B4 against their plain versions, exactly, on the lists that
     ``kernels.interval_join.cases`` draws at the window tiling's edges
-    (``JOIN_SWEEP_ROWS`` pair rows, paired as drawn and shuffled), through
-    the wrappers and every variant of ``VARIANTS``; then with an empty F
-    store (its sentinel slot) on either side. Returns printable lines."""
+    (``JOIN_SWEEP_ROWS`` pair rows, paired as drawn and shuffled); then
+    with an empty F store (its sentinel slot) on either side. Returns
+    printable lines."""
     import torch
     from repro_torch.core.join import IntervalLists
     from repro_torch.kernels.interval_join import (
@@ -447,8 +447,6 @@ def _interval_join_sweep(dev) -> list:
     from repro_torch.kernels.interval_join.cases import (CASES,
                                                          SPECIAL_WIDTHS,
                                                          draw_pair_rows)
-    from repro_torch.kernels.interval_join.ops import (
-        VARIANTS, april_trichotomy_variant, interval_overlap_variant)
     t0 = time.perf_counter()
     drawn = draw_pair_rows(JOIN_SWEEP_SEED, JOIN_SWEEP_ROWS)
     t_draw = time.perf_counter() - t0
@@ -468,26 +466,16 @@ def _interval_join_sweep(dev) -> list:
         for pairing, rows in (("own", (own, own)), ("shuffled",
                                                     (own, shuffled))):
             want = april_trichotomy_plain(*tri, *rows)
-            runs = {"wrapper": april_trichotomy(*tri, *rows)}
-            runs.update({v: april_trichotomy_variant(v, *tri, *rows)
-                         for v in VARIANTS})
             joins = {"AA": (tri[0], tri[2]), "AF": (tri[0], tri[3]),
                      "FA": (tri[1], tri[2])}
             for name, (x, y) in joins.items():
-                want_ov = interval_overlap_plain(x, y, *rows)
-                got = {"wrapper": interval_overlap(x, y, *rows)}
-                got.update({v: interval_overlap_variant(v, x, y, *rows)
-                            for v in VARIANTS})
-                bad = [v for v, g in got.items()
-                       if not torch.equal(g, want_ov)]
-                if bad:
-                    raise AssertionError(f"interval_overlap {bad} != plain "
+                if not torch.equal(interval_overlap(x, y, *rows),
+                                   interval_overlap_plain(x, y, *rows)):
+                    raise AssertionError(f"interval_overlap kernel != plain "
                                          f"version on the {name} join of the "
                                          f"{label} sweep, {pairing} pairs")
-            torch.cuda.synchronize()
-            bad = [v for v, g in runs.items() if not torch.equal(g, want)]
-            if bad:
-                raise AssertionError(f"april_trichotomy {bad} != plain "
+            if not torch.equal(april_trichotomy(*tri, *rows), want):
+                raise AssertionError(f"april_trichotomy kernel != plain "
                                      f"version on the {label} sweep, "
                                      f"{pairing} pairs")
             mix[f"{label}, {pairing}"] = torch.bincount(
@@ -509,8 +497,7 @@ def _interval_join_sweep(dev) -> list:
             f"from cases {list(CASES)} (seed {JOIN_SWEEP_SEED}), widths "
             f"{list(SPECIAL_WIDTHS)} on both sides, ends at INT32_MIN and "
             f"INT32_MAX; april_trichotomy and interval_overlap (AA, AF, FA) "
-            f"== plain versions through the wrappers and variants "
-            f"{list(VARIANTS)}; tolerance: exact; verdicts "
+            f"kernels == plain versions; tolerance: exact; verdicts "
             f"TRUE_NEG/TRUE_HIT/INDECISIVE {json.dumps(mix)}"]
 
 
@@ -522,20 +509,16 @@ def _width_stats(x, y, xi, yi) -> dict:
             "max": int(w.max())}
 
 
-def _interval_join_times(lists, tri, frame, survivors, torch_frame) -> dict:
-    """B1 and B4 on the device alone (``_device_ms``): B1 over the main
-    path's frame and over the fused torch-MBR run's, B4 as the degenerate
-    order launches it (AA over the frame, AF over the AA survivors, the two
-    timed together); then every design of ``VARIANTS`` the same way, each
-    first held exactly to the plain versions on the main frame. Prints the
-    frames' list widths and the variants' times; returns the wrappers'
-    device ms."""
-    import torch
-    from repro_torch.kernels.interval_join import (
-        april_trichotomy, april_trichotomy_plain, interval_overlap,
-        interval_overlap_plain)
-    from repro_torch.kernels.interval_join.ops import (
-        VARIANTS, april_trichotomy_variant, interval_overlap_variant)
+def _interval_join_times(tri, frame, survivors, torch_frame) -> dict:
+    """B1 and B4 on the device alone (``_device_ms``), each beside the byte
+    bound of the same work: B1 over the main path's frame and over the
+    fused torch-MBR run's; B4's AA join over the main frame, and the
+    degenerate order's two launches (AA over the frame, AF over the AA
+    survivors) timed together, their bound the sum of the two launches'.
+    Prints the frames' list widths; returns, by kernel, the keys its row
+    of the ``kernels`` line gains."""
+    from repro_torch.kernels.interval_join import (april_trichotomy,
+                                                   interval_overlap)
     xa, xf, ya, yf = tri
     widths = {f"{name} {join}": _width_stats(x, y, *rows)
               for name, rows in (("main", frame), ("torch-MBR", torch_frame))
@@ -544,40 +527,27 @@ def _interval_join_times(lists, tri, frame, survivors, torch_frame) -> dict:
     print(f"interval-join frames: {frame[0].numel()} main rows, "
           f"{torch_frame[0].numel()} torch-MBR rows; nx + ny per join "
           f"(read on the card) {json.dumps(widths)}", flush=True)
-    tri_bytes = _nbytes(*(t for L in tri for t in L), *torch_frame) \
-        + torch_frame[0].numel()
-    print(f"april_trichotomy bound on the torch-MBR frame: "
-          f"{tri_bytes / HBM_BYTES_PER_S * 1e3} ms (bytes)", flush=True)
 
-    def runs(b1, b4):
-        return {"april_trichotomy": lambda: b1(*tri, *frame),
-                "april_trichotomy torch-MBR frame":
-                    lambda: b1(*tri, *torch_frame),
-                "interval_overlap": lambda: (b4(xa, ya, *frame),
-                                             b4(xa, yf, *survivors))}
+    def bound_ms(lists, rows) -> float:
+        """Each list and row index read once, one byte written a row."""
+        nbytes = _nbytes(*(t for L in lists for t in L), *rows) \
+            + rows[0].numel()
+        return nbytes / HBM_BYTES_PER_S * 1e3
 
-    want_tri = april_trichotomy_plain(*tri, *frame)
-    want_aa = interval_overlap_plain(xa, ya, *frame)
-    want_af = interval_overlap_plain(xa, yf, *survivors)
-    out = {name: _device_ms(fn)
-           for name, fn in runs(april_trichotomy, interval_overlap).items()}
-    variants = {}
-    for v in VARIANTS:
-        b1 = lambda *a, v=v: april_trichotomy_variant(v, *a)
-        b4 = lambda *a, v=v: interval_overlap_variant(v, *a)
-        ok = (torch.equal(b1(*tri, *frame), want_tri)
-              and torch.equal(b4(xa, ya, *frame), want_aa)
-              and torch.equal(b4(xa, yf, *survivors), want_af))
-        if not ok:
-            raise AssertionError(f"interval-join variant {v} != plain "
-                                 "versions on the main frame")
-        variants[v] = {name: _device_ms(fn)
-                       for name, fn in runs(b1, b4).items()}
-        print(f"interval-join variant {v}: device ms "
-              f"{json.dumps(variants[v])}", flush=True)
-    print(f"interval-join device ms, wrappers {json.dumps(out)}; variants "
-          f"{json.dumps(variants)}", flush=True)
-    return out
+    return {
+        "april_trichotomy": {
+            "device_ms": _device_ms(lambda: april_trichotomy(*tri, *frame)),
+            "device_ms_torch_mbr_frame": _device_ms(
+                lambda: april_trichotomy(*tri, *torch_frame)),
+            "bound_ms_torch_mbr_frame": bound_ms(tri, torch_frame)},
+        "interval_overlap": {
+            "device_ms": _device_ms(lambda: interval_overlap(xa, ya, *frame)),
+            "device_ms_degenerate_order": _device_ms(lambda: (
+                interval_overlap(xa, ya, *frame),
+                interval_overlap(xa, yf, *survivors))),
+            "bound_ms_degenerate_order": bound_ms((xa, ya), frame)
+            + bound_ms((xa, yf), survivors)},
+    }
 
 
 def _allowed_positions(S: int, kind: str, window: int) -> int:
@@ -1349,9 +1319,9 @@ def main() -> int:
     counter = {"exclusive_scan": "compact_mask",
                "edges_intersect": "edges_intersect_csr"}
     sweep_device_ms = _device_ms(lambda: edges_intersect_csr(*sw))
-    device_ms = {"edges_intersect": sweep_device_ms,
-                 **_interval_join_times(lists, tri, (ri_all, si_all),
-                                        (ri_aa, si_aa), torch_frame)}
+    extra = {"edges_intersect": {"device_ms": sweep_device_ms},
+             **_interval_join_times(tri, (ri_all, si_all), (ri_aa, si_aa),
+                                    torch_frame)}
     kernels = []
     for name, (source, replaces, run_label) in meta.items():
         nbytes, ops = bounds[name]
@@ -1366,10 +1336,7 @@ def main() -> int:
             "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": library.get(name), "tol": 0})
-        if name in device_ms:
-            kernels[-1]["device_ms"] = device_ms[name]
-    kernels[0]["device_ms_torch_mbr_frame"] = device_ms[
-        "april_trichotomy torch-MBR frame"]
+        kernels[-1].update(extra.get(name, {}))
     print(f"shapes: {rows} candidate rows (the scan's and the RI kernel's "
           f"frame), {stats['default'].n_indecisive} INDECISIVE rows, "
           f"{couples} edge couples kept by the CMBR masks over "

@@ -20,23 +20,24 @@
 // divergence), each step up to four 4-byte loads from 32 different lists,
 // so one load instruction was as many L1 wavefronts as it had live lanes:
 // about 255 M wavefronts for the frame, 1.1 ms at 1.7 GHz over 132 SMs.
-// chip_smoke.py times that design ("row") beside this one and the other
-// variants; PERF.md holds the numbers.
+// On an H100 80GB HBM3 at 700 W it took 1.54 ms of device time for that
+// frame, this design 0.34 ms; PERF.md records both, and the designs that
+// were timed and dropped (G = 4, 16 and 32, no start skip, a wide-row
+// split, a dual advance, a search form).
 //
-// The design: a group of G lanes (8; 16 and 32 are variants) owns one pair
-// row. It keeps a window of G consecutive X intervals and G consecutive Y
-// intervals in registers, lane k holding interval i0 + k of X and j0 + k
-// of Y, so a window is G x 4 contiguous bytes an array, not G scattered
-// loads. A step tests every pair of the two windows at once: each lane
-// finds, by a binary search over the Y window through __shfl_sync, the
-// first y whose last is >= its x's start; its x overlaps some y of the
-// window if and only if that y's start is <= its last (the plain version's
-// searchsorted rule, within the window). A ballot ends the join at the
-// first hit. Then the window that ends first retires (X on a tie: xmax <=
-// ymax, the lasts of the windows' last valid intervals) and the group
-// loads that list's next G intervals: Algorithm 2's linear merge, made
-// coarse. A join of nx and ny intervals takes at most ceil(nx / G) +
-// ceil(ny / G) steps where a thread took up to nx + ny.
+// The design: a group of G = 8 lanes owns one pair row. It keeps a window of G
+// consecutive X intervals and G consecutive Y intervals in registers, lane k
+// holding interval i0 + k of X and j0 + k of Y, so a window is G x 4 contiguous
+// bytes an array, not G scattered loads. A step tests every pair of the two
+// windows at once: each lane finds, by a binary search over the Y window
+// through __shfl_sync, the first y whose last is >= its x's start; its x
+// overlaps some y of the window if and only if that y's start is <= its last
+// (the plain version's searchsorted rule, within the window). A ballot ends the
+// join at the first hit. Then the window that ends first retires (X on a tie:
+// xmax <= ymax, the lasts of the windows' last valid intervals) and the group
+// loads that list's next G intervals: Algorithm 2's linear merge, made coarse.
+// A join of nx and ny intervals takes at most ceil(nx / G) + ceil(ny / G) steps
+// where a thread took up to nx + ny.
 //
 // Before its first window each join skips, on both lists, the stretch that
 // ends before the other list starts (the sampled skip): lane k reads the
@@ -74,14 +75,7 @@
 // Why no host sort by width: the fused chain reads nothing back to the
 // host before its one gather, so rows are taken in the frame's order, and
 // the small groups bound the divergence instead (a warp waits on the
-// slowest of 32 / G rows, not of 32). The adaptive variant takes rows of
-// more than kWide A intervals out of the 8-lane pass and joins them one at
-// a time over the whole warp.
-//
-// april_trichotomy_variant_launch and interval_overlap_variant_launch run
-// any variant (G, with or without the skip, adaptive, and the earlier
-// thread-a-row merge) for the timing in chip_smoke.py; the two entry points
-// of the filter run kDefaultGroup with the skip.
+// slowest of 32 / G rows, not of 32).
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -89,11 +83,8 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr unsigned kFull = 0xffffffffu;
-// the group of the entry points, which run the sampled skip
-constexpr int kDefaultGroup = 8;
-// the adaptive variant joins rows wider than this (A(r) + A(s) intervals)
-// over a whole warp
-constexpr int64_t kWide = 256;
+// lanes a pair row, and intervals a window
+constexpr int kGroup = 8;
 
 constexpr int kTrueNeg = 0, kTrueHit = 1, kIndecisive = 2;
 enum Phase : int { kAA = 0, kAF = 1, kFA = 2, kDone = 3 };
@@ -103,15 +94,6 @@ struct Lists {
   const int32_t* starts;
   const int32_t* lasts;
 };
-
-template <int G>
-__device__ __forceinline__ unsigned group_mask(int lane) {
-  if constexpr (G == 32) {
-    return kFull;
-  } else {
-    return ((1u << G) - 1u) << (lane & ~(G - 1));
-  }
-}
 
 // The next phase of B1's state machine after a join, and the verdict once
 // it is kDone: AA empty -> TRUE_NEG; else AF or FA hit -> TRUE_HIT; else
@@ -147,10 +129,9 @@ struct Merge {
 
 // Starts the join of ``phase`` for the groups whose ``fresh`` is set (every
 // lane of the warp calls it): X is F(r) in FA, else A(r); Y is F(s) in AF,
-// else A(s). With kSkip each list first drops its stretch that ends before
-// the other list starts, found to within ceil(n / G) intervals by one
-// sample a lane; then the windows load.
-template <int G, bool kSkip>
+// else A(s). Each list first drops its stretch that ends before the other
+// list starts, found to within ceil(n / G) intervals by one sample a lane;
+// then the windows load.
 __device__ __forceinline__ void begin_join(Merge& m, int phase, bool fresh,
                                            int k, unsigned gmask,
                                            const Lists& xa, const Lists& xf,
@@ -162,20 +143,17 @@ __device__ __forceinline__ void begin_join(Merge& m, int phase, bool fresh,
   const int32_t* yl = (fy ? yf.lasts : ya.lasts) + (fy ? m.yf0 : m.ya0);
   const int nx = fresh && phase != kDone ? (fx ? m.nxf : m.nxa) : 0;
   const int ny = fresh && phase != kDone ? (fy ? m.nyf : m.nya) : 0;
-  int dx = 0, dy = 0;
-  if constexpr (kSkip) {
-    const int sx = (nx + G - 1) / G, sy = (ny + G - 1) / G;
-    bool bx = false, by = false;
-    if (nx > 0 && ny > 0) {
-      const int32_t x_first = __ldg(xs), y_first = __ldg(ys);
-      bx = k * sx < nx && __ldg(xl + k * sx) < y_first;
-      by = k * sy < ny && __ldg(yl + k * sy) < x_first;
-    }
-    const int cx = __popc(__ballot_sync(kFull, bx) & gmask);
-    const int cy = __popc(__ballot_sync(kFull, by) & gmask);
-    dx = cx ? (cx - 1) * sx + 1 : 0;
-    dy = cy ? (cy - 1) * sy + 1 : 0;
+  const int sx = (nx + kGroup - 1) / kGroup, sy = (ny + kGroup - 1) / kGroup;
+  bool bx = false, by = false;
+  if (nx > 0 && ny > 0) {
+    const int32_t x_first = __ldg(xs), y_first = __ldg(ys);
+    bx = k * sx < nx && __ldg(xl + k * sx) < y_first;
+    by = k * sy < ny && __ldg(yl + k * sy) < x_first;
   }
+  const int cx = __popc(__ballot_sync(kFull, bx) & gmask);
+  const int cy = __popc(__ballot_sync(kFull, by) & gmask);
+  const int dx = cx ? (cx - 1) * sx + 1 : 0;
+  const int dy = cy ? (cy - 1) * sy + 1 : 0;
   if (fresh) {
     m.pxs = xs + dx + k;
     m.pxl = xl + dx + k;
@@ -198,36 +176,35 @@ __device__ __forceinline__ void begin_join(Merge& m, int phase, bool fresh,
 // overlaps (for this lane's group); then the window that ends first is
 // retired (X on a tie) and the next one loaded. Every lane of the warp
 // calls it; a done group has xr = yr = 0 and loads nothing.
-template <int G>
 __device__ __forceinline__ bool merge_step(Merge& m, int k, unsigned gmask) {
-  const int vx = m.xr < G ? m.xr : G;
-  const int vy = m.yr < G ? m.yr : G;
-  const int32_t xmax = __shfl_sync(kFull, m.wxl, vx - 1, G);
-  const int32_t ymax = __shfl_sync(kFull, m.wyl, vy - 1, G);
+  const int vx = m.xr < kGroup ? m.xr : kGroup;
+  const int vy = m.yr < kGroup ? m.yr : kGroup;
+  const int32_t xmax = __shfl_sync(kFull, m.wxl, vx - 1, kGroup);
+  const int32_t ymax = __shfl_sync(kFull, m.wyl, vy - 1, kGroup);
   // p: the first y of the window whose last is >= this lane's x start
   int p = 0;
 #pragma unroll
-  for (int step = G / 2; step >= 1; step >>= 1) {
+  for (int step = kGroup / 2; step >= 1; step >>= 1) {
     const int q = p + step - 1;
-    const int32_t lq = __shfl_sync(kFull, m.wyl, q, G);
+    const int32_t lq = __shfl_sync(kFull, m.wyl, q, kGroup);
     if (q < vy && lq < m.wxs) p += step;
   }
-  const int32_t lp = __shfl_sync(kFull, m.wyl, p, G);
-  const int32_t sp = __shfl_sync(kFull, m.wys, p, G);
+  const int32_t lp = __shfl_sync(kFull, m.wyl, p, kGroup);
+  const int32_t sp = __shfl_sync(kFull, m.wys, p, kGroup);
   const bool lane_hit = k < vx && p < vy && lp >= m.wxs && sp <= m.wxl;
   const bool hit = (__ballot_sync(kFull, lane_hit) & gmask) != 0;
   if (xmax <= ymax) {
-    m.xr -= G;
-    m.pxs += G;
-    m.pxl += G;
+    m.xr -= kGroup;
+    m.pxs += kGroup;
+    m.pxl += kGroup;
     if (k < m.xr) {
       m.wxs = __ldg(m.pxs);
       m.wxl = __ldg(m.pxl);
     }
   } else {
-    m.yr -= G;
-    m.pys += G;
-    m.pyl += G;
+    m.yr -= kGroup;
+    m.pys += kGroup;
+    m.pyl += kGroup;
     if (k < m.yr) {
       m.wys = __ldg(m.pys);
       m.wyl = __ldg(m.pyl);
@@ -236,17 +213,24 @@ __device__ __forceinline__ bool merge_step(Merge& m, int k, unsigned gmask) {
   return hit;
 }
 
-// The verdict of one pair row (B1: TRUE_NEG / TRUE_HIT / INDECISIVE; B4,
-// kTri false: 1 if A(x) meets A(y), else 0) by the group of G lanes of this
-// lane. Every lane of the warp calls it; ``live`` is uniform in a group.
-template <int G, bool kSkip, bool kTri>
-__device__ int group_verdict(const Lists& xa, const Lists& xf,
-                             const Lists& ya, const Lists& yf, bool live,
-                             int64_t r, int64_t s) {
-  const int k = static_cast<int>(threadIdx.x & (G - 1));
-  const unsigned gmask = group_mask<G>(static_cast<int>(threadIdx.x & 31));
+// The verdict of pair row ``row`` < n (B1: TRUE_NEG / TRUE_HIT /
+// INDECISIVE; B4, kTri false: 1 if A(x) meets A(y), else 0) by the group of
+// G lanes of this thread, which writes it from the group's first lane.
+// Every lane of the warp runs the loop until the warp's last group is done.
+template <bool kTri, typename Out>
+__device__ __forceinline__ void join_rows(
+    const Lists& xa, const Lists& xf, const Lists& ya, const Lists& yf,
+    const int64_t* __restrict__ ri, const int64_t* __restrict__ si, int64_t n,
+    Out* __restrict__ out) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const int k = lane & (kGroup - 1);
+  const unsigned gmask = ((1u << kGroup) - 1u) << (lane & ~(kGroup - 1));
+  const int64_t row =
+      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kGroup;
+  const bool live = row < n;
   Merge m{};
   if (live) {
+    const int64_t r = ri[row], s = si[row];
     m.xa0 = xa.off[r];
     m.nxa = static_cast<int>(xa.off[r + 1] - m.xa0);
     m.ya0 = ya.off[s];
@@ -263,10 +247,10 @@ __device__ int group_verdict(const Lists& xa, const Lists& xf,
   bool fresh = live;
   while (__any_sync(kFull, phase != kDone)) {
     if (__any_sync(kFull, fresh)) {
-      begin_join<G, kSkip>(m, phase, fresh, k, gmask, xa, xf, ya, yf);
+      begin_join(m, phase, fresh, k, gmask, xa, xf, ya, yf);
       fresh = false;
     }
-    const bool hit = merge_step<G>(m, k, gmask);
+    const bool hit = merge_step(m, k, gmask);
     if (phase != kDone && (hit || m.xr <= 0 || m.yr <= 0)) {
       phase = next_phase<kTri>(phase, hit, verdict);
       fresh = phase != kDone;
@@ -276,183 +260,24 @@ __device__ int group_verdict(const Lists& xa, const Lists& xf,
       }
     }
   }
-  return verdict;
+  if (live && k == 0) out[row] = static_cast<Out>(verdict);
 }
 
-// The rows of one launch: G lanes a row (G 8, 16 or 32), or with G == 0
-// the adaptive variant: 8 lanes a row, then the warp's rows wider than
-// kWide one at a time at 32.
-template <int G, bool kSkip, bool kTri, typename Out>
-__device__ __forceinline__ void join_rows(
-    const Lists& xa, const Lists& xf, const Lists& ya, const Lists& yf,
-    const int64_t* __restrict__ ri, const int64_t* __restrict__ si, int64_t n,
-    Out* __restrict__ out) {
-  constexpr int kG = G == 0 ? 8 : G;
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kG;
-  const bool in = row < n;
-  const int64_t r = in ? ri[row] : 0;
-  const int64_t s = in ? si[row] : 0;
-  bool wide = false;
-  if constexpr (G == 0) {
-    wide = in && (xa.off[r + 1] - xa.off[r]) + (ya.off[s + 1] - ya.off[s]) >
-                     kWide;
-  }
-  const int v = group_verdict<kG, kSkip, kTri>(xa, xf, ya, yf, in && !wide,
-                                               r, s);
-  if (in && !wide && (lane & (kG - 1)) == 0) out[row] = static_cast<Out>(v);
-  if constexpr (G == 0) {
-    unsigned todo = __ballot_sync(kFull, wide && (lane & 7) == 0);
-    while (todo) {
-      const int src = __ffs(todo) - 1;
-      todo &= todo - 1;
-      const int64_t wr = __shfl_sync(kFull, r, src);
-      const int64_t ws = __shfl_sync(kFull, s, src);
-      const int w = group_verdict<32, kSkip, kTri>(xa, xf, ya, yf, true, wr,
-                                                   ws);
-      if (lane == 0) {
-        out[row - (lane >> 3) + (src >> 3)] = static_cast<Out>(w);
-      }
-    }
-  }
-}
-
-template <int G, bool kSkip>
 __global__ void __launch_bounds__(kThreads) april_trichotomy_kernel(
     Lists xa, Lists xf, Lists ya, Lists yf, const int64_t* __restrict__ ri,
     const int64_t* __restrict__ si, int64_t n, int8_t* __restrict__ out) {
-  join_rows<G, kSkip, true>(xa, xf, ya, yf, ri, si, n, out);
+  join_rows<true>(xa, xf, ya, yf, ri, si, n, out);
 }
 
-template <int G, bool kSkip>
 __global__ void __launch_bounds__(kThreads) interval_overlap_kernel(
     Lists x, Lists y, const int64_t* __restrict__ xi,
     const int64_t* __restrict__ yi, int64_t n, uint8_t* __restrict__ out) {
-  join_rows<G, kSkip, false>(x, x, y, y, xi, yi, n, out);
+  join_rows<false>(x, x, y, y, xi, yi, n, out);
 }
 
-// ---------------------------------------------------------------------------
-// The earlier design, kept as the measured baseline: one thread a pair row,
-// the paper's two-pointer merge (Algorithm 2) over scattered loads.
-// ---------------------------------------------------------------------------
-
-__device__ __forceinline__ bool any_overlap(
-    const int32_t* __restrict__ xs, const int32_t* __restrict__ xl, int64_t nx,
-    const int32_t* __restrict__ ys, const int32_t* __restrict__ yl, int64_t ny) {
-  int64_t i = 0, j = 0;
-  while (i < nx && j < ny) {
-    const int32_t a_last = xl[i];
-    const int32_t b_last = yl[j];
-    if (ys[j] <= a_last && xs[i] <= b_last) return true;
-    if (a_last <= b_last) {
-      ++i;
-    } else {
-      ++j;
-    }
-  }
-  return false;
-}
-
-__device__ __forceinline__ bool row_overlaps(const Lists& x, int64_t r,
-                                             const Lists& y, int64_t s) {
-  const int64_t x0 = x.off[r], nx = x.off[r + 1] - x0;
-  const int64_t y0 = y.off[s], ny = y.off[s + 1] - y0;
-  return any_overlap(x.starts + x0, x.lasts + x0, nx,
-                     y.starts + y0, y.lasts + y0, ny);
-}
-
-template <bool kTri, typename Out>
-__global__ void rowwise_kernel(Lists xa, Lists xf, Lists ya, Lists yf,
-                               const int64_t* __restrict__ ri,
-                               const int64_t* __restrict__ si, int64_t n,
-                               Out* __restrict__ out) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const int64_t r = ri[row];
-  const int64_t s = si[row];
-  int verdict = 0;
-  if (row_overlaps(xa, r, ya, s)) {
-    verdict = !kTri ? 1
-              : (row_overlaps(xa, r, yf, s) || row_overlaps(xf, r, ya, s))
-                  ? kTrueHit
-                  : kIndecisive;
-  }
-  out[row] = static_cast<Out>(verdict);
-}
-
-template <int G, bool kSkip, bool kTri, typename Out>
-void launch_groups(const Lists& xa, const Lists& xf, const Lists& ya,
-                   const Lists& yf, const int64_t* ri, const int64_t* si,
-                   int64_t n, Out* out, cudaStream_t stream) {
-  constexpr int64_t kRows = kThreads / (G == 0 ? 8 : G);
-  const auto blocks = static_cast<unsigned int>((n + kRows - 1) / kRows);
-  if constexpr (kTri) {
-    april_trichotomy_kernel<G, kSkip>
-        <<<blocks, kThreads, 0, stream>>>(xa, xf, ya, yf, ri, si, n, out);
-  } else {
-    interval_overlap_kernel<G, kSkip>
-        <<<blocks, kThreads, 0, stream>>>(xa, ya, ri, si, n, out);
-  }
-}
-
-// group: 1 (the thread-a-row baseline), 8, 16, 32, or 0 (adaptive); skip:
-// the sampled skip at each join's start. Returns false for any other group.
-template <bool kTri, typename Out>
-bool launch(int group, bool skip, const Lists& xa, const Lists& xf,
-            const Lists& ya, const Lists& yf, const int64_t* ri,
-            const int64_t* si, int64_t n, Out* out, cudaStream_t stream) {
-  if (group == 1) {
-    rowwise_kernel<kTri, Out>
-        <<<static_cast<unsigned int>((n + kThreads - 1) / kThreads), kThreads,
-           0, stream>>>(xa, xf, ya, yf, ri, si, n, out);
-    return true;
-  }
-#define REPRO_GROUP(G)                                                       \
-  if (group == G) {                                                          \
-    if (skip) {                                                              \
-      launch_groups<G, true, kTri>(xa, xf, ya, yf, ri, si, n, out, stream);  \
-    } else {                                                                 \
-      launch_groups<G, false, kTri>(xa, xf, ya, yf, ri, si, n, out, stream); \
-    }                                                                        \
-    return true;                                                             \
-  }
-  REPRO_GROUP(0)
-  REPRO_GROUP(8)
-  REPRO_GROUP(16)
-  REPRO_GROUP(32)
-#undef REPRO_GROUP
-  return false;
-}
-
-int trichotomy(int group, bool skip, const int64_t* xa_off,
-               const int32_t* xa_s, const int32_t* xa_l,
-               const int64_t* xf_off, const int32_t* xf_s,
-               const int32_t* xf_l, const int64_t* ya_off,
-               const int32_t* ya_s, const int32_t* ya_l,
-               const int64_t* yf_off, const int32_t* yf_s,
-               const int32_t* yf_l, const int64_t* ri, const int64_t* si,
-               int64_t n, int8_t* out, void* stream) {
-  if (n > 0 &&
-      !launch<true>(group, skip, Lists{xa_off, xa_s, xa_l},
-                    Lists{xf_off, xf_s, xf_l}, Lists{ya_off, ya_s, ya_l},
-                    Lists{yf_off, yf_s, yf_l}, ri, si, n, out,
-                    static_cast<cudaStream_t>(stream))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-int overlap(int group, bool skip, const int64_t* x_off, const int32_t* x_s,
-            const int32_t* x_l, const int64_t* y_off, const int32_t* y_s,
-            const int32_t* y_l, const int64_t* xi, const int64_t* yi,
-            int64_t n, uint8_t* out, void* stream) {
-  const Lists x{x_off, x_s, x_l}, y{y_off, y_s, y_l};
-  if (n > 0 && !launch<false>(group, skip, x, x, y, y, xi, yi, n, out,
-                              static_cast<cudaStream_t>(stream))) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
+unsigned int blocks_for(int64_t n) {
+  constexpr int64_t kRows = kThreads / kGroup;
+  return static_cast<unsigned int>((n + kRows - 1) / kRows);
 }
 
 }  // namespace
@@ -464,9 +289,13 @@ extern "C" int april_trichotomy_launch(
     const int64_t* yf_off, const int32_t* yf_s, const int32_t* yf_l,
     const int64_t* ri, const int64_t* si, int64_t n, int8_t* out,
     void* stream) {
-  return trichotomy(kDefaultGroup, true, xa_off, xa_s, xa_l, xf_off,
-                    xf_s, xf_l, ya_off, ya_s, ya_l, yf_off, yf_s, yf_l, ri,
-                    si, n, out, stream);
+  if (n > 0) {
+    april_trichotomy_kernel<<<blocks_for(n), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        Lists{xa_off, xa_s, xa_l}, Lists{xf_off, xf_s, xf_l},
+        Lists{ya_off, ya_s, ya_l}, Lists{yf_off, yf_s, yf_l}, ri, si, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int interval_overlap_launch(
@@ -474,27 +303,10 @@ extern "C" int interval_overlap_launch(
     const int64_t* y_off, const int32_t* y_s, const int32_t* y_l,
     const int64_t* xi, const int64_t* yi, int64_t n, uint8_t* out,
     void* stream) {
-  return overlap(kDefaultGroup, true, x_off, x_s, x_l, y_off, y_s,
-                 y_l, xi, yi, n, out, stream);
-}
-
-extern "C" int april_trichotomy_variant_launch(
-    int group, int skip, const int64_t* xa_off, const int32_t* xa_s,
-    const int32_t* xa_l, const int64_t* xf_off, const int32_t* xf_s,
-    const int32_t* xf_l, const int64_t* ya_off, const int32_t* ya_s,
-    const int32_t* ya_l, const int64_t* yf_off, const int32_t* yf_s,
-    const int32_t* yf_l, const int64_t* ri, const int64_t* si, int64_t n,
-    int8_t* out, void* stream) {
-  return trichotomy(group, skip != 0, xa_off, xa_s, xa_l, xf_off, xf_s,
-                    xf_l, ya_off, ya_s, ya_l, yf_off, yf_s, yf_l, ri, si, n,
-                    out, stream);
-}
-
-extern "C" int interval_overlap_variant_launch(
-    int group, int skip, const int64_t* x_off, const int32_t* x_s,
-    const int32_t* x_l, const int64_t* y_off, const int32_t* y_s,
-    const int32_t* y_l, const int64_t* xi, const int64_t* yi, int64_t n,
-    uint8_t* out, void* stream) {
-  return overlap(group, skip != 0, x_off, x_s, x_l, y_off, y_s, y_l, xi, yi,
-                 n, out, stream);
+  if (n > 0) {
+    interval_overlap_kernel<<<blocks_for(n), kThreads, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+        Lists{x_off, x_s, x_l}, Lists{y_off, y_s, y_l}, xi, yi, n, out);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -5,10 +5,6 @@ it runs the plain PyTorch version (``ref.py``); on a CUDA device it
 launches the kernel on the current stream, or raises. There is no fallback
 from one to the other. Each wrapper counts its kernel launches in its
 ``launches`` attribute.
-
-The ``*_variant`` functions launch one of the kernel's other designs
-(``VARIANTS``) on CUDA tensors only, for timing them beside the filter's
-own; they count nothing.
 """
 from __future__ import annotations
 
@@ -20,18 +16,9 @@ from .._build import load
 from .ref import (CSRLists, april_trichotomy_plain,
                   interval_overlap_plain)
 
-__all__ = ["april_trichotomy", "interval_overlap", "VARIANTS",
-           "april_trichotomy_variant", "interval_overlap_variant"]
+__all__ = ["april_trichotomy", "interval_overlap"]
 
 _P = ctypes.c_void_p
-_I = ctypes.c_int
-
-#: the kernels' designs by name: (lanes a pair row, G; the sampled skip at
-#: each join's start). "row" is the thread-a-row two-pointer merge;
-#: "adaptive" takes 8 lanes a row, and rows of more than 256 A intervals
-#: over a whole warp. The wrappers run "g8".
-VARIANTS = {"row": (1, 0), "g8": (8, 1), "g16": (16, 1), "g32": (32, 1),
-            "g8-noskip": (8, 0), "adaptive": (0, 1)}
 
 
 def _lib() -> ctypes.CDLL:
@@ -43,12 +30,6 @@ def _lib() -> ctypes.CDLL:
         lib.interval_overlap_launch.argtypes = (
             [_P] * 6 + [_P, _P, ctypes.c_int64, _P, _P])
         lib.interval_overlap_launch.restype = ctypes.c_int
-        lib.april_trichotomy_variant_launch.argtypes = (
-            [_I, _I] + [_P] * 12 + [_P, _P, ctypes.c_int64, _P, _P])
-        lib.april_trichotomy_variant_launch.restype = ctypes.c_int
-        lib.interval_overlap_variant_launch.argtypes = (
-            [_I, _I] + [_P] * 6 + [_P, _P, ctypes.c_int64, _P, _P])
-        lib.interval_overlap_variant_launch.restype = ctypes.c_int
     return lib
 
 
@@ -98,7 +79,12 @@ def _raise_on(rc: int, name: str) -> None:
                            f"(cudaError {rc})")
 
 
-def _check_trichotomy(xa, xf, ya, yf, ri, si) -> None:
+def april_trichotomy(xa: CSRLists, xf: CSRLists, ya: CSRLists,
+                     yf: CSRLists, ri: torch.Tensor,
+                     si: torch.Tensor) -> torch.Tensor:
+    """[N] int8 APRIL verdicts (0 TRUE_NEG / 1 TRUE_HIT / 2 INDECISIVE) of
+    pair rows (ri[n], si[n]): A(r) x A(s) empty -> 0, else A(r) x F(s) or
+    F(r) x A(s) overlapping -> 1, else 2."""
     dev = ri.device
     for name, L in (("xa", xa), ("xf", xf), ("ya", ya), ("yf", yf)):
         _check_lists(name, L, dev)
@@ -108,50 +94,19 @@ def _check_trichotomy(xa, xf, ya, yf, ri, si) -> None:
         raise ValueError("A and F lists of one side must have equal rows")
     if ri.shape != si.shape:
         raise ValueError("ri and si must have the same length")
-
-
-def _check_overlap(x, y, xi, yi) -> None:
-    _check_lists("x", x, xi.device)
-    _check_lists("y", y, xi.device)
-    _check_rows(xi, x, "xi")
-    _check_rows(yi, y, "yi")
-    if xi.shape != yi.shape:
-        raise ValueError("xi and yi must have the same length")
-
-
-def _launch(entry: str, head: list, lists, xi: torch.Tensor,
-            yi: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """Launch ``entry`` over rows (xi, yi) of ``lists`` on the current
-    stream: ``head`` (the variant's arguments), every list's pointers, the
-    rows, their count and the output."""
-    dev = xi.device
-    name = entry.removesuffix("_launch")
-    _cuda_device(dev, name)
-    n = xi.numel()
-    out = torch.empty(n, dtype=dtype, device=dev)
+    if dev.type == "cpu":
+        return april_trichotomy_plain(xa, xf, ya, yf, ri, si)
+    _cuda_device(dev, "april_trichotomy")
+    n = ri.numel()
+    out = torch.empty(n, dtype=torch.int8, device=dev)
     if n == 0:
         return out
-    ptrs = [t.data_ptr() for L in lists for t in L]
-    rc = getattr(_lib(), entry)(
-        *head, *ptrs, xi.data_ptr(), yi.data_ptr(), n, out.data_ptr(),
+    ptrs = [t.data_ptr() for L in (xa, xf, ya, yf) for t in L]
+    rc = _lib().april_trichotomy_launch(
+        *ptrs, ri.data_ptr(), si.data_ptr(), n, out.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
-    _raise_on(rc, name)
-    return out
-
-
-def april_trichotomy(xa: CSRLists, xf: CSRLists, ya: CSRLists,
-                     yf: CSRLists, ri: torch.Tensor,
-                     si: torch.Tensor) -> torch.Tensor:
-    """[N] int8 APRIL verdicts (0 TRUE_NEG / 1 TRUE_HIT / 2 INDECISIVE) of
-    pair rows (ri[n], si[n]): A(r) x A(s) empty -> 0, else A(r) x F(s) or
-    F(r) x A(s) overlapping -> 1, else 2."""
-    _check_trichotomy(xa, xf, ya, yf, ri, si)
-    if ri.device.type == "cpu":
-        return april_trichotomy_plain(xa, xf, ya, yf, ri, si)
-    out = _launch("april_trichotomy_launch", [], (xa, xf, ya, yf), ri, si,
-                  torch.int8)
-    if out.numel():
-        april_trichotomy.launches += 1
+    _raise_on(rc, "april_trichotomy")
+    april_trichotomy.launches += 1
     return out
 
 
@@ -161,33 +116,27 @@ april_trichotomy.launches = 0
 def interval_overlap(x: CSRLists, y: CSRLists, xi: torch.Tensor,
                      yi: torch.Tensor) -> torch.Tensor:
     """[N] bool: does list ``xi[n]`` of X overlap list ``yi[n]`` of Y?"""
-    _check_overlap(x, y, xi, yi)
-    if xi.device.type == "cpu":
+    dev = xi.device
+    _check_lists("x", x, dev)
+    _check_lists("y", y, dev)
+    _check_rows(xi, x, "xi")
+    _check_rows(yi, y, "yi")
+    if xi.shape != yi.shape:
+        raise ValueError("xi and yi must have the same length")
+    if dev.type == "cpu":
         return interval_overlap_plain(x, y, xi, yi)
-    out = _launch("interval_overlap_launch", [], (x, y), xi, yi, torch.bool)
-    if out.numel():
-        interval_overlap.launches += 1
+    _cuda_device(dev, "interval_overlap")
+    n = xi.numel()
+    out = torch.empty(n, dtype=torch.bool, device=dev)
+    if n == 0:
+        return out
+    ptrs = [t.data_ptr() for L in (x, y) for t in L]
+    rc = _lib().interval_overlap_launch(
+        *ptrs, xi.data_ptr(), yi.data_ptr(), n, out.data_ptr(),
+        torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(rc, "interval_overlap")
+    interval_overlap.launches += 1
     return out
 
 
 interval_overlap.launches = 0
-
-
-def april_trichotomy_variant(variant: str, xa: CSRLists, xf: CSRLists,
-                             ya: CSRLists, yf: CSRLists, ri: torch.Tensor,
-                             si: torch.Tensor) -> torch.Tensor:
-    """:func:`april_trichotomy` by the kernel design ``VARIANTS[variant]``,
-    on CUDA tensors only."""
-    _check_trichotomy(xa, xf, ya, yf, ri, si)
-    return _launch("april_trichotomy_variant_launch", list(VARIANTS[variant]),
-                   (xa, xf, ya, yf), ri, si, torch.int8)
-
-
-def interval_overlap_variant(variant: str, x: CSRLists, y: CSRLists,
-                             xi: torch.Tensor,
-                             yi: torch.Tensor) -> torch.Tensor:
-    """:func:`interval_overlap` by the kernel design ``VARIANTS[variant]``,
-    on CUDA tensors only."""
-    _check_overlap(x, y, xi, yi)
-    return _launch("interval_overlap_variant_launch", list(VARIANTS[variant]),
-                   (x, y), xi, yi, torch.bool)

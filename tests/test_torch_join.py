@@ -22,8 +22,7 @@ from repro_torch.kernels.interval_join import (  # noqa: E402
     CSRLists, april_trichotomy, april_trichotomy_plain, interval_overlap,
     interval_overlap_plain)
 from repro_torch.kernels.interval_join.cases import (  # noqa: E402
-    CASES, GROUPS, SPECIAL_WIDTHS, U32_TOP, draw_pair_rows)
-from repro_torch.kernels.interval_join.ops import VARIANTS  # noqa: E402
+    CASES, SPECIAL_WIDTHS, U32_TOP, WINDOW_SPANS, draw_pair_rows)
 
 ORDERS = [("AA", "AF", "FA"), ("FA", "AA", "AF"), ("AF", "FA", "AA"),
           ("AA", "AF"), ("AA", "FA"), ("AA",)]
@@ -135,11 +134,12 @@ def test_tiling_edge_cases_match_pallas(case):
         assert verdicts[:rows].all()             # they meet at one id
 
 
-@pytest.mark.parametrize("group", GROUPS)
-def test_group_boundary_widths_match_pallas(group):
-    """Lists of G - 1, G, G + 1 and 2G + 1 intervals, every case."""
-    widths = (group - 1, group, group + 1, 2 * group + 1)
-    d, ref, port, own = _drawn(41 + group, 56, widths=widths)
+@pytest.mark.parametrize("span", WINDOW_SPANS)
+def test_group_boundary_widths_match_pallas(span):
+    """Lists of W - 1, W, W + 1 and 2W + 1 intervals for a span W of one,
+    two or four windows, every case."""
+    widths = (span - 1, span, span + 1, 2 * span + 1)
+    d, ref, port, own = _drawn(41 + span, 56, widths=widths)
     _pallas_equals_plain(ref, port, own, own)
     w = np.diff(d["xa"][0])
     assert set(widths) <= set(w.tolist()) | {0}
@@ -361,24 +361,20 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("variant", list(VARIANTS))
 @pytest.mark.parametrize("case", CASES)
-def test_cuda_kernels_equal_plain_versions_at_tiling_edges(cuda_device, case,
-                                                          variant):
-    """Every design of the kernels equals the plain versions on the rows
-    the CPU tests hold to the Pallas kernels."""
-    from repro_torch.kernels.interval_join.ops import (
-        april_trichotomy_variant, interval_overlap_variant)
+def test_cuda_kernels_equal_plain_versions_at_tiling_edges(cuda_device, case):
+    """The kernels equal the plain versions on the rows the CPU tests hold
+    to the Pallas kernels."""
     d = draw_pair_rows(31 + CASES.index(case), 480, cases=(case,))
     L = {k: CSRLists(*(torch.from_numpy(a).to(cuda_device) for a in d[k]))
          for k in ("xa", "xf", "ya", "yf")}
     own = torch.arange(480, device=cuda_device)
     tri = (L["xa"], L["xf"], L["ya"], L["yf"])
-    assert torch.equal(april_trichotomy_variant(variant, *tri, own, own),
+    assert torch.equal(april_trichotomy(*tri, own, own),
                        april_trichotomy_plain(*tri, own, own))
     for x, y in (("xa", "ya"), ("xa", "yf"), ("xf", "ya")):
         assert torch.equal(
-            interval_overlap_variant(variant, L[x], L[y], own, own),
+            interval_overlap(L[x], L[y], own, own),
             interval_overlap_plain(L[x], L[y], own, own))
 
 
