@@ -17,11 +17,14 @@ reference package. Phases, any failure exits non-zero:
    1, W - 1, W, W + 1, 2W + 1 for W 8, 16 and 32, 300 and 600, touching
    ends, lists at INT32_MIN and INT32_MAX, empty lists, F inside and
    outside A), paired as drawn and shuffled, and with an empty F store on
-   either side; the compaction (scan) kernel against its
-   plain version and the stable-argsort oracle, ``perm`` and ``count``
-   exactly, on lanes of 0, 1, 257 and 4096 rows, all-true and all-false
-   lanes, a random lane longer than 2^21 and the main path's INDECISIVE
-   lane;
+   either side; the compaction (scan) kernel, one cooperative launch a
+   call, against its plain version and the stable-argsort oracle,
+   ``perm`` and ``count`` exactly, on lanes of 0, 1, 257 and 4096 rows,
+   all-true and all-false lanes, a random lane longer than 2^21, the
+   lanes at its tiling's edges (``compact.cases``: 0, 1, 1023, 1024 and
+   1025 rows set all, none, first, last or alternating, and 2^23 + 17
+   rows, more tiles than one sweep of the resident grid) and the main
+   path's INDECISIVE lane;
 4. the main path, ``JoinPlan(R, S, filter="april", n_order=12)
    .build().execute("intersects")`` on the card with both backends
    ``"cuda"``: staged, once with the default join order and once with the
@@ -49,7 +52,14 @@ reference package. Phases, any failure exits non-zero:
    (``ri_trichotomy``) held exactly against its plain version on a random
    code-stream sweep (the stores' code bits replaced by random bits of
    three densities, re-encoding off and on, over the candidate frame and
-   65,536 random rows); then the join staged, fused with ``mbr_backend``
+   65,536 random rows) and on pair rows drawn at its window merge's edges
+   (``ri_and.cases``: lists of G - 1, G, G + 1 and 2G intervals, fragments
+   at every bit phase about one, two and three words long, 165-word
+   fragments hit only in their last word, a hit only in the last fragment
+   of a merge, lists the sampled skip cuts, ends at INT32_MIN and
+   INT32_MAX, empty lists; re-encoding off and on, paired as drawn and
+   shuffled; as drawn also against the verdicts the codes were made to
+   give); then the join staged, fused with ``mbr_backend``
    ``"numpy"`` and fused with ``"torch"``, launch counts reset before and
    read after each run. The staged run's verdicts, replayed by the kernel
    on the frame it recorded (``ri.record_frames``), equal the plain
@@ -67,11 +77,16 @@ reference package. Phases, any failure exits non-zero:
    that size;
 7. the staged APRIL runs, the fused APRIL run and the staged RI run once
    more under ``torch.profiler``: device time per kernel and the device
-   busy share of the host wall time (the RI kernel must show launches);
+   busy share of the host wall time (the RI kernel must show launches,
+   the fused run one launch of the one compaction kernel);
 8. each kernel timed at the main path's shapes with CUDA events beside
    its plain version and, for the scan, the library calls that compute the
    same function (a stable ``torch.argsort`` and a sum, ``library_ms``)
-   and the scan alone (``torch.cumsum``, printed beside it); the edge
+   and the scan alone (``torch.cumsum``, printed beside it), the kernel
+   and the library calls also on the device alone (``device_ms``,
+   ``library_device_ms``); the RI kernel on the staged run's frame on the
+   device alone, on its TRUE_NEG, TRUE_HIT and INDECISIVE rows apart
+   (printed), and on the fused torch-MBR run's frame; the edge
    sweep on the one call of the default staged run, also on the device
    alone, its byte bound from the CSR (16 bytes a kept edge, 16 a row of
    offsets, 2 a row of lanes); the interval joins on the device alone
@@ -148,9 +163,9 @@ COMPARE_ROWS = 65536
 REPS = 5
 #: the port's own kernels, by the names the profiler's trace gives them
 PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
-                "edges_intersect_kernel", "tile_counts_kernel",
-                "scan_sums_kernel", "scatter_kernel", "ri_trichotomy_kernel",
-                "april_attention_kernel", "april_attention_tc_kernel")
+                "edges_intersect_kernel", "compact_mask_kernel",
+                "ri_trichotomy_kernel", "april_attention_kernel",
+                "april_attention_tc_kernel")
 #: profiler sessions taken before a kernel that a trace must name counts
 #: as absent (``_profile_showing``)
 PROFILE_TRIES = 5
@@ -161,6 +176,10 @@ JOIN_SWEEP_SEED = 17
 #: random rows and code-bit densities of the RI kernel's stream sweep
 RI_SWEEP_ROWS = 65536
 RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
+#: pair rows and seed of the RI kernel's sweep at its window merge's edges
+#: (``kernels.ri_and.cases``), each re-encoding
+RI_CASE_ROWS = 16384
+RI_CASE_SEED = 19
 #: the host filters run at the main path's counts over this (DATASET_SPECS
 #: has T1 1200 and T2 4000, a third of the smoke's 3600 x 12000)
 HOST_SCALE = 3
@@ -433,6 +452,48 @@ def _ri_sweep(X, Y, rows_list, dev) -> int:
     return n
 
 
+def _ri_case_sweep(dev) -> str:
+    """The RI kernel against its plain version, exactly, on the pair rows
+    ``kernels.ri_and.cases`` draws at the window merge's edges
+    (``RI_CASE_ROWS``, re-encoding off and on, paired as drawn and
+    shuffled), and as drawn against the verdicts the codes were made to
+    give. Returns a printable line."""
+    import torch
+    from repro_torch.kernels.ri_and import ri_trichotomy, ri_trichotomy_plain
+    from repro_torch.kernels.ri_and.cases import (CASES, draw_ri_rows,
+                                                  store_tensors)
+    n = RI_CASE_ROWS
+    own = torch.arange(n, device=dev)
+    shuffled = torch.from_numpy(np.random.default_rng(RI_CASE_SEED)
+                                .permutation(n)).to(dev)
+    mix, t_draw = {}, 0.0
+    for xor_y in (False, True):
+        t0 = time.perf_counter()
+        d = draw_ri_rows(RI_CASE_SEED, n, xor_y)
+        t_draw += time.perf_counter() - t0
+        x, y = (store_tensors(d[k], dev) for k in "xy")
+        for pairing, si in (("own", own), ("shuffled", shuffled)):
+            got = ri_trichotomy(x, y, own, si, xor_y)
+            want = ri_trichotomy_plain(x, y, own, si, xor_y)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                bad = (got != want).nonzero().flatten()[:8].tolist()
+                raise AssertionError(
+                    f"ri_trichotomy kernel != plain version on the edge "
+                    f"cases, xor_y={xor_y}, {pairing} pairs: rows {bad}")
+            if pairing == "own" and not np.array_equal(got.cpu().numpy(),
+                                                       d["verdict"]):
+                raise AssertionError(f"ri_trichotomy kernel != the drawn "
+                                     f"verdicts, xor_y={xor_y}")
+            mix[f"xor_y {xor_y}, {pairing}"] = torch.bincount(
+                want.long(), minlength=3).tolist()
+    return (f"RI edge-case sweep: {n} pair rows drawn twice in {t_draw:.1f} "
+            f"s from cases {list(CASES)} (seed {RI_CASE_SEED}); ri_trichotomy "
+            f"kernel == plain version, as drawn == the drawn verdicts; "
+            f"tolerance: exact; TRUE_NEG/TRUE_HIT/INDECISIVE "
+            f"{json.dumps(mix)}")
+
+
 def _interval_join_sweep(dev) -> list:
     """B1 and B4 against their plain versions, exactly, on the lists that
     ``kernels.interval_join.cases`` draws at the window tiling's edges
@@ -548,6 +609,66 @@ def _interval_join_times(tri, frame, survivors, torch_frame) -> dict:
             "bound_ms_degenerate_order": bound_ms((xa, ya), frame)
             + bound_ms((xa, yf), survivors)},
     }
+
+
+def _design_times(indec_mask, ri_frame, p_ri) -> dict:
+    """PROBE ONLY (deleted once timed): B3's and B5's designs, each held
+    exactly to the plain version, on the device alone beside the shipped
+    one, in turns (forward, then reverse)."""
+    import torch
+    from repro_torch.core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
+    from repro_torch.kernels.compact import compact_mask, compact_mask_plain
+    from repro_torch.kernels.compact.ops import compact_mask_variant
+    from repro_torch.kernels.ri_and import ri_trichotomy
+    from repro_torch.kernels.ri_and.ops import ri_trichotomy_variant
+    pp, pc = compact_mask_plain(indec_mask)
+    b3 = {"shipped: one launch, two tiles a block":
+          lambda: compact_mask(indec_mask),
+          "three launches (PR 12-17)": lambda: compact_mask_variant(
+              indec_mask, 0),
+          "one launch, one tile a block": lambda: compact_mask_variant(
+              indec_mask, 1),
+          "one launch, four rows a thread": lambda: compact_mask_variant(
+              indec_mask, 2)}
+    b5 = {"shipped: strided skip, stride 8": lambda: ri_trichotomy(*ri_frame)}
+    for v, name in ((0, "two-pointer merge a thread (PR 13-17)"),
+                    (1, "window merge G 8"), (2, "window merge G 4"),
+                    (3, "window merge G 16"), (6, "window merge G 32"),
+                    (10, "a thread a row, long fragments across the warp"),
+                    (14, "strided skip, stride 4"),
+                    (15, "strided skip, stride 16")):
+        b5[name] = lambda v=v: ri_trichotomy_variant(*ri_frame, v)
+    out = {"exclusive_scan": {}, "ri_trichotomy": {}}
+    for name, fn in b3.items():
+        kp, kc = fn()
+        torch.cuda.synchronize()
+        if not (torch.equal(kp, pp) and int(kc) == int(pc)):
+            raise AssertionError(f"B3 design {name} != plain version")
+    for name, fn in b5.items():
+        if not torch.equal(fn(), p_ri):
+            raise AssertionError(f"B5 design {name} != plain version")
+    for order in (1, -1):
+        for name, fn in list(b3.items())[::order]:
+            out["exclusive_scan"].setdefault(name, []).append(_device_ms(fn))
+        for name, fn in list(b5.items())[::order]:
+            out["ri_trichotomy"].setdefault(name, []).append(_device_ms(fn))
+    for name, fn in b3.items():
+        prof = _profile(fn)
+        out["exclusive_scan"][name].append(
+            {"profiled_device_us": prof["device_busy_us"],
+             "kernels": prof["top_device_us"]})
+    x, y, fr, fs, xor_y = ri_frame
+    for c, cname in ((TRUE_NEG, "TRUE_NEG"), (TRUE_HIT, "TRUE_HIT"),
+                     (INDECISIVE, "INDECISIVE")):
+        sel = (p_ri == c).nonzero().flatten()
+        sub = (x, y, fr[sel], fs[sel], xor_y)
+        for name, v in (("shipped: strided skip, stride 8", None),
+                        ("two-pointer merge a thread (PR 13-17)", 0),
+                        ("window merge G 8", 1)):
+            out["ri_trichotomy"][name].append({cname: _device_ms(
+                (lambda: ri_trichotomy(*sub)) if v is None
+                else (lambda v=v: ri_trichotomy_variant(*sub, v)))})
+    return out
 
 
 def _allowed_positions(S: int, kind: str, window: int) -> int:
@@ -824,9 +945,10 @@ def main() -> int:
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     from repro_torch import JoinPlan, make_dataset
     from repro_torch.core import geometry
-    from repro_torch.core.join import INDECISIVE, TRUE_NEG
+    from repro_torch.core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
     from repro_torch.kernels import _build
     from repro_torch.kernels.compact import compact_mask, compact_mask_plain
+    from repro_torch.kernels.compact import cases as compact_cases
     from repro_torch.kernels.interval_join import (
         april_trichotomy, april_trichotomy_plain, interval_overlap,
         interval_overlap_plain)
@@ -911,7 +1033,8 @@ def main() -> int:
              "n=257": rng.random(257) < 0.5, "n=4096": rng.random(4096) < 0.3,
              "all-true": np.ones(5000, bool),
              "all-false": np.zeros(5000, bool),
-             "random n=2^21+4097": rng.random((1 << 21) + 4097) < 0.37}
+             "random n=2^21+4097": rng.random((1 << 21) + 4097) < 0.37,
+             **compact_cases.lanes(long=True)}
     lanes = {k: torch.from_numpy(v).to(dev) for k, v in lanes.items()}
     lanes["main path INDECISIVE"] = indec_mask
     for name, m in lanes.items():
@@ -923,8 +1046,10 @@ def main() -> int:
                 and int(kc) == int(pc) == int(m.sum())):
             raise AssertionError(f"compact_mask kernel != plain version or "
                                  f"argsort oracle on lane {name}")
-        print(f"compact_mask lane {name}: {m.numel()} rows, count {int(kc)}"
-              " == plain == oracle", flush=True)
+    print(f"compact_mask kernel == plain version == argsort oracle (perm and "
+          f"count) on {len(lanes)} lanes: "
+          f"{json.dumps({k: m.numel() for k, m in lanes.items()})}",
+          flush=True)
     print(f"phase 3 ok: trichotomy, overlap and compaction kernels == plain "
           f"versions; {len(ri_aa)} AA survivors "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
@@ -1091,6 +1216,7 @@ def main() -> int:
     print(f"ri_trichotomy kernel == plain version on {n_swept} rows of "
           f"random code streams (densities {list(RI_SWEEP_DENSITIES)}, "
           f"xor_y off and on); tolerance: exact", flush=True)
+    print(_ri_case_sweep(dev), flush=True)
     wrappers += (ri_trichotomy,)
     for label, opts in (("ri-staged", {}),
                         ("ri-fused-numpy", {"pipeline_mode": "fused"}),
@@ -1145,6 +1271,8 @@ def main() -> int:
             _sync_checked(run, label, cs.status)
             detail = ("== staged pairs, order and counts; stages passed "
                       "set_sync_debug_mode('error')")
+            if label == "ri-fused-torch":
+                ri_torch_frame = (x, y, fr, fs, xor_y)
             del cs
         if launches[label]["ri_trichotomy"] <= 0:
             raise AssertionError(f"[{label}] ri_trichotomy never launched")
@@ -1224,6 +1352,9 @@ def main() -> int:
         if filt == "ri":
             _profile_showing(label, lambda: run.execute("intersects"),
                              "ri_trichotomy_kernel")
+        elif label == "fused-numpy":
+            _profile_showing(label, lambda: run.execute("intersects"),
+                             "compact_mask_kernel", launches=1)
         else:
             prof = _profile(lambda: run.execute("intersects"))
             print(f"profile [{label}]: {json.dumps(prof)}", flush=True)
@@ -1321,7 +1452,36 @@ def main() -> int:
     sweep_device_ms = _device_ms(lambda: edges_intersect_csr(*sw))
     extra = {"edges_intersect": {"device_ms": sweep_device_ms},
              **_interval_join_times(tri, (ri_all, si_all), (ri_aa, si_aa),
-                                    torch_frame)}
+                                    torch_frame),
+             "exclusive_scan": {
+                 "device_ms": _device_ms(lambda: compact_mask(indec_mask)),
+                 "library_device_ms": _device_ms(lambda: (
+                     torch.argsort(not_mask, stable=True),
+                     indec_mask.sum()))},
+             "ri_trichotomy": {
+                 "device_ms": _device_ms(lambda: ri_trichotomy(*ri_frame)),
+                 "ms_torch_mbr_frame": _ms(lambda: ri_trichotomy(
+                     *ri_torch_frame)),
+                 "device_ms_torch_mbr_frame": _device_ms(
+                     lambda: ri_trichotomy(*ri_torch_frame))}}
+    # B5 by the staged frame's verdict class: full merges without overlap,
+    # merges to the first hit, full merges that AND every fragment
+    by_class = {}
+    for c, name in ((TRUE_NEG, "TRUE_NEG"), (TRUE_HIT, "TRUE_HIT"),
+                    (INDECISIVE, "INDECISIVE")):
+        sel = (p_ri == c).nonzero().flatten()
+        fr_c, fs_c = ri_frame[2][sel], ri_frame[3][sel]
+        by_class[name] = {"rows": sel.numel(), "device_ms": _device_ms(
+            lambda: ri_trichotomy(ri_frame[0], ri_frame[1], fr_c, fs_c,
+                                  ri_frame[4]))}
+    print(f"designs timed (device ms alone, forward then reverse; B3 also "
+          f"its profiled device us; B5 by verdict class): "
+          f"{json.dumps(_design_times(indec_mask, ri_frame, p_ri))}",
+          flush=True)
+    print(f"ri_trichotomy by verdict class of the ri-staged frame (device "
+          f"ms of one call over that class's rows alone): "
+          f"{json.dumps(by_class)}; whole frame "
+          f"{extra['ri_trichotomy']['device_ms']}", flush=True)
     kernels = []
     for name, (source, replaces, run_label) in meta.items():
         nbytes, ops = bounds[name]

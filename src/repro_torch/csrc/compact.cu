@@ -1,46 +1,131 @@
-// Stable front-pack of a device bool lane, for Hopper (sm_90a).
+// Stable front-pack of a device bool lane, for Hopper (sm_90a), in one
+// launch.
 //
 // Replaces the TPU kernel exclusive_scan_pallas
-// (src/repro/kernels/compact/compact.py) together with the scatter of its
+// (src/repro/kernels/compact/compact.py:47) together with the scatter of its
 // wrapper compact_mask (src/repro/kernels/compact/ops.py). The TPU kernel
 // walks [8, 128] row blocks in grid order and threads the running count
 // through an SMEM cell from one block to the next; that carry relies on a
 // sequential grid, and its VMEM tile capped one launch at 2^21 rows.
 //
-// CUDA blocks run in no fixed order, so the scan here is three launches on
-// the caller's stream, with no host read in between:
-//   1. tile_counts: each block counts the set bits of its 1024-row tile
-//      (__ballot_sync + __popc per warp);
-//   2. scan_sums: one block turns the per-tile counts into exclusive tile
-//      offsets in place and writes the total, ``count``, to device memory;
-//   3. scatter: each block rebuilds the exclusive position of every row of
-//      its tile from its tile offset, the warp counts and the ballot, and
-//      writes perm[dest] = i with dest = excl for a set row and
-//      count + i - excl for a clear one. dest is a permutation of [0, n),
-//      so the scatter has no collisions.
-// Any length below 2^31 scans this way (the wrapper raises above it).
+// A stable permutation needs the total before any clear row can be placed
+// (a clear row goes to count + i - excl), so one pass over the lane needs
+// one wait across the whole grid, whatever the scan. The kernel is launched
+// cooperatively (cudaLaunchCooperativeKernel), with no more blocks than can
+// be resident on the card at once, so that every block can pass
+// cooperative_groups' grid barrier. Each block owns a contiguous range of
+// rows_per_block rows (the wrapper picks it: whole 1024-row tiles, as few
+// tiles a block as the resident grid allows), which keeps the pack stable:
+//   1. each block counts the set rows of its range and publishes the count
+//      in sums[block];
+//   2. grid barrier;
+//   3. each block sums the counts of the blocks before it and of all blocks
+//      (block 0 writes that total to ``count``), then rereads its range,
+//      which is still in L2, and rebuilds the exclusive position of every
+//      row from its running offset, the warp counts and the ballot, writing
+//      perm[dest] = i with dest = excl for a set row and count + i - excl
+//      for a clear one. dest is a permutation of [0, n), so the scatter has
+//      no collisions.
+// Any length below 2^31 packs this way (the wrapper raises above it); a long
+// lane gives each block more tiles.
 //
 // What bounds it on the H100: the function moves about 5 bytes a row (a
-// bool read, an int32 written), 3.7 MB at the join's 742,279 rows, which
-// is about 1 us at 3.35 TB/s. At that size the three launches and the
-// single-block middle pass cost more than the bytes, so it is launch-bound;
-// a single-pass decoupled look-back scan is the later fix.
+// bool read, an int32 written), 3.7 MB at the join's 742,279 rows, about
+// 1.1 us at 3.35 TB/s. At that size the launch and the grid barrier cost
+// more than the bytes. The design before this one took three launches (tile
+// counts, a one-block scan of them, the scatter): 7.26 us of device time on
+// an H100 80GB HBM3 at 700 W; PERF.md records both.
+#include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
 constexpr int kThreads = 256;                // 8 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 4;                    // sub-tiles of kThreads rows
-constexpr int kTile = kThreads * kItems;     // rows per block
-constexpr int kScanThreads = 1024;           // 32 warps
 constexpr unsigned kFull = 0xffffffffu;
+
+// Sum of v over the block; every thread gets it. ``red`` holds kWarps
+// partial sums and is free again on return.
+__device__ __forceinline__ int32_t block_sum(int32_t v, int32_t* red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  v = __reduce_add_sync(kFull, v);
+  if (lane == 0) red[warp] = v;
+  __syncthreads();
+  int32_t s = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) s += red[w];
+  __syncthreads();
+  return s;
+}
+
+__global__ void __launch_bounds__(kThreads) compact_mask_kernel(
+    const uint8_t* __restrict__ mask, int64_t n, int64_t rows_per_block,
+    int32_t* sums, int32_t* __restrict__ perm, int32_t* __restrict__ count) {
+  __shared__ int32_t red[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * rows_per_block;
+  const int64_t lo = first < n ? first : n;
+  const int64_t hi = n - lo > rows_per_block ? lo + rows_per_block : n;
+
+  // 1. this block's set rows
+  int32_t c = 0;
+  for (int64_t i = lo + threadIdx.x; i < hi; i += kThreads) c += mask[i] != 0;
+  c = block_sum(c, red);
+  if (threadIdx.x == 0) sums[blockIdx.x] = c;
+
+  // 2. every block has published its count
+  cg::this_grid().sync();
+
+  // 3. set rows before this block and in all, then the scatter
+  int32_t before = 0, total = 0;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {
+    const int32_t v = __ldcg(sums + b);   // written in this launch: not .nc
+    total += v;
+    before += b < blockIdx.x ? v : 0;
+  }
+  before = block_sum(before, red);
+  total = block_sum(total, red);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *count = total;
+  const unsigned below = (1u << lane) - 1u;
+  int32_t run = before;                 // set rows before the current sweep
+  for (int64_t base = lo; base < hi; base += kThreads) {
+    const int64_t i = base + threadIdx.x;
+    const bool set = i < hi && mask[i] != 0;
+    const unsigned bal = __ballot_sync(kFull, set);
+    if (lane == 0) red[warp] = __popc(bal);
+    __syncthreads();
+    int32_t warps_before = 0, swept = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      warps_before += w < warp ? red[w] : 0;
+      swept += red[w];
+    }
+    if (i < hi) {
+      const int32_t row = static_cast<int32_t>(i);
+      const int32_t excl = run + warps_before + __popc(bal & below);
+      perm[set ? excl : total + (row - excl)] = row;
+    }
+    run += swept;
+    __syncthreads();                    // red is rewritten next sweep
+  }
+}
+
+
+// ---------------------------------------------------------------------------
+// PROBE ONLY: the design before this one (three launches), timed beside it;
+// deleted once timed.
+// ---------------------------------------------------------------------------
+constexpr int kItems = 4;                    // sub-tiles of kThreads rows
+constexpr int kOldTile = kThreads * kItems;  // rows per block
+constexpr int kScanThreads = 1024;           // 32 warps
 
 __global__ void tile_counts_kernel(const uint8_t* __restrict__ mask, int64_t n,
                                    int32_t* __restrict__ sums) {
   __shared__ int32_t warp_sums[kWarps];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kOldTile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   int32_t c = 0;
@@ -97,7 +182,7 @@ __global__ void scatter_kernel(const uint8_t* __restrict__ mask, int64_t n,
                                const int32_t* __restrict__ count,
                                int32_t* __restrict__ perm) {
   __shared__ int32_t warp_cnt[kWarps];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kTile;
+  const int64_t base = static_cast<int64_t>(blockIdx.x) * kOldTile;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const unsigned below = (1u << lane) - 1u;
@@ -125,19 +210,91 @@ __global__ void scatter_kernel(const uint8_t* __restrict__ mask, int64_t n,
   }
 }
 
-}  // namespace
 
-// Number of tiles (and of int32 scratch slots) for a lane of n rows.
-extern "C" int64_t compact_mask_blocks(int64_t n) {
-  return (n + kTile - 1) / kTile;
+// PROBE ONLY: 4 consecutive rows a thread, a sweep of 1024 rows with one
+// block scan, the first sweep's bytes kept in registers across the barrier.
+__global__ void __launch_bounds__(kThreads) compact_mask_vec_kernel(
+    const uint8_t* __restrict__ mask, int64_t n, int64_t rows_per_block,
+    int32_t* sums, int32_t* __restrict__ perm, int32_t* __restrict__ count) {
+  constexpr int R = 4;
+  constexpr int kSweep = kThreads * R;
+  __shared__ int32_t red[kWarps];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * rows_per_block;
+  const int64_t lo = first < n ? first : n;
+  const int64_t hi = n - lo > rows_per_block ? lo + rows_per_block : n;
+  bool m0[R];
+  int32_t c = 0;
+  for (int64_t base = lo; base < hi; base += kSweep) {
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int64_t i = base + threadIdx.x * R + j;
+      const bool v = i < hi && mask[i] != 0;
+      if (base == lo) m0[j] = v;
+      c += v;
+    }
+  }
+  c = block_sum(c, red);
+  if (threadIdx.x == 0) sums[blockIdx.x] = c;
+  cg::this_grid().sync();
+  int32_t before = 0, total = 0;
+  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {
+    const int32_t v = __ldcg(sums + b);
+    total += v;
+    before += b < blockIdx.x ? v : 0;
+  }
+  before = block_sum(before, red);
+  total = block_sum(total, red);
+  if (blockIdx.x == 0 && threadIdx.x == 0) *count = total;
+  int32_t run = before;
+  for (int64_t base = lo; base < hi; base += kSweep) {
+    bool v[R];
+    int32_t mine = 0;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int64_t i = base + threadIdx.x * R + j;
+      v[j] = base == lo ? m0[j] : (i < hi && mask[i] != 0);
+      mine += v[j];
+    }
+    // exclusive scan of ``mine`` over the block
+    int32_t incl = mine;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int32_t t = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += t;
+    }
+    if (lane == 31) red[warp] = incl;
+    __syncthreads();
+    int32_t wb = 0, swept = 0;
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      wb += w < warp ? red[w] : 0;
+      swept += red[w];
+    }
+    int32_t excl = run + wb + incl - mine;
+#pragma unroll
+    for (int j = 0; j < R; ++j) {
+      const int64_t i = base + threadIdx.x * R + j;
+      if (i < hi) {
+        const int32_t row = static_cast<int32_t>(i);
+        perm[v[j] ? excl : total + (row - excl)] = row;
+        excl += v[j];
+      }
+    }
+    run += swept;
+    __syncthreads();
+  }
 }
 
-extern "C" int compact_mask_launch(const uint8_t* mask, int64_t n,
-                                   int32_t* block_sums, int32_t* perm,
-                                   int32_t* count, void* stream) {
+}  // namespace
+
+// PROBE ONLY: the three-launch design before this one.
+extern "C" int compact_mask_old_launch(const uint8_t* mask, int64_t n,
+                                       int32_t* block_sums, int32_t* perm,
+                                       int32_t* count, void* stream) {
   if (n <= 0) return 0;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t nb = compact_mask_blocks(n);
+  const int64_t nb = (n + kOldTile - 1) / kOldTile;
   const unsigned grid = static_cast<unsigned>(nb);
   tile_counts_kernel<<<grid, kThreads, 0, s>>>(mask, n, block_sums);
   cudaError_t err = cudaGetLastError();
@@ -147,4 +304,40 @@ extern "C" int compact_mask_launch(const uint8_t* mask, int64_t n,
   if (err != cudaSuccess) return static_cast<int>(err);
   scatter_kernel<<<grid, kThreads, 0, s>>>(mask, n, block_sums, count, perm);
   return static_cast<int>(cudaGetLastError());
+}
+
+// PROBE ONLY: 4 rows a thread.
+extern "C" int compact_mask_vec_launch(const uint8_t* mask, int64_t n,
+                                       int64_t rows_per_block, int grid,
+                                       int32_t* sums, int32_t* perm,
+                                       int32_t* count, void* stream) {
+  void* args[] = {&mask, &n, &rows_per_block, &sums, &perm, &count};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(compact_mask_vec_kernel), dim3(grid),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream)));
+}
+
+// The most blocks of the kernel that are resident on ``device`` at once:
+// the largest grid a cooperative launch takes. Negative on a CUDA error.
+extern "C" int compact_mask_max_blocks(int device) {
+  int sms = 0, per_sm = 0;
+  if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)
+      != cudaSuccess)
+    return -1;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &per_sm, compact_mask_kernel, kThreads, 0) != cudaSuccess)
+    return -1;
+  return sms * per_sm;
+}
+
+// One cooperative launch of ``grid`` blocks over n > 0 rows; ``sums`` holds
+// grid int32 slots of scratch. Returns the launch's cudaError.
+extern "C" int compact_mask_launch(const uint8_t* mask, int64_t n,
+                                   int64_t rows_per_block, int grid,
+                                   int32_t* sums, int32_t* perm,
+                                   int32_t* count, void* stream) {
+  void* args[] = {&mask, &n, &rows_per_block, &sums, &perm, &count};
+  return static_cast<int>(cudaLaunchCooperativeKernel(
+      reinterpret_cast<const void*>(compact_mask_kernel), dim3(grid),
+      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream)));
 }

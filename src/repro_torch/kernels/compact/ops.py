@@ -1,9 +1,10 @@
 """Wrapper of the compaction kernel (``csrc/compact.cu``).
 
 On the CPU it runs the plain PyTorch version (``ref.py``); on a CUDA
-device it launches the kernel's three passes on the current stream, or
-raises. Nothing is read back to the host: ``count`` stays on the device.
-Kernel launches are counted in ``compact_mask.launches``.
+device it makes one cooperative launch of the kernel on the current stream,
+or raises. Nothing is read back to the host: ``count`` stays on the device
+and the kernel writes it. Kernel launches are counted in
+``compact_mask.launches``.
 """
 from __future__ import annotations
 
@@ -14,23 +15,41 @@ import torch
 from .._build import load
 from .ref import compact_mask_plain
 
-__all__ = ["compact_mask", "MAX_ROWS"]
+__all__ = ["compact_mask", "MAX_ROWS", "TILE"]
 
 _P = ctypes.c_void_p
 
 #: the kernel indexes rows with int32
 MAX_ROWS = 2**31 - 1
+#: rows a block takes at a time: a block owns whole tiles
+TILE = 1024
+
+#: device index -> the most blocks resident at once (a cooperative grid)
+_MAX_BLOCKS: dict[int, int] = {}
 
 
 def _lib() -> ctypes.CDLL:
     lib = load("compact")
     if lib.compact_mask_launch.argtypes is None:
-        lib.compact_mask_blocks.argtypes = [ctypes.c_int64]
-        lib.compact_mask_blocks.restype = ctypes.c_int64
-        lib.compact_mask_launch.argtypes = [_P, ctypes.c_int64, _P, _P, _P,
-                                            _P]
+        lib.compact_mask_max_blocks.argtypes = [ctypes.c_int]
+        lib.compact_mask_max_blocks.restype = ctypes.c_int
+        lib.compact_mask_launch.argtypes = [_P, ctypes.c_int64,
+                                            ctypes.c_int64, ctypes.c_int, _P,
+                                            _P, _P, _P]
         lib.compact_mask_launch.restype = ctypes.c_int
     return lib
+
+
+def _max_blocks(lib: ctypes.CDLL, dev: torch.device) -> int:
+    idx = dev.index if dev.index is not None else torch.cuda.current_device()
+    if idx not in _MAX_BLOCKS:
+        with torch.cuda.device(idx):
+            m = lib.compact_mask_max_blocks(idx)
+        if m <= 0:
+            raise RuntimeError(f"compact_mask: no resident grid on cuda:{idx} "
+                               f"(occupancy query gave {m})")
+        _MAX_BLOCKS[idx] = m
+    return _MAX_BLOCKS[idx]
 
 
 def compact_mask(mask: torch.Tensor):
@@ -51,14 +70,19 @@ def compact_mask(mask: torch.Tensor):
                          f"version) or a CUDA device, got {dev}")
     mask = mask.contiguous()
     perm = torch.empty(n, dtype=torch.int32, device=dev)
-    count = torch.zeros((), dtype=torch.int32, device=dev)
     if n == 0:
-        return perm, count
+        return perm, torch.zeros((), dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
     lib = _lib()
-    sums = torch.empty(lib.compact_mask_blocks(n), dtype=torch.int32,
-                       device=dev)
-    rc = lib.compact_mask_launch(mask.data_ptr(), n, sums.data_ptr(),
-                                 perm.data_ptr(), count.data_ptr(),
+    # whole tiles a block, over at most half the resident grid: two tiles a
+    # block beat one at the main path's 742,279 rows (PERF.md, PR 18)
+    tiles = -(-n // TILE)
+    per_block = -(-tiles // max(1, _max_blocks(lib, dev) // 2))
+    grid = -(-tiles // per_block)
+    sums = torch.empty(grid, dtype=torch.int32, device=dev)
+    rc = lib.compact_mask_launch(mask.data_ptr(), n, per_block * TILE, grid,
+                                 sums.data_ptr(), perm.data_ptr(),
+                                 count.data_ptr(),
                                  torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"compact_mask: CUDA kernel launch failed "
@@ -68,3 +92,40 @@ def compact_mask(mask: torch.Tensor):
 
 
 compact_mask.launches = 0
+
+
+def compact_mask_variant(mask: torch.Tensor, variant: int):
+    """PROBE ONLY: 0 the three-launch design before this one, 1 the kernel
+    at one tile a block, 2 four rows a thread at the shipped grid."""
+    lib = _lib()
+    n = mask.numel()
+    dev = mask.device
+    perm = torch.empty(n, dtype=torch.int32, device=dev)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    tiles = -(-n // TILE)
+    if variant == 0:
+        if lib.compact_mask_old_launch.argtypes is None:
+            lib.compact_mask_old_launch.argtypes = [_P, ctypes.c_int64, _P, _P,
+                                                    _P, _P]
+            lib.compact_mask_old_launch.restype = ctypes.c_int
+        count.zero_()
+        sums = torch.empty(tiles, dtype=torch.int32, device=dev)
+        rc = lib.compact_mask_old_launch(mask.data_ptr(), n, sums.data_ptr(),
+                                         perm.data_ptr(), count.data_ptr(),
+                                         stream)
+    else:
+        fn = lib.compact_mask_launch if variant == 1 \
+            else lib.compact_mask_vec_launch
+        if fn.argtypes is None:
+            fn.argtypes = lib.compact_mask_launch.argtypes
+            fn.restype = ctypes.c_int
+        cap = _max_blocks(lib, dev) // (1 if variant == 1 else 2)
+        per_block = -(-tiles // max(1, cap))
+        grid = -(-tiles // per_block)
+        sums = torch.empty(grid, dtype=torch.int32, device=dev)
+        rc = fn(mask.data_ptr(), n, per_block * TILE, grid, sums.data_ptr(),
+                perm.data_ptr(), count.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"compact_mask_variant: cudaError {rc}")
+    return perm, count

@@ -34,8 +34,10 @@ from repro_torch.core import geometry  # noqa: E402
 from repro_torch.core.join import INDECISIVE, TRUE_NEG  # noqa: E402
 from repro_torch.kernels.interval_join import (  # noqa: E402
     april_trichotomy_plain)
+from repro_torch.kernels.compact import cases as compact_cases  # noqa: E402
 from repro_torch.kernels.compact import (compact_mask,  # noqa: E402
                                          compact_mask_plain)
+from repro_torch.kernels.compact.ops import TILE  # noqa: E402
 from repro_torch.spatial import PIPELINE_MODES, fused, refine  # noqa: E402
 from repro_torch.spatial.mbr_join import (  # noqa: E402
     MBR_BACKENDS, _prepare, candidate_rows, check_mbr_backend, mbr_join,
@@ -86,12 +88,10 @@ def t1t2():
 # compaction (B3)
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("i", range(len(_masks())))
-def test_compact_mask_matches_reference(i):
+def _compact_matches_reference(mask):
     """The wrapper on a CPU lane (the plain version) equals the Pallas scan
     in interpret mode and the argsort oracle bit for bit, and keeps the
     front-pack contract."""
-    mask = _masks()[i]
     m = jnp.asarray(mask)
     want_perm, want_count = r_compact_mask(m, backend="pallas",
                                            interpret=True)
@@ -104,6 +104,31 @@ def test_compact_mask_matches_reference(i):
     k = int(count)
     np.testing.assert_array_equal(perm[:k].numpy(), np.flatnonzero(mask))
     np.testing.assert_array_equal(perm[k:].numpy(), np.flatnonzero(~mask))
+
+
+@pytest.mark.parametrize("i", range(len(_masks())))
+def test_compact_mask_matches_reference(i):
+    _compact_matches_reference(_masks()[i])
+
+
+@pytest.mark.parametrize("name", list(compact_cases.lanes()))
+def test_compact_mask_tiling_edges_match_reference(name):
+    """The lanes at the kernel's tiling edges (``compact.cases``, also the
+    card sweep): lengths 0, 1, 1023, 1024 and 1025, set all, none, first,
+    last or alternating."""
+    _compact_matches_reference(compact_cases.lanes()[name])
+
+
+def test_compact_cases_cover_the_edges():
+    lanes = compact_cases.lanes()
+    assert {len(m) for m in lanes.values()} == set(compact_cases.LENGTHS)
+    for n in (1023, 1024, 1025):
+        assert len([m for m in lanes.values() if len(m) == n]) == 5
+    big = compact_cases.lanes(long=True)
+    longs = [m for m in big.values() if len(m) == compact_cases.LONG_ROWS]
+    assert len(longs) == 2 and all(0 < m.sum() < len(m) for m in longs)
+    # more tiles than the resident grid of an H100 (132 SMs x 8 blocks)
+    assert compact_cases.LONG_ROWS > 132 * 8 * TILE
 
 
 def test_compact_mask_checks_its_lane():
@@ -464,12 +489,20 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_cuda_compact_kernel_equals_plain_version(cuda_device):
+    """The kernel (one cooperative launch a call) equals the plain version
+    and the stable-argsort oracle on the reference's lanes, a lane longer
+    than 2^21 and the tiling edges of ``compact.cases``, the lane longer
+    than one sweep of the resident grid included."""
     rng = np.random.default_rng(11)
-    for mask in _masks() + [rng.random((1 << 21) + 999) < 0.37]:
+    lanes = _masks() + [rng.random((1 << 21) + 999) < 0.37] \
+        + list(compact_cases.lanes(long=True).values())
+    for mask in lanes:
         m = torch.from_numpy(mask).to(cuda_device)
         n0 = compact_mask.launches
         perm, count = compact_mask(m)
         assert compact_mask.launches == n0 + (1 if len(mask) else 0)
         want_perm, want_count = compact_mask_plain(m)
+        oracle = torch.argsort((~m).to(torch.uint8), stable=True)
         assert torch.equal(perm, want_perm)
+        assert torch.equal(perm.long(), oracle)
         assert int(count) == int(want_count) == int(mask.sum())

@@ -29,7 +29,8 @@ from repro_torch.core.intervalize import intervals_from_ids  # noqa: E402
 from repro_torch.kernels.ri_and import (  # noqa: E402
     aligned_and_plain, pack_bits_u32, pack_stream_words, ri_fragments_plain,
     ri_trichotomy, ri_trichotomy_plain, xor_mask_words)
-from repro_torch.kernels.ri_and.ref import MASK_WORDS  # noqa: E402
+from repro_torch.kernels.ri_and import cases as ri_cases  # noqa: E402
+from repro_torch.kernels.ri_and.ref import MASK_WORDS, _unbiased  # noqa: E402
 from repro_torch.spatial import fused  # noqa: E402
 from repro_torch.spatial.filters import Approximation, get_filter  # noqa: E402
 
@@ -119,6 +120,130 @@ def test_aligned_and_long_runs_and_stream_end():
                                 xor)
         np.testing.assert_array_equal(got.numpy(), want)
         assert 0 < want.sum() < F
+
+
+# ---------------------------------------------------------------------------
+# rows at the kernel's merge's edges (ri_and.cases, also the card sweep)
+# ---------------------------------------------------------------------------
+
+def _ref_store(side, encoding):
+    """A drawn side as the reference's RIStore (order 16)."""
+    return rri.RIStore(16, r_rasterize.GLOBAL_EXTENT, encoding, side["off"],
+                       side["ints"], side["bit_off"], side["bits"])
+
+
+def _drawn_ri(seed, rows, xor_y, cases=ri_cases.CASES):
+    """Drawn rows as the reference's stores (one encoding when ``xor_y``)
+    and the port's CPU store tensors."""
+    d = ri_cases.draw_ri_rows(seed, rows, xor_y, cases=cases)
+    ref = (_ref_store(d["x"], "R"), _ref_store(d["y"], "R" if xor_y else "S"))
+    port = (ri_cases.store_tensors(d["x"]), ri_cases.store_tensors(d["y"]))
+    return d, ref, port
+
+
+@pytest.mark.parametrize("xor_y", [False, True])
+@pytest.mark.parametrize("case", ri_cases.CASES)
+def test_ri_tiling_edge_cases_match_reference(case, xor_y):
+    """Rows drawn at the merge's edges, one case at a time, paired as drawn
+    and shuffled: the wrapper on CPU tensors (the plain version)
+    equals the reference's per-pair Algorithm 1 and, as drawn, the verdicts
+    the codes were made to give."""
+    rows = 24
+    d, (rx, ry), (x, y) = _drawn_ri(61 + ri_cases.CASES.index(case), rows,
+                                    xor_y, cases=(case,))
+    own = np.arange(rows)
+    shuffled = np.random.default_rng(4).permutation(rows)
+    for si in (own, shuffled):
+        want = np.asarray([rri.ri_verdict_pair(rx, i, ry, int(j))
+                           for i, j in zip(own, si)], np.int8)
+        got = ri_trichotomy(x, y, _t(own), _t(si), xor_y)
+        np.testing.assert_array_equal(got.numpy(), want)
+    np.testing.assert_array_equal(
+        ri_trichotomy(x, y, _t(own), _t(own), xor_y).numpy(), d["verdict"])
+
+
+def _case_fragments(x, y, rows):
+    """The fragments of pair rows (n, n) and their word-aligned runs."""
+    b, gx, gy, lo, hi = ri_fragments_plain(x, y, rows, rows)
+    x_bit = x.bit_off[gx] + 3 * (lo - _unbiased(x.starts[gx]))
+    y_bit = y.bit_off[gy] + 3 * (lo - _unbiased(y.starts[gy]))
+    return b, gx, gy, lo, hi, x_bit, y_bit
+
+
+@pytest.mark.parametrize("xor_y", [False, True])
+def test_ri_case_fragments_match_pallas(xor_y):
+    """Every fragment of the drawn rows (each case's first rows), ANDed by
+    the plain ALIGNEDAND over the packed streams, equals the reference's
+    Pallas kernel in interpret mode over its per-fragment words."""
+    rows = 2 * len(ri_cases.CASES)
+    d, (rx, ry), (x, y) = _drawn_ri(71, rows, xor_y)
+    b, gx, gy, lo, hi, x_bit, y_bit = _case_fragments(x, y, torch.arange(rows))
+    got = aligned_and_plain(x.words, x_bit, y.words, y_bit, 3 * (hi - lo),
+                            xor_y)
+    want = rri._fragment_hits_pallas(rx, ry, gx.numpy(), gy.numpy(),
+                                     lo.numpy().astype(np.uint64),
+                                     hi.numpy().astype(np.uint64), xor_y,
+                                     interpret=True)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert 0 < want.sum() < len(want)
+    assert int((3 * (hi - lo)).max()) == 3 * ri_cases.LONG_CELLS
+
+
+def test_ri_cases_cover_the_edges():
+    """The drawn rows hold what the card sweep relies on: the widths at the
+    strided skip's edges on both sides, fragment starts at every bit phase
+    on both sides with runs of about one, two and three words, a 165-word
+    fragment whose only hit is in its last word, a hit only in the last
+    fragment of merges up to 2 x 5 strides - 1 fragments, lists the skip
+    cuts by a stride or more, and runs at id 0 and 2^32 - 1."""
+    G = ri_cases.STRIDE
+    rows = 40 * len(ri_cases.CASES)
+    d, _, (x, y) = _drawn_ri(17, rows, True)
+    case = d["case"]
+    for k in ("x", "y"):
+        w = set(np.diff(d[k]["off"]).tolist())
+        assert {G - 1, G, G + 1, 2 * G} <= w, k
+        assert d[k]["ints"][:, 0].min() == 0, k
+        assert d[k]["ints"][:, 1].max() == 2**32, k
+    b, gx, gy, lo, hi, x_bit, y_bit = _case_fragments(x, y,
+                                                      torch.arange(rows))
+    nbits = 3 * (hi - lo)
+    hits = aligned_and_plain(x.words, x_bit, y.words, y_bit, nbits, True)
+    # phases: every bit phase of a fragment's start in each stream
+    ph = case[b.numpy()] == ri_cases.CASES.index("phases")
+    assert set(nbits[ph].tolist()) == {3 * c for c in ri_cases.FRAGMENT_CELLS}
+    for bit in (x_bit, y_bit):
+        assert set((bit[ph] % 32).tolist()) == set(range(32))
+    # long: 165-word fragments, hit only in the last word or not at all
+    lg = nbits == 3 * ri_cases.LONG_CELLS
+    assert bool(((nbits[lg] + 31) // 32 == 165).all()) and int(lg.sum()) >= 2
+    for f in np.nonzero(lg.numpy())[0]:
+        upto = aligned_and_plain(x.words, x_bit[f:f + 1], y.words,
+                                 y_bit[f:f + 1], torch.tensor([32 * 164]),
+                                 True)
+        assert not upto.any()
+    assert hits[lg].any() and not hits[lg].all()
+    # last_fragment: a TRUE_HIT row hits in its last fragment only
+    lf = np.nonzero(case == ri_cases.CASES.index("last_fragment"))[0]
+    longest = 0
+    for r in lf:
+        sel = np.nonzero(b.numpy() == r)[0]
+        h = hits[sel].numpy()
+        if d["verdict"][r] == 1:
+            assert h[-1] and not h[:-1].any(), r
+            longest = max(longest, len(sel))
+    assert longest == 2 * 5 * G - 1
+    # far: lists whose first intervals all end before the other list starts
+    fr = np.nonzero(case == ri_cases.CASES.index("far"))[0]
+    cut = 0
+    for r in fr:
+        xs, xl = (d["x"]["ints"][d["x"]["off"][r]:d["x"]["off"][r + 1], i]
+                  for i in (0, 1))
+        ys, yl = (d["y"]["ints"][d["y"]["off"][r]:d["y"]["off"][r + 1], i]
+                  for i in (0, 1))
+        cut += int(((xl <= ys[0]).sum() >= G) or ((yl <= xs[0]).sum() >= G))
+    assert cut > len(fr) // 2
+    assert set(np.unique(d["verdict"])) == {0, 1, 2}
 
 
 # ---------------------------------------------------------------------------
@@ -447,6 +572,26 @@ def test_ri_kernel_equals_plain_version(stores, cuda_device):
             p = ri_trichotomy_plain(X, Y, *rows, xor_y)
             torch.cuda.synchronize()
             assert torch.equal(k, p), (key, bits)
+
+
+@pytest.mark.cuda
+def test_ri_kernel_at_tiling_edges_equals_plain_version(cuda_device):
+    """Every case of ``ri_and.cases``, re-encoding off and on, paired as
+    drawn and shuffled."""
+    rows = 64 * len(ri_cases.CASES)
+    for xor_y in (False, True):
+        d = ri_cases.draw_ri_rows(5, rows, xor_y)
+        x, y = (ri_cases.store_tensors(d[k], cuda_device) for k in "xy")
+        own = torch.arange(rows, device=cuda_device)
+        shuffled = torch.from_numpy(np.random.default_rng(5).permutation(
+            rows)).to(cuda_device)
+        for si in (own, shuffled):
+            k = ri_trichotomy(x, y, own, si, xor_y)
+            p = ri_trichotomy_plain(x, y, own, si, xor_y)
+            torch.cuda.synchronize()
+            assert torch.equal(k, p), xor_y
+        assert np.array_equal(ri_trichotomy(x, y, own, own, xor_y).cpu()
+                              .numpy(), d["verdict"])
 
 
 @pytest.mark.cuda
