@@ -52,14 +52,15 @@ reference package. Phases, any failure exits non-zero:
    (``ri_trichotomy``) held exactly against its plain version on a random
    code-stream sweep (the stores' code bits replaced by random bits of
    three densities, re-encoding off and on, over the candidate frame and
-   65,536 random rows) and on pair rows drawn at its window merge's edges
-   (``ri_and.cases``: lists of G - 1, G, G + 1 and 2G intervals, fragments
-   at every bit phase about one, two and three words long, 165-word
-   fragments hit only in their last word, a hit only in the last fragment
-   of a merge, lists the sampled skip cuts, ends at INT32_MIN and
-   INT32_MAX, empty lists; re-encoding off and on, paired as drawn and
-   shuffled; as drawn also against the verdicts the codes were made to
-   give); then the join staged, fused with ``mbr_backend``
+   65,536 random rows) and on pair rows drawn at its merge's edges
+   (``ri_and.cases``: lists of S - 1, S, S + 1 and 2S intervals for the
+   skip's stride S = 8, fragments at every bit phase about one, two and
+   three words long, 165-word fragments hit only in their last word, a hit
+   only in the last fragment of a merge, lists the skip cuts by strides,
+   ends at INT32_MIN and INT32_MAX, empty lists; re-encoding off and on,
+   paired as drawn and shuffled; as drawn also against the verdicts the
+   codes were made to give); then the join staged, fused with
+   ``mbr_backend``
    ``"numpy"`` and fused with ``"torch"``, launch counts reset before and
    read after each run. The staged run's verdicts, replayed by the kernel
    on the frame it recorded (``ri.record_frames``), equal the plain
@@ -176,7 +177,7 @@ JOIN_SWEEP_SEED = 17
 #: random rows and code-bit densities of the RI kernel's stream sweep
 RI_SWEEP_ROWS = 65536
 RI_SWEEP_DENSITIES = (0.002, 0.05, 0.5)
-#: pair rows and seed of the RI kernel's sweep at its window merge's edges
+#: pair rows and seed of the RI kernel's sweep at its merge's edges
 #: (``kernels.ri_and.cases``), each re-encoding
 RI_CASE_ROWS = 16384
 RI_CASE_SEED = 19
@@ -454,7 +455,7 @@ def _ri_sweep(X, Y, rows_list, dev) -> int:
 
 def _ri_case_sweep(dev) -> str:
     """The RI kernel against its plain version, exactly, on the pair rows
-    ``kernels.ri_and.cases`` draws at the window merge's edges
+    ``kernels.ri_and.cases`` draws at the merge's edges
     (``RI_CASE_ROWS``, re-encoding off and on, paired as drawn and
     shuffled), and as drawn against the verdicts the codes were made to
     give. Returns a printable line."""
@@ -609,66 +610,6 @@ def _interval_join_times(tri, frame, survivors, torch_frame) -> dict:
             "bound_ms_degenerate_order": bound_ms((xa, ya), frame)
             + bound_ms((xa, yf), survivors)},
     }
-
-
-def _design_times(indec_mask, ri_frame, p_ri) -> dict:
-    """PROBE ONLY (deleted once timed): B3's and B5's designs, each held
-    exactly to the plain version, on the device alone beside the shipped
-    one, in turns (forward, then reverse)."""
-    import torch
-    from repro_torch.core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
-    from repro_torch.kernels.compact import compact_mask, compact_mask_plain
-    from repro_torch.kernels.compact.ops import compact_mask_variant
-    from repro_torch.kernels.ri_and import ri_trichotomy
-    from repro_torch.kernels.ri_and.ops import ri_trichotomy_variant
-    pp, pc = compact_mask_plain(indec_mask)
-    b3 = {"shipped: one launch, two tiles a block":
-          lambda: compact_mask(indec_mask),
-          "three launches (PR 12-17)": lambda: compact_mask_variant(
-              indec_mask, 0),
-          "one launch, one tile a block": lambda: compact_mask_variant(
-              indec_mask, 1),
-          "one launch, four rows a thread": lambda: compact_mask_variant(
-              indec_mask, 2)}
-    b5 = {"shipped: strided skip, stride 8": lambda: ri_trichotomy(*ri_frame)}
-    for v, name in ((0, "two-pointer merge a thread (PR 13-17)"),
-                    (1, "window merge G 8"), (2, "window merge G 4"),
-                    (3, "window merge G 16"), (6, "window merge G 32"),
-                    (10, "a thread a row, long fragments across the warp"),
-                    (14, "strided skip, stride 4"),
-                    (15, "strided skip, stride 16")):
-        b5[name] = lambda v=v: ri_trichotomy_variant(*ri_frame, v)
-    out = {"exclusive_scan": {}, "ri_trichotomy": {}}
-    for name, fn in b3.items():
-        kp, kc = fn()
-        torch.cuda.synchronize()
-        if not (torch.equal(kp, pp) and int(kc) == int(pc)):
-            raise AssertionError(f"B3 design {name} != plain version")
-    for name, fn in b5.items():
-        if not torch.equal(fn(), p_ri):
-            raise AssertionError(f"B5 design {name} != plain version")
-    for order in (1, -1):
-        for name, fn in list(b3.items())[::order]:
-            out["exclusive_scan"].setdefault(name, []).append(_device_ms(fn))
-        for name, fn in list(b5.items())[::order]:
-            out["ri_trichotomy"].setdefault(name, []).append(_device_ms(fn))
-    for name, fn in b3.items():
-        prof = _profile(fn)
-        out["exclusive_scan"][name].append(
-            {"profiled_device_us": prof["device_busy_us"],
-             "kernels": prof["top_device_us"]})
-    x, y, fr, fs, xor_y = ri_frame
-    for c, cname in ((TRUE_NEG, "TRUE_NEG"), (TRUE_HIT, "TRUE_HIT"),
-                     (INDECISIVE, "INDECISIVE")):
-        sel = (p_ri == c).nonzero().flatten()
-        sub = (x, y, fr[sel], fs[sel], xor_y)
-        for name, v in (("shipped: strided skip, stride 8", None),
-                        ("two-pointer merge a thread (PR 13-17)", 0),
-                        ("window merge G 8", 1)):
-            out["ri_trichotomy"][name].append({cname: _device_ms(
-                (lambda: ri_trichotomy(*sub)) if v is None
-                else (lambda v=v: ri_trichotomy_variant(*sub, v)))})
-    return out
 
 
 def _allowed_positions(S: int, kind: str, window: int) -> int:
@@ -1474,10 +1415,6 @@ def main() -> int:
         by_class[name] = {"rows": sel.numel(), "device_ms": _device_ms(
             lambda: ri_trichotomy(ri_frame[0], ri_frame[1], fr_c, fs_c,
                                   ri_frame[4]))}
-    print(f"designs timed (device ms alone, forward then reverse; B3 also "
-          f"its profiled device us; B5 by verdict class): "
-          f"{json.dumps(_design_times(indec_mask, ri_frame, p_ri))}",
-          flush=True)
     print(f"ri_trichotomy by verdict class of the ri-staged frame (device "
           f"ms of one call over that class's rows alone): "
           f"{json.dumps(by_class)}; whole frame "

@@ -14,8 +14,8 @@
 // cooperatively (cudaLaunchCooperativeKernel), with no more blocks than can
 // be resident on the card at once, so that every block can pass
 // cooperative_groups' grid barrier. Each block owns a contiguous range of
-// rows_per_block rows (the wrapper picks it: whole 1024-row tiles, as few
-// tiles a block as the resident grid allows), which keeps the pack stable:
+// rows_per_block rows (the wrapper picks it: whole 1024-row tiles over at
+// most half the resident grid), which keeps the pack stable:
 //   1. each block counts the set rows of its range and publishes the count
 //      in sums[block];
 //   2. grid barrier;
@@ -32,9 +32,11 @@
 // What bounds it on the H100: the function moves about 5 bytes a row (a
 // bool read, an int32 written), 3.7 MB at the join's 742,279 rows, about
 // 1.1 us at 3.35 TB/s. At that size the launch and the grid barrier cost
-// more than the bytes. The design before this one took three launches (tile
-// counts, a one-block scan of them, the scatter): 7.26 us of device time on
-// an H100 80GB HBM3 at 700 W; PERF.md records both.
+// more than the bytes. On an H100 80GB HBM3 at 700 W the kernel runs about
+// 8 us at that size, 11.4 us a call on the device with its launch; the
+// design before this one (three launches: tile counts, a one-block scan of
+// them, the scatter, and a fill of count) 8.3 us and 15.3 us. One tile a
+// block (725 blocks) was slower than two; PERF.md records the times.
 #include <cooperative_groups.h>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -113,209 +115,7 @@ __global__ void __launch_bounds__(kThreads) compact_mask_kernel(
   }
 }
 
-
-// ---------------------------------------------------------------------------
-// PROBE ONLY: the design before this one (three launches), timed beside it;
-// deleted once timed.
-// ---------------------------------------------------------------------------
-constexpr int kItems = 4;                    // sub-tiles of kThreads rows
-constexpr int kOldTile = kThreads * kItems;  // rows per block
-constexpr int kScanThreads = 1024;           // 32 warps
-
-__global__ void tile_counts_kernel(const uint8_t* __restrict__ mask, int64_t n,
-                                   int32_t* __restrict__ sums) {
-  __shared__ int32_t warp_sums[kWarps];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kOldTile;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  int32_t c = 0;
-  for (int k = 0; k < kItems; ++k) {
-    const int64_t i = base + k * kThreads + threadIdx.x;
-    const bool set = i < n && mask[i] != 0;
-    c += __popc(__ballot_sync(kFull, set));   // the same in every lane
-  }
-  if (lane == 0) warp_sums[warp] = c;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    int32_t s = 0;
-    for (int w = 0; w < kWarps; ++w) s += warp_sums[w];
-    sums[blockIdx.x] = s;
-  }
-}
-
-// Inclusive scan of x across the 32 lanes of a warp.
-__device__ __forceinline__ int32_t warp_inclusive(int32_t x, int lane) {
-  for (int d = 1; d < 32; d <<= 1) {
-    const int32_t y = __shfl_up_sync(kFull, x, d);
-    if (lane >= d) x += y;
-  }
-  return x;
-}
-
-__global__ void scan_sums_kernel(int32_t* __restrict__ sums, int64_t nb,
-                                 int32_t* __restrict__ count) {
-  __shared__ int32_t warp_tot[32];
-  __shared__ int32_t carry;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0) carry = 0;
-  __syncthreads();
-  for (int64_t b0 = 0; b0 < nb; b0 += kScanThreads) {
-    const int64_t b = b0 + threadIdx.x;
-    const int32_t v = b < nb ? sums[b] : 0;
-    const int32_t x = warp_inclusive(v, lane);
-    if (lane == 31) warp_tot[warp] = x;
-    __syncthreads();
-    if (warp == 0) warp_tot[lane] = warp_inclusive(warp_tot[lane], lane);
-    __syncthreads();
-    const int32_t before = carry + (warp > 0 ? warp_tot[warp - 1] : 0);
-    if (b < nb) sums[b] = before + x - v;      // exclusive tile offset
-    __syncthreads();                            // every thread has read carry
-    if (threadIdx.x == kScanThreads - 1) carry = before + x;
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) *count = carry;
-}
-
-__global__ void scatter_kernel(const uint8_t* __restrict__ mask, int64_t n,
-                               const int32_t* __restrict__ offs,
-                               const int32_t* __restrict__ count,
-                               int32_t* __restrict__ perm) {
-  __shared__ int32_t warp_cnt[kWarps];
-  const int64_t base = static_cast<int64_t>(blockIdx.x) * kOldTile;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const unsigned below = (1u << lane) - 1u;
-  const int32_t k = *count;
-  int32_t run = offs[blockIdx.x];   // set rows before the current sub-tile
-  for (int it = 0; it < kItems; ++it) {
-    const int64_t i = base + it * kThreads + threadIdx.x;
-    const bool set = i < n && mask[i] != 0;
-    const unsigned bal = __ballot_sync(kFull, set);
-    if (lane == 0) warp_cnt[warp] = __popc(bal);
-    __syncthreads();
-    int32_t before = 0, total = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int32_t c = warp_cnt[w];
-      before += w < warp ? c : 0;
-      total += c;
-    }
-    if (i < n) {
-      const int32_t row = static_cast<int32_t>(i);
-      const int32_t excl = run + before + __popc(bal & below);
-      perm[set ? excl : k + (row - excl)] = row;
-    }
-    run += total;
-    __syncthreads();                 // warp_cnt is rewritten next sub-tile
-  }
-}
-
-
-// PROBE ONLY: 4 consecutive rows a thread, a sweep of 1024 rows with one
-// block scan, the first sweep's bytes kept in registers across the barrier.
-__global__ void __launch_bounds__(kThreads) compact_mask_vec_kernel(
-    const uint8_t* __restrict__ mask, int64_t n, int64_t rows_per_block,
-    int32_t* sums, int32_t* __restrict__ perm, int32_t* __restrict__ count) {
-  constexpr int R = 4;
-  constexpr int kSweep = kThreads * R;
-  __shared__ int32_t red[kWarps];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t first = static_cast<int64_t>(blockIdx.x) * rows_per_block;
-  const int64_t lo = first < n ? first : n;
-  const int64_t hi = n - lo > rows_per_block ? lo + rows_per_block : n;
-  bool m0[R];
-  int32_t c = 0;
-  for (int64_t base = lo; base < hi; base += kSweep) {
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int64_t i = base + threadIdx.x * R + j;
-      const bool v = i < hi && mask[i] != 0;
-      if (base == lo) m0[j] = v;
-      c += v;
-    }
-  }
-  c = block_sum(c, red);
-  if (threadIdx.x == 0) sums[blockIdx.x] = c;
-  cg::this_grid().sync();
-  int32_t before = 0, total = 0;
-  for (unsigned b = threadIdx.x; b < gridDim.x; b += kThreads) {
-    const int32_t v = __ldcg(sums + b);
-    total += v;
-    before += b < blockIdx.x ? v : 0;
-  }
-  before = block_sum(before, red);
-  total = block_sum(total, red);
-  if (blockIdx.x == 0 && threadIdx.x == 0) *count = total;
-  int32_t run = before;
-  for (int64_t base = lo; base < hi; base += kSweep) {
-    bool v[R];
-    int32_t mine = 0;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int64_t i = base + threadIdx.x * R + j;
-      v[j] = base == lo ? m0[j] : (i < hi && mask[i] != 0);
-      mine += v[j];
-    }
-    // exclusive scan of ``mine`` over the block
-    int32_t incl = mine;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int32_t t = __shfl_up_sync(kFull, incl, d);
-      if (lane >= d) incl += t;
-    }
-    if (lane == 31) red[warp] = incl;
-    __syncthreads();
-    int32_t wb = 0, swept = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      wb += w < warp ? red[w] : 0;
-      swept += red[w];
-    }
-    int32_t excl = run + wb + incl - mine;
-#pragma unroll
-    for (int j = 0; j < R; ++j) {
-      const int64_t i = base + threadIdx.x * R + j;
-      if (i < hi) {
-        const int32_t row = static_cast<int32_t>(i);
-        perm[v[j] ? excl : total + (row - excl)] = row;
-        excl += v[j];
-      }
-    }
-    run += swept;
-    __syncthreads();
-  }
-}
-
 }  // namespace
-
-// PROBE ONLY: the three-launch design before this one.
-extern "C" int compact_mask_old_launch(const uint8_t* mask, int64_t n,
-                                       int32_t* block_sums, int32_t* perm,
-                                       int32_t* count, void* stream) {
-  if (n <= 0) return 0;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int64_t nb = (n + kOldTile - 1) / kOldTile;
-  const unsigned grid = static_cast<unsigned>(nb);
-  tile_counts_kernel<<<grid, kThreads, 0, s>>>(mask, n, block_sums);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scan_sums_kernel<<<1, kScanThreads, 0, s>>>(block_sums, nb, count);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  scatter_kernel<<<grid, kThreads, 0, s>>>(mask, n, block_sums, count, perm);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// PROBE ONLY: 4 rows a thread.
-extern "C" int compact_mask_vec_launch(const uint8_t* mask, int64_t n,
-                                       int64_t rows_per_block, int grid,
-                                       int32_t* sums, int32_t* perm,
-                                       int32_t* count, void* stream) {
-  void* args[] = {&mask, &n, &rows_per_block, &sums, &perm, &count};
-  return static_cast<int>(cudaLaunchCooperativeKernel(
-      reinterpret_cast<const void*>(compact_mask_vec_kernel), dim3(grid),
-      dim3(kThreads), args, 0, static_cast<cudaStream_t>(stream)));
-}
 
 // The most blocks of the kernel that are resident on ``device`` at once:
 // the largest grid a cooperative launch takes. Negative on a CUDA error.

@@ -43,14 +43,15 @@
 // intervals a step; only the side that advanced is reloaded. Overlapping
 // intervals are ANDed at once, and the row ends at its first hit.
 //
-// The designs timed against it on an H100 80GB HBM3 at 700 W (PERF.md):
-// the plain two-pointer merge a thread (the design before this one), the
-// window merge of csrc/interval_join.cu with the ANDs folded in (G = 4, 8,
-// 16 and 32 lanes a row), a thread a row with long fragments split across
-// the warp, and strides of 4 and 16. The window merge needs several times
-// the instructions a merge step takes here and keeps one row in flight a
-// group of lanes, not a thread; on this frame it lost to the plain merge,
-// and the strided skip beat both.
+// On an H100 80GB HBM3 at 700 W the kernel takes 0.150 ms of device time
+// over the 742,279 rows of the RI T1 x T2 frame, the plain two-pointer merge
+// a thread (the design before this one) 0.25 ms. The window merge of
+// csrc/interval_join.cu with the ANDs folded in (G lanes a row, fragments
+// split across the group) took 0.35 ms at G = 8 and more at G = 4, 16 and
+// 32: it needs several times the instructions a merge step takes here and
+// keeps one row in flight a group of lanes, not a thread, while two thirds
+// of the rows end at an early hit. Strides of 4 and 16 took 0.154 and 0.177
+// ms. PERF.md records every design's times.
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -87,17 +88,17 @@ __device__ __forceinline__ uint32_t xor_mask(int m) {
   return m == 0 ? 0xDB6DB6DBu : (m == 1 ? 0xB6DB6DB6u : 0x6DB6DB6Du);
 }
 
-// ALIGNEDAND over words m0, m0 + step, ... of the nbits-bit run of X at
-// xbit and the run of Y at ybit (re-encoded when xor_y): is a bit of
-// x & y set? Exits on the first non-zero word.
-__device__ bool and_words(const uint32_t* __restrict__ xw, int64_t xbit,
-                          const uint32_t* __restrict__ yw, int64_t ybit,
-                          int64_t nbits, bool xor_y, int m0, int step) {
-  for (int64_t done = 32 * static_cast<int64_t>(m0); done < nbits;
-       done += 32 * step) {
+// ALIGNEDAND: does the nbits-bit run of X at xbit AND the run of Y at ybit
+// (re-encoded when xor_y) have a bit set? Exits on the first non-zero word.
+__device__ bool aligned_and(const uint32_t* __restrict__ xw, int64_t xbit,
+                            const uint32_t* __restrict__ yw, int64_t ybit,
+                            int64_t nbits, bool xor_y) {
+  int m = 0;
+  for (int64_t done = 0; done < nbits; done += 32) {
     uint32_t x = word_at(xw, xbit + done);
     uint32_t y = word_at(yw, ybit + done);
-    if (xor_y) y ^= xor_mask(static_cast<int>((done >> 5) % 3));
+    if (xor_y) y ^= xor_mask(m);
+    m = (m == 2) ? 0 : m + 1;
     const int64_t rem = nbits - done;
     if (rem < 32) x &= (1u << rem) - 1u;
     if (x & y) return true;
@@ -105,7 +106,6 @@ __device__ bool and_words(const uint32_t* __restrict__ xw, int64_t xbit,
   return false;
 }
 
-template <int kStride>
 __global__ void __launch_bounds__(kThreads) ri_trichotomy_kernel(
     Store x, Store y, bool xor_y, const int64_t* __restrict__ ri,
     const int64_t* __restrict__ si, int64_t n, int8_t* __restrict__ out) {
@@ -135,11 +135,11 @@ __global__ void __launch_bounds__(kThreads) ri_trichotomy_kernel(
       } else {
         const int32_t lo = xs > ys ? xs : ys;
         const int32_t hi = xl < yl ? xl : yl;
-        if (and_words(x.words,
-                      __ldg(x.bit_off + a) + 3 * (static_cast<int64_t>(lo) - xs),
-                      y.words,
-                      __ldg(y.bit_off + b) + 3 * (static_cast<int64_t>(lo) - ys),
-                      3 * (static_cast<int64_t>(hi) - lo + 1), xor_y, 0, 1)) {
+        if (aligned_and(x.words,
+                        __ldg(x.bit_off + a) + 3 * (static_cast<int64_t>(lo) - xs),
+                        y.words,
+                        __ldg(y.bit_off + b) + 3 * (static_cast<int64_t>(lo) - ys),
+                        3 * (static_cast<int64_t>(hi) - lo + 1), xor_y)) {
           out[row] = kTrueHit;
           return;
         }
@@ -165,295 +165,6 @@ __global__ void __launch_bounds__(kThreads) ri_trichotomy_kernel(
   out[row] = overlap ? kIndecisive : kTrueNeg;
 }
 
-// ---------------------------------------------------------------------------
-// PROBE ONLY: the designs timed against the shipped one; deleted once timed.
-// ---------------------------------------------------------------------------
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kGroup = 8;
-constexpr int kShortWords = 2;
-
-// This lane's interval of a list's window: where the next window's
-// interval lies, the intervals left from the window's first (none once the
-// group is done), and the interval itself (when k < left).
-struct Window {
-  const int32_t* ps;
-  const int32_t* pl;
-  const int64_t* pb;
-  int left;
-  int32_t s, l;
-  int64_t b;
-};
-
-__device__ __forceinline__ void load(Window& w, int k) {
-  if (k < w.left) {
-    w.s = __ldg(w.ps);
-    w.l = __ldg(w.pl);
-    w.b = __ldg(w.pb);
-  }
-}
-
-template <int kGroup>
-__device__ __forceinline__ void advance(Window& w, int k) {
-  w.left -= kGroup;
-  w.ps += kGroup;
-  w.pl += kGroup;
-  w.pb += kGroup;
-  load(w, k);
-}
-
-// Starts a row's merge: list X's intervals [x0, x0 + nx), Y's [y0, y0 +
-// ny). Each list first drops its stretch that ends before the other list
-// starts, found to within ceil(n / G) intervals by one sample a lane; then
-// the windows load. Every lane of the warp calls it.
-template <int kGroup, bool kSkip>
-__device__ __forceinline__ void begin(Window& wx, Window& wy, const Store& x,
-                                      const Store& y, int64_t x0, int nx,
-                                      int64_t y0, int ny, int k,
-                                      unsigned gmask) {
-  const int sx = (nx + kGroup - 1) / kGroup, sy = (ny + kGroup - 1) / kGroup;
-  bool bx = false, by = false;
-  if (kSkip && nx > 0 && ny > 0) {
-    const int32_t x_first = __ldg(x.starts + x0), y_first = __ldg(y.starts + y0);
-    bx = k * sx < nx && __ldg(x.lasts + x0 + k * sx) < y_first;
-    by = k * sy < ny && __ldg(y.lasts + y0 + k * sy) < x_first;
-  }
-  const int cx = __popc(__ballot_sync(kFull, bx) & gmask);
-  const int cy = __popc(__ballot_sync(kFull, by) & gmask);
-  const int64_t ix = x0 + (cx ? (cx - 1) * sx + 1 : 0) + k;
-  const int64_t iy = y0 + (cy ? (cy - 1) * sy + 1 : 0) + k;
-  wx = Window{x.starts + ix, x.lasts + ix, x.bit_off + ix,
-              nx > 0 && ny > 0 ? nx - (cx ? (cx - 1) * sx + 1 : 0) : 0, 0, 0,
-              0};
-  wy = Window{y.starts + iy, y.lasts + iy, y.bit_off + iy,
-              nx > 0 && ny > 0 ? ny - (cy ? (cy - 1) * sy + 1 : 0) : 0, 0, 0,
-              0};
-  load(wx, k);
-  load(wy, k);
-}
-
-// The fragments of one step: whether any of them (for this lane's group)
-// ANDs non-zero. This lane's X interval meets the window's Y intervals [p,
-// e); every lane of the warp calls it.
-template <int kGroup, int kShortWords>
-__device__ __forceinline__ bool and_fragments(const Window& wx,
-                                              const Window& wy, int p, int nf,
-                                              const uint32_t* __restrict__ xw,
-                                              const uint32_t* __restrict__ yw,
-                                              bool xor_y, int k,
-                                              unsigned gmask) {
-  bool hit = false;
-  for (int t = 0; __any_sync(kFull, t < nf && !hit); ++t) {
-    const bool act = t < nf && !hit;
-    const int j = act ? p + t : 0;
-    const int32_t ys = __shfl_sync(kFull, wy.s, j, kGroup);
-    const int32_t yl = __shfl_sync(kFull, wy.l, j, kGroup);
-    const int64_t yb = __shfl_sync(kFull, wy.b, j, kGroup);
-    const int32_t lo = wx.s > ys ? wx.s : ys;
-    const int32_t hi = wx.l < yl ? wx.l : yl;
-    const int64_t nbits = 3 * (static_cast<int64_t>(hi) - lo + 1);
-    const int64_t xbit = wx.b + 3 * (static_cast<int64_t>(lo) - wx.s);
-    const int64_t ybit = yb + 3 * (static_cast<int64_t>(lo) - ys);
-    const bool wide = act && nbits > 32 * kShortWords;
-    bool lane_hit = act && !wide &&
-                    and_words(xw, xbit, yw, ybit, nbits, xor_y, 0, 1);
-    // the group's wide fragments of this round, one after another, each
-    // split word-wise across the group's lanes
-    unsigned pend = __ballot_sync(kFull, wide) & gmask;
-    while (__any_sync(kFull, pend != 0)) {
-      const int src = pend ? __ffs(pend) - 1 : 0;
-      const int64_t fx = __shfl_sync(kFull, xbit, src);
-      const int64_t fy = __shfl_sync(kFull, ybit, src);
-      const int64_t fn = __shfl_sync(kFull, nbits, src);
-      if (pend) lane_hit |= and_words(xw, fx, yw, fy, fn, xor_y, k, kGroup);
-      pend &= pend - 1;
-    }
-    hit |= (__ballot_sync(kFull, lane_hit) & gmask) != 0;
-  }
-  return hit;
-}
-
-template <int kGroup, int kShortWords, bool kSkip, int kMinBlocks>
-__global__ void __launch_bounds__(kThreads, kMinBlocks) ri_window_kernel(
-    Store x, Store y, bool xor_y, const int64_t* __restrict__ ri,
-    const int64_t* __restrict__ si, int64_t n, int8_t* __restrict__ out) {
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  const int k = lane & (kGroup - 1);
-  const unsigned gmask = kGroup == 32 ? kFull
-      : ((1u << (kGroup & 31)) - 1u) << (lane & ~(kGroup - 1));
-  const int64_t row =
-      (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) / kGroup;
-  const bool live = row < n;
-  int64_t x0 = 0, y0 = 0;
-  int nx = 0, ny = 0;
-  if (live) {
-    const int64_t r = ri[row], s = si[row];
-    x0 = x.off[r];
-    nx = static_cast<int>(x.off[r + 1] - x0);
-    y0 = y.off[s];
-    ny = static_cast<int>(y.off[s + 1] - y0);
-  }
-  Window wx, wy;
-  begin<kGroup, kSkip>(wx, wy, x, y, x0, nx, y0, ny, k, gmask);
-  bool done = wx.left <= 0 || wy.left <= 0;
-  bool overlap = false, hit = false;
-  while (__any_sync(kFull, !done)) {
-    const int vx = done ? 0 : (wx.left < kGroup ? wx.left : kGroup);
-    const int vy = done ? 0 : (wy.left < kGroup ? wy.left : kGroup);
-    const int32_t xmax = __shfl_sync(kFull, wx.l, vx - 1, kGroup);
-    const int32_t ymax = __shfl_sync(kFull, wy.l, vy - 1, kGroup);
-    // [p, e): the window's Y intervals whose last is >= this lane's X start
-    // and whose start is <= its last
-    int p = 0, e = 0;
-#pragma unroll
-    for (int step = kGroup; step >= 1; step >>= 1) {
-      const int qp = p + step - 1, qe = e + step - 1;
-      const int32_t lq = __shfl_sync(kFull, wy.l, qp, kGroup);
-      const int32_t sq = __shfl_sync(kFull, wy.s, qe, kGroup);
-      if (qp < vy && lq < wx.s) p += step;
-      if (qe < vy && sq <= wx.l) e += step;
-    }
-    const int nf = k < vx && e > p ? e - p : 0;
-    overlap |= (__ballot_sync(kFull, nf > 0) & gmask) != 0;
-    if (and_fragments<kGroup, kShortWords>(wx, wy, p, nf, x.words, y.words,
-                                           xor_y, k, gmask)) {
-      hit = true;
-      done = true;
-    }
-    if (!done) {
-      if (xmax <= ymax) {
-        advance<kGroup>(wx, k);
-      } else {
-        advance<kGroup>(wy, k);
-      }
-      done = wx.left <= 0 || wy.left <= 0;
-    }
-  }
-  if (live && k == 0)
-    out[row] = hit ? kTrueHit : (overlap ? kIndecisive : kTrueNeg);
-}
-
-// PROBE ONLY: the thread-a-row design this file replaces.
-__device__ bool aligned_and_row(const uint32_t* __restrict__ xw, int64_t xbit,
-                                const uint32_t* __restrict__ yw, int64_t ybit,
-                                int64_t nbits, bool xor_y) {
-  int m = 0;
-  for (int64_t done = 0; done < nbits; done += 32) {
-    uint32_t x = word_at(xw, xbit + done);
-    uint32_t y = word_at(yw, ybit + done);
-    if (xor_y) y ^= xor_mask(m);
-    m = (m == 2) ? 0 : m + 1;
-    const int64_t rem = nbits - done;
-    if (rem < 32) x &= (1u << rem) - 1u;
-    if (x & y) return true;
-  }
-  return false;
-}
-
-__global__ void ri_row_kernel(Store x, Store y, bool xor_y,
-                              const int64_t* __restrict__ ri,
-                              const int64_t* __restrict__ si,
-                              int64_t n, int8_t* __restrict__ out) {
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (row >= n) return;
-  const int64_t r = ri[row];
-  const int64_t s = si[row];
-  int64_t a = x.off[r];
-  const int64_t a_end = x.off[r + 1];
-  int64_t b = y.off[s];
-  const int64_t b_end = y.off[s + 1];
-  bool overlap = false;
-  while (a < a_end && b < b_end) {
-    const int64_t xs = x.starts[a], xl = x.lasts[a];
-    const int64_t ys = y.starts[b], yl = y.lasts[b];
-    if (xs <= yl && ys <= xl) {
-      const int64_t lo = xs > ys ? xs : ys;
-      const int64_t hi = (xl < yl ? xl : yl) + 1;
-      if (aligned_and_row(x.words, x.bit_off[a] + 3 * (lo - xs), y.words,
-                          y.bit_off[b] + 3 * (lo - ys), 3 * (hi - lo), xor_y)) {
-        out[row] = 1;
-        return;
-      }
-      overlap = true;
-    }
-    if (xl <= yl) {
-      ++a;
-    } else {
-      ++b;
-    }
-  }
-  out[row] = overlap ? 2 : 0;
-}
-
-template <int G, int S, bool K = true, int M = 1>
-void launch_g(Store x, Store y, bool xor_y, const int64_t* ri,
-              const int64_t* si, int64_t n, int8_t* out, cudaStream_t s) {
-  constexpr int64_t kRows = kThreads / G;
-  const unsigned int blocks = static_cast<unsigned int>((n + kRows - 1) / kRows);
-  ri_window_kernel<G, S, K, M><<<blocks, kThreads, 0, s>>>(x, y, xor_y, ri, si, n, out);
-}
-
-// PROBE ONLY: a thread a row (32 rows a warp), the merge steps in a
-// warp-uniform loop, fragments longer than S words split across the warp.
-template <int S>
-__global__ void __launch_bounds__(kThreads) ri_row_coop_kernel(
-    Store x, Store y, bool xor_y, const int64_t* __restrict__ ri,
-    const int64_t* __restrict__ si, int64_t n, int8_t* __restrict__ out) {
-  const int lane = static_cast<int>(threadIdx.x & 31);
-  const int64_t row = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const bool live = row < n;
-  int64_t a = 0, a_end = 0, b = 0, b_end = 0;
-  if (live) {
-    const int64_t r = ri[row], s = si[row];
-    a = x.off[r];
-    a_end = x.off[r + 1];
-    b = y.off[s];
-    b_end = y.off[s + 1];
-  }
-  bool active = a < a_end && b < b_end;
-  bool overlap = false, hit = false;
-  while (__any_sync(kFull, active)) {
-    bool wide = false;
-    int64_t xbit = 0, ybit = 0, nbits = 0;
-    if (active) {
-      const int32_t xs = __ldg(x.starts + a), xl = __ldg(x.lasts + a);
-      const int32_t ys = __ldg(y.starts + b), yl = __ldg(y.lasts + b);
-      if (xs <= yl && ys <= xl) {
-        const int32_t lo = xs > ys ? xs : ys;
-        const int32_t hi = xl < yl ? xl : yl;
-        nbits = 3 * (static_cast<int64_t>(hi) - lo + 1);
-        xbit = __ldg(x.bit_off + a) + 3 * (static_cast<int64_t>(lo) - xs);
-        ybit = __ldg(y.bit_off + b) + 3 * (static_cast<int64_t>(lo) - ys);
-        overlap = true;
-        wide = nbits > 32 * S;
-        if (!wide && and_words(x.words, xbit, y.words, ybit, nbits, xor_y, 0, 1)) {
-          hit = true;
-          active = false;
-        }
-      }
-      if (xl <= yl) {
-        ++a;
-      } else {
-        ++b;
-      }
-      if (a >= a_end || b >= b_end) active = false;
-    }
-    unsigned pend = __ballot_sync(kFull, wide);
-    while (pend) {
-      const int src = __ffs(pend) - 1;
-      const int64_t fx = __shfl_sync(kFull, xbit, src);
-      const int64_t fy = __shfl_sync(kFull, ybit, src);
-      const int64_t fn = __shfl_sync(kFull, nbits, src);
-      const bool h = and_words(x.words, fx, y.words, fy, fn, xor_y, lane, 32);
-      if (__any_sync(kFull, h) && lane == src) {
-        hit = true;
-        active = false;
-      }
-      pend &= pend - 1;
-    }
-  }
-  if (live) out[row] = hit ? kTrueHit : (overlap ? kIndecisive : kTrueNeg);
-}
-
 }  // namespace
 
 extern "C" int ri_trichotomy_launch(
@@ -466,41 +177,11 @@ extern "C" int ri_trichotomy_launch(
   if (n > 0) {
     const unsigned int blocks =
         static_cast<unsigned int>((n + kThreads - 1) / kThreads);
-    ri_trichotomy_kernel<kStride><<<blocks, kThreads, 0,
-                                    static_cast<cudaStream_t>(stream)>>>(
+    ri_trichotomy_kernel<<<blocks, kThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
         Store{x_off, x_starts, x_lasts, x_bit_off, x_words},
         Store{y_off, y_starts, y_lasts, y_bit_off, y_words}, xor_y != 0, ri, si,
         n, out);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// PROBE ONLY: 0 the plain two-pointer merge a thread (the design before this
-// one), 1 / 2 / 3 / 6 the window merge at G = 8 / 4 / 16 / 32, 10 a thread
-// a row with long fragments split across the warp, 14 / 15 strides 4 / 16.
-extern "C" int ri_trichotomy_variant_launch(
-    const int64_t* x_off, const int32_t* x_starts, const int32_t* x_lasts,
-    const int64_t* x_bit_off, const uint32_t* x_words,
-    const int64_t* y_off, const int32_t* y_starts, const int32_t* y_lasts,
-    const int64_t* y_bit_off, const uint32_t* y_words, int xor_y,
-    const int64_t* ri, const int64_t* si, int64_t n, int8_t* out,
-    void* stream, int variant) {
-  if (n > 0) {
-    const Store x{x_off, x_starts, x_lasts, x_bit_off, x_words};
-    const Store y{y_off, y_starts, y_lasts, y_bit_off, y_words};
-    const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const unsigned rb = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-    switch (variant) {
-      case 0: ri_row_kernel<<<rb, kThreads, 0, st>>>(x, y, xor_y != 0, ri, si, n, out); break;
-      case 1: launch_g<8, 2>(x, y, xor_y != 0, ri, si, n, out, st); break;
-      case 2: launch_g<4, 2>(x, y, xor_y != 0, ri, si, n, out, st); break;
-      case 3: launch_g<16, 2>(x, y, xor_y != 0, ri, si, n, out, st); break;
-      case 6: launch_g<32, 2>(x, y, xor_y != 0, ri, si, n, out, st); break;
-      case 10: ri_row_coop_kernel<2><<<rb, kThreads, 0, st>>>(x, y, xor_y != 0, ri, si, n, out); break;
-      case 14: ri_trichotomy_kernel<4><<<rb, kThreads, 0, st>>>(x, y, xor_y != 0, ri, si, n, out); break;
-      case 15: ri_trichotomy_kernel<16><<<rb, kThreads, 0, st>>>(x, y, xor_y != 0, ri, si, n, out); break;
-      default: return -1;
-    }
   }
   return static_cast<int>(cudaGetLastError());
 }

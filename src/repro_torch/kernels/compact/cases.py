@@ -40,11 +40,11 @@ def _lane(pattern: str, n: int) -> np.ndarray:
     return m
 
 
-def lanes(long: bool = False, seed: int = 5) -> dict[str, np.ndarray]:
+def lanes(long: bool = False) -> dict[str, np.ndarray]:
     """Every pattern at every length of :data:`LENGTHS` (``"<pattern>
     n=<n>"``), each distinct lane once (at n 0 and 1 patterns coincide);
     with ``long``, also :data:`LONG_ROWS`-row lanes alternating and drawn
-    at random (``seed``, a third set), which only the card sweeps."""
+    at random (a third set, seed 5), which only the card sweeps."""
     out: dict[str, np.ndarray] = {}
     for n in LENGTHS:
         for p in PATTERNS:
@@ -55,5 +55,5 @@ def lanes(long: bool = False, seed: int = 5) -> dict[str, np.ndarray]:
     if long:
         out[f"alternating n={LONG_ROWS}"] = _lane("alternating", LONG_ROWS)
         out[f"random n={LONG_ROWS}"] = \
-            np.random.default_rng(seed).random(LONG_ROWS) < 1 / 3
+            np.random.default_rng(5).random(LONG_ROWS) < 1 / 3
     return out

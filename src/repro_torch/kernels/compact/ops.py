@@ -75,7 +75,7 @@ def compact_mask(mask: torch.Tensor):
     count = torch.empty((), dtype=torch.int32, device=dev)
     lib = _lib()
     # whole tiles a block, over at most half the resident grid: two tiles a
-    # block beat one at the main path's 742,279 rows (PERF.md, PR 18)
+    # block beat one at the main path's 742,279 rows (PERF.md)
     tiles = -(-n // TILE)
     per_block = -(-tiles // max(1, _max_blocks(lib, dev) // 2))
     grid = -(-tiles // per_block)
@@ -92,40 +92,3 @@ def compact_mask(mask: torch.Tensor):
 
 
 compact_mask.launches = 0
-
-
-def compact_mask_variant(mask: torch.Tensor, variant: int):
-    """PROBE ONLY: 0 the three-launch design before this one, 1 the kernel
-    at one tile a block, 2 four rows a thread at the shipped grid."""
-    lib = _lib()
-    n = mask.numel()
-    dev = mask.device
-    perm = torch.empty(n, dtype=torch.int32, device=dev)
-    count = torch.empty((), dtype=torch.int32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    tiles = -(-n // TILE)
-    if variant == 0:
-        if lib.compact_mask_old_launch.argtypes is None:
-            lib.compact_mask_old_launch.argtypes = [_P, ctypes.c_int64, _P, _P,
-                                                    _P, _P]
-            lib.compact_mask_old_launch.restype = ctypes.c_int
-        count.zero_()
-        sums = torch.empty(tiles, dtype=torch.int32, device=dev)
-        rc = lib.compact_mask_old_launch(mask.data_ptr(), n, sums.data_ptr(),
-                                         perm.data_ptr(), count.data_ptr(),
-                                         stream)
-    else:
-        fn = lib.compact_mask_launch if variant == 1 \
-            else lib.compact_mask_vec_launch
-        if fn.argtypes is None:
-            fn.argtypes = lib.compact_mask_launch.argtypes
-            fn.restype = ctypes.c_int
-        cap = _max_blocks(lib, dev) // (1 if variant == 1 else 2)
-        per_block = -(-tiles // max(1, cap))
-        grid = -(-tiles // per_block)
-        sums = torch.empty(grid, dtype=torch.int32, device=dev)
-        rc = fn(mask.data_ptr(), n, per_block * TILE, grid, sums.data_ptr(),
-                perm.data_ptr(), count.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"compact_mask_variant: cudaError {rc}")
-    return perm, count

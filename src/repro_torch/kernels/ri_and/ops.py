@@ -82,22 +82,3 @@ def ri_trichotomy(x: RIStoreTensors, y: RIStoreTensors, ri: torch.Tensor,
 
 
 ri_trichotomy.launches = 0
-
-
-def ri_trichotomy_variant(x, y, ri, si, xor_y, variant: int):
-    """PROBE ONLY: one of the designs timed while B5 is redesigned."""
-    lib = _lib()
-    if lib.ri_trichotomy_variant_launch.argtypes is None:
-        lib.ri_trichotomy_variant_launch.argtypes = (
-            [_P] * 10 + [ctypes.c_int, _P, _P, ctypes.c_int64, _P, _P,
-                         ctypes.c_int])
-        lib.ri_trichotomy_variant_launch.restype = ctypes.c_int
-    n = ri.numel()
-    out = torch.empty(n, dtype=torch.int8, device=ri.device)
-    ptrs = [t.data_ptr() for st in (x, y) for t in st]
-    rc = lib.ri_trichotomy_variant_launch(
-        *ptrs, int(bool(xor_y)), ri.data_ptr(), si.data_ptr(), n,
-        out.data_ptr(), torch.cuda.current_stream(ri.device).cuda_stream,
-        variant)
-    _raise_on(rc, "ri_trichotomy_variant")
-    return out
