@@ -97,7 +97,32 @@ reference package. Phases, any failure exits non-zero:
    it (AA over the frame, AF over the AA survivors) with the bound of both
    launches; after the frames' list widths (mean, p99 and max of nx + ny
    a join, read on the card);
-9. the APRIL block-sparse attention kernels (``april_attention``, the LM
+10. (run after phase 8, before phase 9) the ``within`` and ``selection``
+   joins and the staged float64 device refine: APRIL within, water bodies
+   T2 (phase 4's S and its store, through ``JoinPlan.build(prebuilt=...)``)
+   x zip codes T10 (``DATASET_SPECS``' ratio, 900 at the default counts),
+   staged with ``"cuda"`` and fused with ``mbr_backend`` ``"numpy"``,
+   both first and under ``torch.profiler`` (each trace must show its one
+   launch of B4, or of B3), then staged with ``refine_backend=
+   "device64"`` and fused with ``mbr_backend`` ``"torch"``, each run's
+   pairs, order and counts equal to the port's staged numpy run; APRIL selection (the zip codes as query polygons)
+   staged and fused, likewise; APRIL intersects at T1 x T2 with
+   ``"device64"``, equal to phase 4's default run; the ``ri``, ``ra``,
+   ``5cch``, ``april-c`` and ``none`` within joins at a third of the
+   counts, staged and fused, each giving APRIL's within result set. Launch
+   counts are reset before and read after each run: B4 once in each APRIL
+   within run, B2 once a staged ``cuda`` refine call, B3 once a fused run,
+   B1 in ``selection``. B2 is held exactly to its plain version on the
+   staged within run's sweep, B4 on the within AA of each fused run's whole
+   frame (and the status lane the run wrote to the plain lane), B3 on each
+   fused run's INDECISIVE lane; the fused stages pass
+   ``set_sync_debug_mode("error")``. Each run prints its candidates,
+   verdict mix, result pairs and stage times, beside the card's name and
+   power limit; the within kernels are timed on the device alone and
+   their rows of the ``kernels`` line gain the within launches;
+9. (in a child process of this script, after phase 10: late in a long
+   process the card machine's profiler records no device events) the
+   APRIL block-sparse attention kernels (``april_attention``, the LM
    bridge; no join runs it: bf16 on the tensor cores, f32 on the CUDA
    cores): on the test grid (``TEST_GRID``: the reference's cases from
    ``tests/test_kernels.py``, BH 2, S 256, D 64, blocks 64, f32 and bf16,
@@ -358,7 +383,7 @@ def _pair_set(res) -> set:
     return set(map(tuple, res.tolist()))
 
 
-def _sync_checked(run, label, status) -> None:
+def _sync_checked(run, label, status, predicate="intersects") -> None:
     """The fused chain's stages once more, where any host sync before the
     gather raises; they must write the same status lane."""
     import torch
@@ -366,7 +391,7 @@ def _sync_checked(run, label, status) -> None:
     prev = torch.cuda.get_sync_debug_mode()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        again = fused.build_stage_plan(run, "intersects").run()
+        again = fused.build_stage_plan(run, predicate).run()
     finally:
         torch.cuda.set_sync_debug_mode(prev)
     torch.cuda.synchronize()
@@ -610,6 +635,303 @@ def _interval_join_times(tri, frame, survivors, torch_frame) -> dict:
             "bound_ms_degenerate_order": bound_ms((xa, ya), frame)
             + bound_ms((xa, yf), survivors)},
     }
+
+
+def _compact_checked(label, m) -> int:
+    """The compaction kernel against its plain version and the stable
+    argsort oracle on lane ``m``, perm and count exactly; returns the
+    count."""
+    import torch
+    from repro_torch.kernels.compact import compact_mask, compact_mask_plain
+    kp, kc = compact_mask(m)
+    pp, pc = compact_mask_plain(m)
+    op = torch.argsort((~m).to(torch.uint8), stable=True).to(torch.int32)
+    torch.cuda.synchronize()
+    if not (torch.equal(kp, pp) and torch.equal(kp, op)
+            and int(kc) == int(pc) == int(m.sum())):
+        raise AssertionError(f"[{label}] compact_mask kernel != plain "
+                             "version or argsort oracle on the run's "
+                             "INDECISIVE lane")
+    return int(kc)
+
+
+def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
+                  wrappers) -> dict:
+    """Phase 10: the ``within`` and ``selection`` joins and the staged
+    ``device64`` refine on the card. Returns, by kernel, the keys its row
+    of the ``kernels`` line gains."""
+    import torch
+    from repro_torch import JoinPlan, make_dataset
+    from repro_torch.core.join import INDECISIVE, TRUE_NEG, fused_status_rows
+    from repro_torch.datagen.synthetic import DATASET_SPECS
+    from repro_torch.kernels.compact import compact_mask
+    from repro_torch.kernels.interval_join import (interval_overlap,
+                                                   interval_overlap_plain)
+    from repro_torch.kernels.refine import (edges_intersect_csr,
+                                            edges_intersect_csr_plain)
+    from repro_torch.spatial import fused
+    from repro_torch.spatial import refine as refine_mod
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"phase 10 card: {smi}", flush=True)
+    t0 = time.perf_counter()
+    # zip codes (T10) to water bodies (T2) as DATASET_SPECS has them
+    zips = DATASET_SPECS["T10"][0] * args.s_count // DATASET_SPECS["T2"][0]
+    Z = make_dataset("T10", seed=2, count=zips)
+    base = JoinPlan(S, Z, filter="april", n_order=args.n_order).build(
+        prebuilt=(plan.approx_s, None))
+    pre = (base.approx_r, base.approx_s)
+    print(f"host: T10 x {len(Z)} APRIL build {time.perf_counter() - t0:.1f} "
+          f"s (T2 x {len(S)} store reused from phase 4)", flush=True)
+    launches = {}
+
+    def run(label, predicate, R_, S_, pre_, **opts):
+        """One join, launch counts reset before and read after, its sweeps
+        and chains recorded; prints its counts and stage times."""
+        _reset(wrappers)
+        t0 = time.perf_counter()
+        p = JoinPlan(R_, S_, filter=opts.pop("filter", "april"),
+                     n_order=args.n_order, **opts).build(prebuilt=pre_)
+        with refine_mod.record_sweeps() as sweeps, \
+                fused.record_chains() as chains:
+            res, st = p.execute(predicate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        print(f"[{label}] {wall:.2f} s; launches "
+              f"{json.dumps(launches[label])}; candidates {st.n_candidates}, "
+              f"TRUE_HIT/TRUE_NEG/INDECISIVE {st.n_true_hits}/"
+              f"{st.n_true_negs}/{st.n_indecisive}, {st.n_results} result "
+              f"pairs; {json.dumps(st.stage_times())}; "
+              f"{json.dumps(st.extra)}", flush=True)
+        return p, res, st, sweeps, chains
+
+    def profiled(label, kernel, *a, **kw):
+        """``run`` under the profiler, taken again until its trace shows
+        the one launch of ``kernel`` the run makes."""
+        box = []
+        prof = _profile_showing(label, lambda: box.append(run(label, *a,
+                                                              **kw)),
+                                kernel, launches=1)
+        print(f"profile [{label}] (card {smi}): device busy "
+              f"{prof['device_busy_us'] / 1e3:.2f} ms of "
+              f"{prof['wall_us'] / 1e6:.2f} s "
+              f"({100 * prof['device_busy_share']:.2f} %)", flush=True)
+        return box[-1]
+
+    def need(label, **want):
+        """Launch counts: an int must match, ``True`` means at least one."""
+        for name, n in want.items():
+            got = launches[label][name]
+            if (n is True and got < 1) or (n is not True and got != n):
+                raise AssertionError(f"[{label}] {got} {name} launches, "
+                                     f"expected {'>= 1' if n is True else n}")
+
+    # APRIL within, T2 x T10: the profiled runs first, while this process's
+    # profiler still records device events (see _attention_in_fresh_process),
+    # then numpy, staged device64 and fused with the torch MBR lane
+    _, res, st, sweeps, _ = profiled("within-staged",
+                                     "interval_overlap_kernel", "within", S,
+                                     Z, pre)
+    fused_numpy = profiled("within-fused-numpy", "compact_mask_kernel",
+                           "within", S, Z, pre, pipeline_mode="fused")
+    _, want, want_st, _, _ = run("within-numpy", "within", S, Z, pre,
+                                 filter_backend="numpy",
+                                 refine_backend="numpy")
+    _same_run("within-staged", res, st, want, want_st)
+    need("within-staged", interval_overlap=True,
+         edges_intersect_csr=int(st.n_indecisive > 0))
+    (sw,) = sweeps
+    kh, ku = edges_intersect_csr(*sw)
+    ph, pu = edges_intersect_csr_plain(*sw)
+    torch.cuda.synchronize()
+    if not (torch.equal(kh, ph) and torch.equal(ku, pu)):
+        raise AssertionError("[within-staged] edges_intersect kernel != "
+                             "plain version on the run's within sweep")
+    print(f"[within-staged] == numpy pairs, order and counts; edge sweep "
+          f"kernel == plain version on its one call ({sw[2].numel() - 1} "
+          f"rows, {int(kh.sum())} definite crossings, {int(ku.sum())} in "
+          f"the band); tolerance: exact", flush=True)
+    _, res, st, _, _ = run("within-device64", "within", S, Z, pre,
+                           refine_backend="device64")
+    _same_run("within-device64", res, st, want, want_st)
+    need("within-device64", interval_overlap=True, edges_intersect_csr=0)
+    frames = {}
+    for mb in ("numpy", "torch"):
+        label = f"within-fused-{mb}"
+        if mb == "numpy":
+            p, res, st, _, chains = fused_numpy
+        else:
+            p, res, st, _, chains = run(label, "within", S, Z, pre,
+                                        pipeline_mode="fused",
+                                        mbr_backend="torch")
+        _same_run(label, res, st, want, want_st)
+        need(label, interval_overlap=1, compact_mask=1,
+             edges_intersect_csr=0)
+        (cs,) = chains
+        _sync_checked(p, label, cs.status, "within")
+        # B4's within AA over the whole frame, and the lane the run wrote,
+        # against the plain versions
+        lists = [p.filter._lists(a, k).to(dev) for a, k in
+                 ((p.approx_r, "A"), (p.approx_s, "A"))]
+        got = interval_overlap(*lists, cs.ri_dev, cs.si_dev)
+        plain = interval_overlap_plain(*lists, cs.ri_dev, cs.si_dev)
+        lane = fused_status_rows(
+            p.filter._lists(p.approx_r, "A"), None,
+            p.filter._lists(p.approx_s, "A"),
+            p.filter._lists(p.approx_s, "F"), cs.ri, cs.si,
+            predicate="within", rows=(cs.ri_dev, cs.si_dev),
+            backend="torch", device=dev)
+        if cs.valid is not None:
+            lane = torch.where(cs.valid, lane, TRUE_NEG)
+        torch.cuda.synchronize()
+        if not torch.equal(got, plain):
+            raise AssertionError(f"[{label}] interval_overlap kernel != "
+                                 "plain version on the run's within AA")
+        if not torch.equal(cs.status, lane):
+            raise AssertionError(f"[{label}] the status lane != the plain "
+                                 "within lane")
+        n_ind = _compact_checked(label, cs.status == INDECISIVE)
+        frames[mb] = (lists, (cs.ri_dev, cs.si_dev), cs.status == INDECISIVE)
+        print(f"[{label}] == numpy pairs, order and counts; stages passed "
+              f"set_sync_debug_mode('error'); interval_overlap kernel == "
+              f"plain version on the within AA of all {len(cs)} frame rows "
+              f"({int(plain.sum())} overlap); status lane == plain; "
+              f"compaction kernel == plain == oracle ({n_ind} INDECISIVE); "
+              f"tolerance: exact", flush=True)
+        del cs, chains, got, plain, lane
+    del fused_numpy
+
+    # APRIL selection, T2 x T10: the zip codes as query polygons
+    _, want_q, want_q_st, _, _ = run("selection-numpy", "selection", S, Z,
+                                     pre, filter_backend="numpy",
+                                     refine_backend="numpy")
+    for label, opts in (("selection-staged", {}),
+                        ("selection-fused", {"pipeline_mode": "fused"})):
+        _, res, st, _, _ = run(label, "selection", S, Z, pre, **opts)
+        _same_run(label, res, st, want_q, want_q_st)
+        if "fused" in label:
+            need(label, april_trichotomy=1, compact_mask=1,
+                 edges_intersect_csr=0)
+        else:
+            need(label, april_trichotomy=True,
+                 edges_intersect_csr=int(st.n_indecisive > 0))
+    print(f"[selection] staged and fused == numpy pairs, order and counts "
+          f"({len(want_q)} pairs)", flush=True)
+
+    # APRIL intersects, T1 x T2, staged with the float64 device refine
+    _, res, st, _, _ = run("intersects-device64", "intersects", R, S,
+                           (plan.approx_r, plan.approx_s),
+                           refine_backend="device64")
+    _same_run("intersects-device64", res, st, want_default, want_default_st)
+    need("intersects-device64", april_trichotomy=True, edges_intersect_csr=0)
+    print(f"[intersects-device64] == the phase 4 default run: {len(res)} "
+          f"pairs, order and counts", flush=True)
+
+    # every filter's within join at the DATASET_SPECS counts
+    t0 = time.perf_counter()
+    W2 = make_dataset("T2", seed=1, count=args.s_count // HOST_SCALE)
+    Z2 = make_dataset("T10", seed=2, count=zips // HOST_SCALE)
+    april2 = JoinPlan(W2, Z2, filter="april", n_order=args.n_order).build()
+    want_set = _pair_set(april2.execute("within")[0])
+    print(f"host filters: APRIL within at {len(W2)} x {len(Z2)} "
+          f"{time.perf_counter() - t0:.1f} s, {len(want_set)} pairs",
+          flush=True)
+    for name in ("ri", "ra", "5cch", "april-c", "none"):
+        t0 = time.perf_counter()
+        host = JoinPlan(W2, Z2, filter=name, n_order=args.n_order).build()
+        t_build = time.perf_counter() - t0
+        runs = {}
+        for mode in ("staged", "fused"):
+            label = f"{name}-within-{mode}"
+            _, res, st, _, _ = run(label, "within", W2, Z2,
+                                   (host.approx_r, host.approx_s),
+                                   filter=name, pipeline_mode=mode)
+            if mode == "fused":
+                need(label, compact_mask=1, edges_intersect_csr=0)
+            else:
+                need(label, edges_intersect_csr=int(st.n_indecisive > 0),
+                     **({"interval_overlap": True} if name == "april-c"
+                        else {}))
+            runs[mode] = (res, st)
+        _same_run(f"{name}-within-fused", *runs["fused"], *runs["staged"])
+        if _pair_set(runs["staged"][0]) != want_set:
+            raise AssertionError(f"[{name}-within] result set != the APRIL "
+                                 "run's")
+        print(f"[{name}-within] build {t_build:.2f} s; staged == fused "
+              f"pairs, order and counts; set == APRIL's ({len(want_set)} "
+              f"pairs)", flush=True)
+
+    # the within path's kernel work on the device alone, beside its bounds
+    (xa, ya), rows, ind = frames["numpy"]
+    aa_bytes = _nbytes(*xa, *ya, *rows) + rows[0].numel()
+    sw_couples = int((torch.diff(sw[2]) * torch.diff(sw[5])).sum())
+    sw_rows = sw[2].numel() - 1
+    t_bytes = (16 * (sw[0].shape[0] + sw[3].shape[0]) + 18 * sw_rows) \
+        / HBM_BYTES_PER_S
+    t_ops = sw_couples * SWEEP_OPS_PER_COUPLE / F32_OPS_PER_S
+
+    def by(label_prefix, name):
+        return {k: v[name] for k, v in launches.items()
+                if k.startswith(label_prefix)}
+
+    extra = {
+        "interval_overlap": {
+            "launches_within": by("within", "interval_overlap"),
+            "within_frame_rows": rows[0].numel(),
+            "within_aa_device_ms": _device_ms(
+                lambda: interval_overlap(xa, ya, *rows)),
+            "within_aa_bound_ms": aa_bytes / HBM_BYTES_PER_S * 1e3},
+        "edges_intersect": {
+            "launches_within": by("within", "edges_intersect_csr"),
+            "within_sweep_rows": sw_rows,
+            "within_sweep_device_ms": _device_ms(
+                lambda: edges_intersect_csr(*sw)),
+            "within_sweep_bound_ms": max(t_bytes, t_ops) * 1e3,
+            "within_sweep_bound_by": "bytes" if t_bytes >= t_ops
+            else "operations"},
+        "exclusive_scan": {
+            "launches_within": by("within", "compact_mask"),
+            "within_device_ms": _device_ms(lambda: compact_mask(ind))},
+        "april_trichotomy": {
+            "launches_selection": by("selection", "april_trichotomy")},
+    }
+    print(f"within kernels on the device alone (card {smi}): "
+          f"{json.dumps(extra)}", flush=True)
+    print(f"phase 10 ok: within and selection, device64 "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return extra
+
+
+def _attention_child(out: str) -> None:
+    """Phase 9 in this process, its rows of the ``kernels`` line written to
+    the JSON file ``out``: the body of :func:`_attention_in_fresh_process`'s
+    child."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    Path(out).write_text(json.dumps(_attention_phase(torch.device("cuda"))))
+
+
+def _attention_in_fresh_process() -> list:
+    """Phase 9 in a child process of this script; returns its rows of the
+    ``kernels`` line, and fails if the child fails.
+
+    On the card's machine the ``torch.profiler`` sessions of a process
+    that has run for some minutes come to record no device event at all
+    (every session of phase 9's, after phase 10 ran in the same process),
+    and phase 9 requires its traces to show the kernels' launches; a
+    fresh process records them. The child inherits this process's
+    environment (the compile caches) and the kernels it built."""
+    with tempfile.TemporaryDirectory() as tmp:
+        out = Path(tmp) / "attention.json"
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; chip_smoke._attention_child(sys.argv[2])")
+        subprocess.run([sys.executable, "-c", code,
+                        str(Path(__file__).resolve().parent), str(out)],
+                       check=True)
+        return json.loads(out.read_text())
 
 
 def _allowed_positions(S: int, kind: str, window: int) -> int:
@@ -1062,10 +1384,6 @@ def main() -> int:
         want = april_trichotomy_plain(*tri, cs.ri_dev, cs.si_dev)
         wrote = want if cs.valid is None else torch.where(cs.valid, want,
                                                           TRUE_NEG)
-        m = cs.status == INDECISIVE
-        kp, kc = compact_mask(m)
-        pp, pc = compact_mask_plain(m)
-        op = torch.argsort((~m).to(torch.uint8), stable=True).to(torch.int32)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"[{label}] april_trichotomy kernel != plain "
@@ -1073,20 +1391,16 @@ def main() -> int:
         if not torch.equal(cs.status, wrote):
             raise AssertionError(f"[{label}] the run's status lane != the "
                                  "plain trichotomy under its valid lane")
-        if not (torch.equal(kp, pp) and torch.equal(kp, op)
-                and int(kc) == int(pc) == int(m.sum())):
-            raise AssertionError(f"[{label}] compact_mask kernel != plain "
-                                 "version or argsort oracle on the run's "
-                                 "INDECISIVE lane")
+        n_set = _compact_checked(label, cs.status == INDECISIVE)
         print(f"[{label}] chain stages passed set_sync_debug_mode('error'); "
               f"recorded inputs: trichotomy kernel == plain version on all "
               f"{len(cs)} frame rows ({int((got == INDECISIVE).sum())} "
               f"INDECISIVE before the valid lane), status lane == plain; "
-              f"compaction kernel == plain == oracle on the {m.numel()}-row "
-              f"INDECISIVE lane ({int(kc)} set)", flush=True)
+              f"compaction kernel == plain == oracle on the {len(cs)}-row "
+              f"INDECISIVE lane ({n_set} set)", flush=True)
         if mb == "torch":
             torch_frame = (cs.ri_dev, cs.si_dev)
-        del cs, chains, got, want, wrote, m, kp, pp, op
+        del cs, chains, got, want, wrote
     need = {"default": ("april_trichotomy", "edges_intersect_csr"),
             "degenerate": ("interval_overlap", "edges_intersect_csr"),
             "fused-numpy": ("april_trichotomy", "compact_mask"),
@@ -1442,8 +1756,14 @@ def main() -> int:
           f"phase 8 {time.perf_counter() - t_phase:.1f} s; total "
           f"{time.perf_counter() - t_start:.1f} s", flush=True)
 
-    # 9. the attention kernel, which no join runs
-    kernels.extend(_attention_phase(dev))
+    # 10. the within and selection joins and the staged device64 refine
+    within = _within_phase(args, dev, R, S, plan, results["default"],
+                           stats["default"], wrappers)
+    for k in kernels:
+        k.update(within.get(k["name"], {}))
+
+    # 9. the attention kernel, which no join runs, in a fresh process
+    kernels.extend(_attention_in_fresh_process())
     bad = [k["name"] for k in kernels
            if not k.get("rel_err", k["max_abs_err"]) <= k["tol"]]
     if bad:

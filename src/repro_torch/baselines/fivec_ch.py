@@ -16,7 +16,8 @@ import numpy as np
 from ..core.join import INDECISIVE, TRUE_NEG
 
 __all__ = ["FiveCCH", "build_5cch", "fivecch_verdict_pair",
-           "fivecch_filter_batch", "convex_hull"]
+           "fivecch_within_verdict_pair", "fivecch_filter_batch",
+           "convex_hull"]
 
 # 5 fixed outward normals (72-degree steps)
 _ANG = np.pi / 2 + 2 * np.pi * np.arange(5) / 5
@@ -137,6 +138,13 @@ def fivecch_verdict_pair(store_r: FiveCCH, i: int, store_s: FiveCCH, j: int) -> 
     if len(ha) >= 3 and len(hb) >= 3 and convex_disjoint(ha, hb):
         return TRUE_NEG
     return INDECISIVE
+
+
+def fivecch_within_verdict_pair(store_r: FiveCCH, i: int, store_s: FiveCCH,
+                                j: int) -> int:
+    """Within filter: conservative approximations can only certify TRUE_NEG
+    (disjoint approximations => r is not within s); never a hit."""
+    return fivecch_verdict_pair(store_r, i, store_s, j)
 
 
 # ---------------------------------------------------------------------------

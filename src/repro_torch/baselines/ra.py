@@ -22,7 +22,8 @@ import numpy as np
 from ..core import geometry
 from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
 
-__all__ = ["RAStore", "build_ra", "ra_verdict_pair", "ra_filter_batch"]
+__all__ = ["RAStore", "build_ra", "ra_verdict_pair", "ra_filter_batch",
+           "ra_within_verdict_pair", "ra_within_batch"]
 
 EMPTY, WEAK, STRONG, FULL = 0, 1, 2, 3
 _MID = np.array([0.0, 0.25, 0.75, 1.0])
@@ -260,6 +261,97 @@ def ra_filter_batch(store_r: RAStore, store_s: RAStore, pairs: np.ndarray,
         maybe = np.any((t == 0) & valid, axis=(1, 2))
         out[sel] = np.where(hit, TRUE_HIT,
                             np.where(maybe, INDECISIVE, TRUE_NEG))
+        i0 += len(sel)
+    return out
+
+
+def ra_within_verdict_pair(store_r: RAStore, i: int, store_s: RAStore,
+                           j: int) -> int:
+    """RA within filter (r within s?), the per-pair reference.
+
+    Sound rules at the pair's coarser scale k: any non-Empty r cell that is
+    Empty in s (or outside s's grid) kills the pair; r Full requires s Full;
+    r Strong against s Weak kills only when s is at its native scale (an
+    upscaled Weak is not a <=50% upper bound). TRUE_HIT iff every non-Empty
+    r cell is Full in s.
+    """
+    k = max(int(store_r.k[i]), int(store_s.k[j]))
+    (oxr, oyr), gr = _upscale_to(store_r, i, k)
+    (oxs, oys), gs = _upscale_to(store_s, j, k)
+    side = store_r.omega * (1 << k)
+    rx0 = int(round(oxr / side)); ry0 = int(round(oyr / side))
+    sx0 = int(round(oxs / side)); sy0 = int(round(oys / side))
+    s_native = k == int(store_s.k[j])
+    all_full = True
+    nonempty = False
+    for y in range(gr.shape[0]):
+        for x in range(gr.shape[1]):
+            cr = gr[y, x]
+            if cr == EMPTY:
+                continue
+            nonempty = True
+            gx = rx0 + x - sx0
+            gy = ry0 + y - sy0
+            if gx < 0 or gy < 0 or gx >= gs.shape[1] or gy >= gs.shape[0]:
+                return TRUE_NEG
+            cs = gs[gy, gx]
+            if cs == EMPTY:
+                return TRUE_NEG
+            if cr == FULL and cs != FULL:
+                return TRUE_NEG
+            if s_native and cr == STRONG and cs == WEAK:
+                return TRUE_NEG
+            if cs != FULL:
+                all_full = False
+    if not nonempty:
+        return TRUE_HIT
+    return TRUE_HIT if all_full else INDECISIVE
+
+
+def ra_within_batch(store_r: RAStore, store_s: RAStore, pairs: np.ndarray,
+                    cache_r: dict | None = None, cache_s: dict | None = None,
+                    chunk_elems: int = 1 << 24) -> np.ndarray:
+    """Vectorized RA within filter over pairs [N,2]; verdict-identical to
+    :func:`ra_within_verdict_pair` per pair. ``cache_r``/``cache_s``
+    memoize the upscale pyramids, as for :func:`ra_filter_batch`."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    N = len(pairs)
+    if N == 0:
+        return np.zeros(0, np.int8)
+    kk, (fr, rx0, ry0, rb, rnx, rny), (fs, sx0, sy0, sb, snx, sny) = \
+        _pair_grids(store_r, store_s, pairs, cache_r, cache_s)
+    s_native = kk == store_s.k[pairs[:, 1]].astype(np.int64)
+    out = np.empty(N, np.int8)
+    i0 = 0
+    order = np.arange(N)
+    while i0 < N:
+        Hm = int(rny[order[i0:]].max()); Wm = int(rnx[order[i0:]].max())
+        rows = max(1, int(chunk_elems // max(1, Hm * Wm)))
+        sel = order[i0: i0 + rows]
+        Hm = int(rny[sel].max()); Wm = int(rnx[sel].max())
+        yy = np.arange(Hm)[None, :, None]
+        xx = np.arange(Wm)[None, None, :]
+        valid = (yy < rny[sel, None, None]) & (xx < rnx[sel, None, None])
+        idx_r = rb[sel, None, None] + yy * rnx[sel, None, None] + xx
+        cr = np.where(valid, fr[np.clip(idx_r, 0, max(len(fr) - 1, 0))], EMPTY)
+        gx = rx0[sel, None, None] + xx - sx0[sel, None, None]
+        gy = ry0[sel, None, None] + yy - sy0[sel, None, None]
+        inside = ((gx >= 0) & (gy >= 0) & (gx < snx[sel, None, None])
+                  & (gy < sny[sel, None, None]))
+        idx_s = sb[sel, None, None] + gy * snx[sel, None, None] + gx
+        cs = np.where(valid & inside,
+                      fs[np.clip(idx_s, 0, max(len(fs) - 1, 0))], EMPTY)
+        ne = valid & (cr != EMPTY)
+        neg_cell = ne & ((~inside) | (cs == EMPTY)
+                         | ((cr == FULL) & (cs != FULL))
+                         | (s_native[sel, None, None]
+                            & (cr == STRONG) & (cs == WEAK)))
+        notfull = ne & (cs != FULL)
+        neg = np.any(neg_cell, axis=(1, 2))
+        any_ne = np.any(ne, axis=(1, 2))
+        nf = np.any(notfull, axis=(1, 2))
+        out[sel] = np.where(neg, TRUE_NEG,
+                            np.where(~any_ne | ~nf, TRUE_HIT, INDECISIVE))
         i0 += len(sel)
     return out
 

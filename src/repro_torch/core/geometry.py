@@ -15,7 +15,7 @@ __all__ = [
     "points_on_polygon_boundary", "points_in_polygon_closed",
     "points_in_polygons_batch", "points_in_polygon_rows",
     "representative_points", "segments_intersect", "polygons_intersect",
-    "polygon_area", "clip_polygon_to_box", "box_clip_areas_rows",
+    "polygon_within", "polygon_area", "clip_polygon_to_box", "box_clip_areas_rows",
 ]
 
 
@@ -273,6 +273,26 @@ def polygons_intersect(
     if bool(points_in_polygon_closed(rb[None], va)[0]):
         return True
     return False
+
+
+def polygon_within(verts_a: np.ndarray, na: int, verts_b: np.ndarray,
+                   nb: int) -> bool:
+    """Exact 'a within b' (a's area a subset of b's), the within oracle.
+    Boundary contact counts as within (closed-region semantics): every
+    vertex of a lies in the closed b, and no edge pair crosses properly."""
+    va = np.asarray(verts_a, np.float64)[: int(na)]
+    vb = np.asarray(verts_b, np.float64)[: int(nb)]
+    if not points_in_polygon_closed(va, vb).all():
+        return False
+    a0 = va; a1 = np.roll(va, -1, axis=0)
+    b0 = vb; b1 = np.roll(vb, -1, axis=0)
+    d1 = _orient(b0[None, :, 0], b0[None, :, 1], b1[None, :, 0], b1[None, :, 1], a0[:, None, 0], a0[:, None, 1])
+    d2 = _orient(b0[None, :, 0], b0[None, :, 1], b1[None, :, 0], b1[None, :, 1], a1[:, None, 0], a1[:, None, 1])
+    d3 = _orient(a0[:, None, 0], a0[:, None, 1], a1[:, None, 0], a1[:, None, 1], b0[None, :, 0], b0[None, :, 1])
+    d4 = _orient(a0[:, None, 0], a0[:, None, 1], a1[:, None, 0], a1[:, None, 1], b1[None, :, 0], b1[None, :, 1])
+    proper = ((d1 > 0) != (d2 > 0)) & ((d3 > 0) != (d4 > 0)) \
+        & (d1 != 0) & (d2 != 0) & (d3 != 0) & (d4 != 0)
+    return not bool(proper.any())
 
 
 # ---------------------------------------------------------------------------

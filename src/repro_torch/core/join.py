@@ -1,11 +1,16 @@
 """Interval joins: the APRIL intermediate filter (paper §4.2, Algorithm 2).
 
 * **Faithful sequential merge joins** (:func:`interval_join_pair`,
-  :func:`april_verdict_pair`) — the paper's two-pointer loops with early
+  :func:`containment_join_pair`, :func:`april_verdict_pair`,
+  :func:`within_verdict_pair`) — the paper's two-pointer loops with early
   exit, the per-pair reference.
-* **Batched staged trichotomy** (:func:`april_trichotomy_rows`) over
-  :class:`IntervalLists`, a dataset side's lists CSR-packed in biased
-  int32 with inclusive lasts, uploaded to a device once and cached.
+* **Batched staged trichotomies** (:func:`april_trichotomy_rows`,
+  :func:`within_trichotomy_rows`) over :class:`IntervalLists`, a dataset
+  side's lists CSR-packed in biased int32 with inclusive lasts, uploaded
+  to a device once and cached. The within join's containment test runs on
+  the host (:func:`contain_rows_np`) or on the device
+  (:func:`contain_rows`), a row-keyed ``torch.searchsorted`` with no
+  kernel of its own, as in the reference.
 
 Backends of the filter stage (``filter_backend`` on ``JoinPlan``):
 
@@ -22,7 +27,9 @@ verdicts of every frame row straight into a device int8 lane, with no host
 read.
 
 Verdicts follow the paper's trichotomy: TRUE_NEG (AA-join empty), TRUE_HIT
-(AF- or FA-join finds an overlap) or INDECISIVE (forwarded to refinement).
+(``intersects``: the AF- or FA-join finds an overlap; ``within``: every
+interval of A(r) lies inside one of F(s)) or INDECISIVE (forwarded to
+refinement).
 """
 from __future__ import annotations
 
@@ -39,8 +46,9 @@ from .hilbert import u32_to_biased_i32
 __all__ = [
     "TRUE_NEG", "TRUE_HIT", "INDECISIVE", "FILTER_BACKENDS",
     "check_filter_backend", "IntervalLists", "interval_join_pair",
-    "april_verdict_pair", "overlap_rows_np", "april_trichotomy_rows",
-    "fused_status_rows",
+    "containment_join_pair", "april_verdict_pair", "within_verdict_pair",
+    "overlap_rows_np", "contain_rows_np", "contain_rows",
+    "april_trichotomy_rows", "within_trichotomy_rows", "fused_status_rows",
 ]
 
 I32_MAX = np.int32(np.iinfo(np.int32).max)
@@ -75,6 +83,19 @@ def interval_join_pair(X: np.ndarray, Y: np.ndarray) -> bool:
     return False
 
 
+def containment_join_pair(X: np.ndarray, F: np.ndarray) -> bool:
+    """True iff EVERY interval of X lies inside some interval of F (the
+    within join's variant of the AF-join, §4.3.2)."""
+    j = 0
+    nf = len(F)
+    for xs, xe in X:
+        while j < nf and F[j][1] < xe:
+            j += 1
+        if j >= nf or not (F[j][0] <= xs and xe <= F[j][1]):
+            return False
+    return True
+
+
 def april_verdict_pair(
     Ar: np.ndarray, Fr: np.ndarray, As: np.ndarray, Fs: np.ndarray,
     order: tuple[str, ...] = ("AA", "AF", "FA"),
@@ -100,6 +121,17 @@ def april_verdict_pair(
     return INDECISIVE
 
 
+def within_verdict_pair(Ar, Fr, As, Fs) -> int:
+    """Within-join filter for one pair (§4.3.2): is r within s? A(r) and
+    A(s) disjoint -> TRUE_NEG; every A(r) interval inside an F(s) interval
+    -> TRUE_HIT; else INDECISIVE. ``Fr`` is unused."""
+    if not interval_join_pair(Ar, As):
+        return TRUE_NEG
+    if len(Ar) and containment_join_pair(Ar, Fs):
+        return TRUE_HIT
+    return INDECISIVE
+
+
 # ---------------------------------------------------------------------------
 # Interval lists, host and device
 # ---------------------------------------------------------------------------
@@ -113,7 +145,7 @@ class IntervalLists:
     host.
     """
 
-    __slots__ = ("off", "starts", "lasts", "_device")
+    __slots__ = ("off", "starts", "lasts", "_device", "_keys")
 
     def __init__(self, off: np.ndarray, starts: np.ndarray,
                  lasts: np.ndarray):
@@ -121,6 +153,7 @@ class IntervalLists:
         self.starts = np.ascontiguousarray(starts, np.int32)
         self.lasts = np.ascontiguousarray(lasts, np.int32)
         self._device: dict[str, CSRLists] = {}
+        self._keys: dict[str, torch.Tensor] = {}
 
     @classmethod
     def from_intervals(cls, off: np.ndarray, ints: np.ndarray):
@@ -154,6 +187,20 @@ class IntervalLists:
             self._device[key] = CSRLists(
                 *(torch.from_numpy(a).to(dev) for a in (self.off, s, l)))
         return self._device[key]
+
+    def last_keys(self, device) -> torch.Tensor:
+        """[T] int64 on ``device``, uploaded once and cached: each
+        interval's inclusive last keyed by its row, ``row << 33 | last +
+        2^31``, ascending over the whole store (rows in order, lists
+        sorted), so one ``searchsorted`` finds an interval in any row."""
+        dev = torch.device(device)
+        key = str(dev)
+        if key not in self._keys:
+            row = np.repeat(np.arange(len(self)), self.counts(
+                np.arange(len(self))))
+            self._keys[key] = torch.from_numpy(
+                _rowkey(row, self.lasts).astype(np.int64)).to(dev)
+        return self._keys[key]
 
 
 # ---------------------------------------------------------------------------
@@ -204,6 +251,31 @@ def overlap_rows_np(X: IntervalLists, xi: np.ndarray,
     return out
 
 
+def contain_rows_np(X: IntervalLists, xi: np.ndarray,
+                    F: IntervalLists, fi: np.ndarray) -> np.ndarray:
+    """[N] bool: is every interval of X[xi[n]] inside some interval of
+    F[fi[n]]? (the within join's AF test, §4.3.2). False for an empty X or
+    F list; the trichotomy drivers consult it only on AA survivors."""
+    xi = np.asarray(xi, np.int64)
+    N = len(xi)
+    out = (X.counts(xi) > 0) & (F.counts(fi) > 0)
+    if N == 0:
+        return out
+    bx, gx, _ = _flat_rows(X, xi)
+    bf, gf, cf = _flat_rows(F, fi)
+    if len(bx) == 0 or len(bf) == 0:
+        return out      # some side is empty on every row
+    fkeys = _rowkey(bf, F.lasts[gf])
+    fend = np.cumsum(cf)
+    j = np.searchsorted(fkeys, _rowkey(bx, X.lasts[gx]), side="left")
+    ok = j < fend[bx]
+    jj = np.minimum(j, len(gf) - 1)
+    inside = ok & (F.starts[gf[jj]] <= X.starts[gx]) \
+        & (X.lasts[gx] <= F.lasts[gf[jj]])
+    out[bx[~inside]] = False
+    return out
+
+
 def _check_frame(idx: np.ndarray, L: IntervalLists, name: str) -> None:
     """Host row indices into ``L`` range-checked in numpy (no device read)."""
     if len(idx) and (idx.min() < 0 or idx.max() >= len(L)):
@@ -230,6 +302,61 @@ def _overlap_fn(backend: str, dev: torch.device):
                  _rows(yi, Y, dev, "yi"))
         return got.cpu().numpy()
     return overlap
+
+
+def contain_rows(X: IntervalLists, xi: np.ndarray, F: IntervalLists,
+                 fi: np.ndarray, *, device=None, rows=None) -> torch.Tensor:
+    """Device bool [N]: :func:`contain_rows_np` of rows (xi[n], fi[n]) on
+    ``device`` (``None`` -> ``"cuda"``), with no host read.
+
+    Each X interval of every row is expanded on the device (their number
+    comes from the host offsets), and one ``torch.searchsorted`` of its
+    row-keyed inclusive last over F's store keys (:meth:`IntervalLists.
+    last_keys`) finds the first F interval of row fi[n] ending at or after
+    it. ``rows`` are the int64 copies of (xi, fi) already on ``device``;
+    for the call to stay free of host syncs they and the lists must be
+    there already (``IntervalLists.to``, ``last_keys``).
+    """
+    dev = resolve_device(device)
+    xi = np.asarray(xi, np.int64)
+    fi = np.asarray(fi, np.int64)
+    if rows is None:
+        rows = (_rows(xi, X, dev, "xi"), _rows(fi, F, dev, "fi"))
+    else:
+        _check_frame(xi, X, "xi")
+        _check_frame(fi, F, "fi")
+    xi_d, fi_d = rows
+    N = len(xi)
+    x, f = X.to(dev), F.to(dev)
+    cx = x.off[xi_d + 1] - x.off[xi_d]
+    out = (cx > 0) & (f.off[fi_d + 1] > f.off[fi_d])
+    T = int(X.counts(xi).sum())
+    if N == 0 or T == 0 or len(F.starts) == 0:
+        return out
+    bx = torch.repeat_interleave(torch.arange(N, device=dev), cx,
+                                 output_size=T)
+    first = torch.cumsum(cx, 0) - cx
+    gx = x.off[xi_d][bx] + torch.arange(T, device=dev) - first[bx]
+    xs, xl = x.starts[gx], x.lasts[gx]
+    frow = fi_d[bx]
+    q = (frow << 33) + (xl.to(torch.int64) + (1 << 31))
+    j = torch.searchsorted(F.last_keys(dev), q, side="left")
+    ok = j < f.off[frow + 1]
+    jj = torch.clamp(j, max=len(F.starts) - 1)
+    inside = ok & (f.starts[jj] <= xs) & (xl <= f.lasts[jj])
+    bad = torch.zeros(N, dtype=torch.int32, device=dev).index_add_(
+        0, bx, (~inside).to(torch.int32))
+    return out & (bad == 0)
+
+
+def _contain_fn(backend: str, dev: torch.device):
+    """Host-in, host-out containment rows for one backend."""
+    if backend == "numpy":
+        return contain_rows_np
+
+    def contain(X, xi, F, fi):
+        return contain_rows(X, xi, F, fi, device=dev).cpu().numpy()
+    return contain
 
 
 # ---------------------------------------------------------------------------
@@ -297,25 +424,65 @@ def april_trichotomy_rows(
     return verdicts
 
 
-def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists,
+def within_trichotomy_rows(
+    Xa: IntervalLists, Ya: IntervalLists, Yf: IntervalLists,
+    ri: np.ndarray, si: np.ndarray, *, backend: str = "numpy", device=None,
+) -> np.ndarray:
+    """Within trichotomy (§4.3.2) over rows (ri[n], si[n]) -> [N] int8: the
+    AA-join over the whole batch, then the containment of A(r) in F(s) on
+    the compacted AA survivors only. ``torch`` and ``cuda`` run the AA-join
+    through the interval-overlap kernel's plain version or the kernel and
+    the containment on ``device`` (``None`` -> ``"cuda"``); ``numpy`` runs
+    both on the host; ``sequential`` is the per-pair reference."""
+    check_filter_backend(backend)
+    ri = np.asarray(ri, np.int64)
+    si = np.asarray(si, np.int64)
+    N = len(ri)
+    if backend == "sequential":
+        return np.asarray([
+            within_verdict_pair(_lists_np(Xa, r), None, _lists_np(Ya, s),
+                                _lists_np(Yf, s))
+            for r, s in zip(ri, si)], np.int8).reshape(N)
+    dev = None
+    if backend != "numpy":
+        dev = resolve_device(device)
+        check_backend_device(backend, dev)
+    if N == 0:
+        return np.zeros(0, np.int8)
+    aa = _overlap_fn(backend, dev)(Xa, ri, Ya, si)
+    verdicts = np.where(aa, INDECISIVE, TRUE_NEG).astype(np.int8)
+    sel = np.nonzero(aa)[0]
+    if len(sel):
+        cont = _contain_fn(backend, dev)(Xa, ri[sel], Yf, si[sel])
+        verdicts[sel[cont]] = TRUE_HIT
+    return verdicts
+
+
+def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists | None,
                       Ya: IntervalLists, Yf: IntervalLists, ri: np.ndarray,
-                      si: np.ndarray, *, rows=None, backend: str = "cuda",
+                      si: np.ndarray, *, predicate: str = "intersects",
+                      rows=None, backend: str = "cuda",
                       device=None) -> torch.Tensor:
     """Device int8 status lane [N] over every row of the fused chain's pair
-    frame (``intersects``), computed on ``device`` with no host read.
+    frame, computed on ``device`` with no host read.
 
-    ``backend="cuda"`` is one trichotomy kernel launch straight into the
-    lane: the kernel evaluates the full AA/AF/FA trichotomy of every row
-    with no width cap, so the reference's per-width buckets and power-of-two
-    padding are not needed. Other backends run the kernel's plain version
-    on ``device``. Rows with an empty A list on either side read TRUE_NEG,
-    as in the staged drivers. The frame is range-checked on the host;
-    ``rows`` are its int64 copies already on ``device`` (the chain uploads
-    the frame once), else it is uploaded here. The lists must already be on
-    ``device`` (``IntervalLists.to``) for the call to stay free of host
-    syncs.
+    ``intersects`` (and ``selection``) with ``backend="cuda"`` is one
+    trichotomy kernel launch straight into the lane: the kernel evaluates
+    the full AA/AF/FA trichotomy of every row with no width cap, so the
+    reference's per-width buckets and power-of-two padding are not needed.
+    ``within`` (``Xf`` unused) is one interval-overlap kernel launch for
+    the AA-join over every row, the containment of A(r) in F(s) over every
+    row (:func:`contain_rows`), and the verdict select. Other backends run
+    the kernels' plain versions on ``device``. Rows with an empty A list
+    on either side read TRUE_NEG, as in the staged drivers. The frame is
+    range-checked on the host; ``rows`` are its int64 copies already on
+    ``device`` (the chain uploads the frame once), else it is uploaded
+    here. The lists (and, for ``within``, F(s)'s ``last_keys``) must
+    already be on ``device`` for the call to stay free of host syncs.
     """
     check_filter_backend(backend)
+    if predicate not in ("intersects", "selection", "within"):
+        raise ValueError(f"no fused status lane for predicate {predicate!r}")
     dev = resolve_device(device)
     check_backend_device(backend, dev)
     if rows is None:
@@ -323,5 +490,11 @@ def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists,
     else:
         _check_frame(np.asarray(ri), Xa, "ri")
         _check_frame(np.asarray(si), Ya, "si")
+    if predicate == "within":
+        fn = interval_overlap if backend == "cuda" else interval_overlap_plain
+        aa = fn(Xa.to(dev), Ya.to(dev), *rows)
+        cont = contain_rows(Xa, ri, Yf, si, device=dev, rows=rows)
+        return torch.where(aa, torch.where(cont, TRUE_HIT, INDECISIVE),
+                           TRUE_NEG).to(torch.int8)
     fn = april_trichotomy if backend == "cuda" else april_trichotomy_plain
     return fn(Xa.to(dev), Xf.to(dev), Ya.to(dev), Yf.to(dev), *rows)

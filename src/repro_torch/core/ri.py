@@ -16,6 +16,9 @@ Host representation: per-dataset flat *bit* arrays (np.uint8 0/1) plus
 per-interval bit offsets (:class:`RIStore`). Construction labels the
 Partial cells Weak or Strong by exact coverage fractions.
 
+The within filter (§3.4) runs on the host, as in the reference:
+:func:`ri_within_batch` batched, :func:`ri_within_verdict_pair` per pair.
+
 The filter (Algorithm 1) has four backends, all verdict-identical
 (:func:`ri_trichotomy_rows`): ``numpy`` expands the candidates into
 overlapping-interval fragments on the host and ANDs their code runs bit
@@ -164,16 +167,140 @@ def build_ri_lines(dataset, n_order: int, extent: Extent = GLOBAL_EXTENT,
 
 def ri_within_verdict_pair(store_x: RIStore, i: int, store_y: RIStore,
                            j: int) -> int:
-    raise NotImplementedError(
-        "the RI within filter is not ported yet: ROADMAP A1-A3 (the within "
-        "predicate)")
+    """RI within-join filter (§3.4) for one pair: is x within y?
+
+    TRUE_NEG as soon as (i) a cell of x is empty in y, or (ii) some shared
+    cell is Full in x but not Full in y, or Strong in x and Weak in y (x's
+    area in that cell must exceed y's). TRUE_HIT iff every cell of x is
+    Full in y (or x has no interval). Else INDECISIVE. Works on the decoded
+    3-bit classes.
+    """
+    X = store_x.intervals(i)
+    Y = store_y.intervals(j)
+    if len(X) == 0:
+        return TRUE_HIT
+    dec_x = _DECODE[store_x.encoding]
+    dec_y = _DECODE[store_y.encoding]
+    all_full_in_y = True
+    b = 0
+    for a in range(len(X)):
+        xs, xe = X[a]
+        cell = xs
+        while cell < xe:
+            # advance y's cursor to the interval that could contain `cell`
+            while b < len(Y) and Y[b][1] <= cell:
+                b += 1
+            if b >= len(Y) or cell < Y[b][0]:
+                return TRUE_NEG          # x-cell empty in y
+            ys, ye = Y[b]
+            hi = min(xe, ye)
+            # classes over the shared run [cell, hi)
+            for c in range(int(cell), int(hi)):
+                cx = _cell_class(store_x, i, a, c - int(xs), dec_x)
+                cy = _cell_class(store_y, j, b, c - int(ys), dec_y)
+                if (cx == FULL and cy != FULL) or (cx == STRONG and cy == WEAK):
+                    return TRUE_NEG
+                if cy != FULL:
+                    all_full_in_y = False
+            cell = hi
+    return TRUE_HIT if all_full_in_y else INDECISIVE
+
+
+# class decoding tables: 3-bit tuple -> class id, per encoding
+_DECODE = {
+    "R": {v: k for k, v in CODE_R.items()},
+    "S": {v: k for k, v in CODE_S.items()},
+}
+
+# 3-bit code (b0*4 + b1*2 + b2) -> class id, per encoding; -1 = invalid
+_DECODE_ARR = {}
+for _enc, _tab in (("R", CODE_R), ("S", CODE_S)):
+    _arr = np.full(8, -1, np.int8)
+    for _cls, (_b0, _b1, _b2) in _tab.items():
+        _arr[4 * _b0 + 2 * _b1 + _b2] = _cls
+    _DECODE_ARR[_enc] = _arr
+
+_U64_MAX = np.uint64(np.iinfo(np.uint64).max)
+
+
+def _cell_class(store: RIStore, i: int, k: int, off: int, table) -> int:
+    bits = store.interval_bits(i, k)[3 * off: 3 * off + 3]
+    return table[tuple(int(b) for b in bits)]
+
+
+def _pad_intervals(store: RIStore, idx: np.ndarray):
+    """Padded per-pair interval endpoints: (starts [B,W], ends [B,W],
+    counts [B], first_global [B]). Padding slots hold uint64 max."""
+    idx = np.asarray(idx, np.int64)
+    lo = store.off[idx]
+    counts = (store.off[idx + 1] - lo).astype(np.int64)
+    B = len(idx)
+    W = int(max(1, counts.max() if B else 1))
+    starts = np.full((B, W), _U64_MAX, np.uint64)
+    ends = np.full((B, W), _U64_MAX, np.uint64)
+    if len(store.ints) and B:
+        col = np.arange(W)[None, :]
+        mask = col < counts[:, None]
+        src = (lo[:, None] + col)[mask]
+        starts[mask] = store.ints[src, 0]
+        ends[mask] = store.ints[src, 1]
+    return starts, ends, counts, lo
 
 
 def ri_within_batch(store_x: RIStore, store_y: RIStore,
                     pairs: np.ndarray) -> np.ndarray:
-    raise NotImplementedError(
-        "the RI within filter is not ported yet: ROADMAP A1-A3 (the within "
-        "predicate)")
+    """Vectorized RI within filter (§3.4) over pairs [N,2] on the host;
+    verdict-identical to :func:`ri_within_verdict_pair` per pair."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    N = len(pairs)
+    if N == 0:
+        return np.zeros(0, np.int8)
+    cx = store_x.off[pairs[:, 0] + 1] - store_x.off[pairs[:, 0]]
+    b, ax, gx, gy, lo, hi = _pair_fragments(store_x, store_y, pairs)
+
+    # coverage: every x interval fully covered by (disjoint) y intervals
+    Wx = int(ax.max()) + 1 if len(ax) else 1
+    covered = np.zeros(N * Wx, np.int64)
+    np.add.at(covered, b * Wx + ax, (hi - lo).astype(np.int64))
+    xs_p, xe_p, cx_p, _ = _pad_intervals(store_x, pairs[:, 0])
+    Wpad = xs_p.shape[1]           # >= Wx: ax < interval count <= Wpad
+    xlen = np.where(np.arange(Wpad)[None, :] < cx_p[:, None],
+                    (xe_p - xs_p).astype(np.int64), 0)
+    uncovered = np.any(xlen[:, :Wx] > covered.reshape(N, Wx), axis=1)
+    # x intervals with no fragments at all (columns beyond Wx) are uncovered
+    uncovered |= np.any(xlen[:, Wx:] > 0, axis=1)
+
+    # per-cell class comparison over the shared runs
+    ncell = (hi - lo).astype(np.int64)
+    C = int(ncell.sum())
+    viol_pair = np.zeros(N, bool)
+    notfull_pair = np.zeros(N, bool)
+    if C:
+        f_of_c = np.repeat(np.arange(len(ncell)), ncell)
+        coff = np.arange(C) - np.repeat(np.cumsum(ncell) - ncell, ncell)
+        cell_x = (lo[f_of_c] - store_x.ints[gx[f_of_c], 0]).astype(np.int64) + coff
+        cell_y = (lo[f_of_c] - store_y.ints[gy[f_of_c], 0]).astype(np.int64) + coff
+
+        def classes(store, g, celloff):
+            o = store.bit_off[g[f_of_c]] + 3 * celloff
+            code = (store.bits[o].astype(np.int8) * 4
+                    + store.bits[o + 1].astype(np.int8) * 2
+                    + store.bits[o + 2].astype(np.int8))
+            return _DECODE_ARR[store.encoding][code]
+
+        cls_x = classes(store_x, gx, cell_x)
+        cls_y = classes(store_y, gy, cell_y)
+        viol = ((cls_x == FULL) & (cls_y != FULL)) \
+            | ((cls_x == STRONG) & (cls_y == WEAK))
+        bc = b[f_of_c]
+        np.logical_or.at(viol_pair, bc, viol)
+        np.logical_or.at(notfull_pair, bc, cls_y != FULL)
+
+    neg = uncovered | viol_pair
+    out = np.where(neg, TRUE_NEG,
+                   np.where(notfull_pair, INDECISIVE, TRUE_HIT)).astype(np.int8)
+    out[cx == 0] = TRUE_HIT
+    return out
 
 
 # ---------------------------------------------------------------------------

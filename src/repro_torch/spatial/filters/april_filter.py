@@ -1,7 +1,8 @@
 """The APRIL intermediate filter (paper §4) and its compressed variant
-APRIL-C (§5.1) for the ``intersects`` predicate.
+APRIL-C (§5.1) for the ``intersects``, ``selection`` and ``within``
+predicates.
 
-The batched path runs the staged trichotomy of ``core.join`` over
+The batched path runs the staged trichotomies of ``core.join`` over
 :class:`~repro_torch.core.join.IntervalLists`, wrapped once per
 Approximation (cached in ``meta``) and uploaded to the device once. The
 fused chain's status lane is computed on the device by
@@ -10,8 +11,9 @@ fused chain's status lane is computed on the device by
 APRIL-C stores each object's lists as delta + VByte buffers. Its batched
 path decodes in bounds on the host (A lists for the batch's objects, F
 lists only for the AA survivors of each stage) and joins the decoded lists
-through the same overlap backends (the interval-overlap kernel with
-``cuda``); its fused status lane is those verdicts, uploaded once.
+through the same overlap and containment backends (the interval-overlap
+kernel with ``cuda``); its fused status lane is those verdicts, uploaded
+once.
 """
 from __future__ import annotations
 
@@ -71,6 +73,11 @@ class AprilFilter(IntermediateFilter):
             return self.verdicts_seq(approx_r, approx_s, pairs,
                                      predicate=predicate, order=order)
         pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        if predicate == "within":
+            return join.within_trichotomy_rows(
+                self._lists(approx_r, "A"), self._lists(approx_s, "A"),
+                self._lists(approx_s, "F"), pairs[:, 0], pairs[:, 1],
+                backend=backend, device=device)
         return join.april_trichotomy_rows(
             self._lists(approx_r, "A"), self._lists(approx_r, "F"),
             self._lists(approx_s, "A"), self._lists(approx_s, "F"),
@@ -81,6 +88,8 @@ class AprilFilter(IntermediateFilter):
         for approx in (approx_r, approx_s):
             for kind in ("A", "F"):
                 self._lists(approx, kind).to(device)
+        # the within lane's containment searches F(s) by its row keys
+        self._lists(approx_s, "F").last_keys(device)
 
     def status_lane(self, approx_r, approx_s, ri, si, *,
                     predicate: str = "intersects", backend: str = "numpy",
@@ -88,12 +97,16 @@ class AprilFilter(IntermediateFilter):
                     order: tuple[str, ...] = _DEFAULT_ORDER, **opts):
         """The trichotomy of every frame row on the device, through
         ``join.fused_status_rows`` (over ``rows``, the frame's device copies,
-        when given). The sequential backend and a join order other than the
-        full three-join set (which leaves AA survivors INDECISIVE) keep the
-        uploaded host lane, so fused == staged row for row."""
+        when given). The sequential backend, and for ``intersects`` and
+        ``selection`` a join order other than the full three-join set
+        (which leaves AA survivors INDECISIVE), keep the uploaded host
+        lane, so fused == staged row for row. ``within`` ignores
+        ``order``, as its staged verdicts do."""
         check_predicate(predicate)
         join.check_filter_backend(backend)
-        if backend == "sequential" or set(order) != set(_DEFAULT_ORDER):
+        if backend == "sequential" or (
+                predicate != "within"
+                and set(order) != set(_DEFAULT_ORDER)):
             return super().status_lane(approx_r, approx_s, ri, si,
                                        predicate=predicate, backend=backend,
                                        device=device, order=order, **opts)
@@ -102,11 +115,14 @@ class AprilFilter(IntermediateFilter):
         return join.fused_status_rows(
             self._lists(approx_r, "A"), self._lists(approx_r, "F"),
             self._lists(approx_s, "A"), self._lists(approx_s, "F"), ri, si,
-            rows=rows, backend=backend, device=device)
+            predicate=predicate, rows=rows, backend=backend, device=device)
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate,
                      order: tuple[str, ...] = _DEFAULT_ORDER) -> int:
         sr, ss = approx_r.store, approx_s.store
+        if predicate == "within":
+            return join.within_verdict_pair(sr.a_list(i), sr.f_list(i),
+                                            ss.a_list(j), ss.f_list(j))
         return join.april_verdict_pair(sr.a_list(i), sr.f_list(i),
                                        ss.a_list(j), ss.f_list(j),
                                        order=order)
@@ -143,7 +159,7 @@ class AprilCompressedFilter(AprilFilter):
         if backend == "sequential":
             return self.verdicts_seq(approx_r, approx_s, pairs,
                                      predicate=predicate, order=order)
-        if "AA" not in order:
+        if predicate != "within" and "AA" not in order:
             raise ValueError("order must include 'AA'")
         dev = None
         if backend != "numpy":
@@ -161,6 +177,13 @@ class AprilCompressedFilter(AprilFilter):
         verdicts = np.where(aa, join.INDECISIVE,
                             join.TRUE_NEG).astype(np.int8)
         sel = np.nonzero(aa)[0]
+        if predicate == "within":
+            if len(sel):
+                Yf, yf_rows = self._decode(approx_s, si[sel], "F")
+                cont = join._contain_fn(backend, dev)(Xa, xa_rows[sel], Yf,
+                                                     yf_rows)
+                verdicts[sel[cont]] = join.TRUE_HIT
+            return verdicts
         # a degenerate order leaves AA survivors INDECISIVE
         for step in [s for s in order if s != "AA"]:
             if len(sel) == 0:
@@ -190,6 +213,9 @@ class AprilCompressedFilter(AprilFilter):
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate,
                      order: tuple[str, ...] = _DEFAULT_ORDER) -> int:
+        if predicate == "within":
+            return super()._verdict_one(approx_r, approx_s, i, j,
+                                        predicate=predicate, order=order)
         # the streaming join-while-decompress (§5.1)
         sr, ss = approx_r.store, approx_s.store
         return compress.april_verdict_compressed(

@@ -31,11 +31,13 @@ PREDICATES = ("intersects", "within", "linestring", "selection")
 
 
 def check_predicate(predicate: str) -> None:
-    """Only ``intersects`` is ported; the other predicates raise."""
-    if predicate in ("within", "linestring", "selection"):
+    """``intersects``, ``within`` and ``selection`` are ported;
+    ``linestring`` raises. ``selection`` (polygonal range queries, §4.3.1)
+    is the ``intersects`` test with the query polygons as the S side."""
+    if predicate == "linestring":
         raise NotImplementedError(
-            f"predicate {predicate!r} is not ported yet: ROADMAP A1-A3 "
-            "(within, linestring and selection predicates)")
+            "predicate 'linestring' is not ported yet: ROADMAP A1-A3 (the "
+            "line stores and the linestring predicate)")
     if predicate not in PREDICATES:
         raise ValueError(f"unknown predicate {predicate!r}; "
                          f"expected one of {PREDICATES}")

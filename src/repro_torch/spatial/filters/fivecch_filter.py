@@ -1,6 +1,8 @@
 """5C+CH (Brinkhoff) intermediate filter (§2).
 
-Conservative-only: certifies TRUE negatives, never hits. The batched path
+Conservative-only: certifies TRUE negatives, never hits, for every
+predicate (disjoint approximations rule out intersection and containment
+alike), so the batched verdicts are the same for all. The batched path
 runs the separating-axis tests as padded einsum passes over the whole
 candidate batch on the host, whatever the backend; the fused chain's
 status lane is those verdicts, uploaded once per batch.
@@ -48,5 +50,8 @@ class FiveCCHFilter(IntermediateFilter):
                                              pairs)
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate) -> int:
+        if predicate == "within":
+            return fivec_ch.fivecch_within_verdict_pair(approx_r.store, i,
+                                                        approx_s.store, j)
         return fivec_ch.fivecch_verdict_pair(approx_r.store, i,
                                              approx_s.store, j)

@@ -1,10 +1,11 @@
 """RA (Zimbrao & de Souza raster approximation) intermediate filter (§2).
 
 The batched path memoizes per-object upscale pyramids in the
-Approximation's ``meta`` (they survive across calls) and evaluates the
-overlay and Table-1 lookup of every candidate pair as one padded
-vectorized gather on the host, whatever the backend; the fused chain's
-status lane is those verdicts, uploaded once per batch.
+Approximation's ``meta`` (they survive across calls and predicates) and
+evaluates the overlay and Table-1 lookup (or, for ``within``, the
+containment rules of ``ra_within_batch``) of every candidate pair as one
+padded vectorized gather on the host, whatever the backend; the fused
+chain's status lane is those verdicts, uploaded once per batch.
 """
 from __future__ import annotations
 
@@ -46,10 +47,15 @@ class RAFilter(IntermediateFilter):
         e = self._empty(pairs)
         if e is not None:
             return e
-        return ra.ra_filter_batch(
-            approx_r.store, approx_s.store, pairs,
-            cache_r=approx_r.meta.setdefault("pyramid", {}),
-            cache_s=approx_s.meta.setdefault("pyramid", {}))
+        cache_r = approx_r.meta.setdefault("pyramid", {})
+        cache_s = approx_s.meta.setdefault("pyramid", {})
+        batch = ra.ra_within_batch if predicate == "within" else \
+            ra.ra_filter_batch
+        return batch(approx_r.store, approx_s.store, pairs, cache_r=cache_r,
+                     cache_s=cache_s)
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate) -> int:
+        if predicate == "within":
+            return ra.ra_within_verdict_pair(approx_r.store, i,
+                                             approx_s.store, j)
         return ra.ra_verdict_pair(approx_r.store, i, approx_s.store, j)

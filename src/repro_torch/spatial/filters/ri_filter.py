@@ -1,5 +1,5 @@
 """RI (Raster Intervals) intermediate filter (paper §3) for the
-``intersects`` predicate.
+``intersects``, ``selection`` and ``within`` predicates.
 
 Each side is built in its own encoding (R for ``side="r"``, S for
 ``side="s"``, ``encoding=`` overrides), so the usual join skips the XOR
@@ -10,6 +10,9 @@ ALIGNEDAND kernel's plain version or the kernel over the store's device
 form (:class:`~repro_torch.core.ri.RIDeviceStore`, built once per
 Approximation and cached in ``meta``). The fused chain's status lane is
 the same kernel launched over the chain's device frame, with no host read.
+The within filter (§3.4) runs on the host whatever the backend
+(``core.ri.ri_within_batch``), as in the reference, and its fused lane is
+those verdicts, uploaded once.
 """
 from __future__ import annotations
 
@@ -56,6 +59,8 @@ class RIFilter(IntermediateFilter):
             return self.verdicts_seq(approx_r, approx_s, pairs,
                                      predicate=predicate)
         pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        if predicate == "within":
+            return ri.ri_within_batch(approx_r.store, approx_s.store, pairs)
         stores = ((approx_r.store, approx_s.store) if backend == "numpy"
                   else (self._device(approx_r), self._device(approx_s)))
         return ri.ri_trichotomy_rows(*stores, pairs[:, 0], pairs[:, 1],
@@ -70,9 +75,10 @@ class RIFilter(IntermediateFilter):
                     device=None, rows=None, **opts):
         """The RI verdicts of every frame row on the device
         (``core.ri.ri_status_rows``, over ``rows`` when given); the numpy
-        and sequential backends keep the uploaded host lane."""
+        and sequential backends, and ``within``, keep the uploaded host
+        lane."""
         self._check(predicate, backend)
-        if backend in ("numpy", "sequential"):
+        if backend in ("numpy", "sequential") or predicate == "within":
             return super().status_lane(approx_r, approx_s, ri_rows, si_rows,
                                        predicate=predicate, backend=backend,
                                        device=device, **opts)
@@ -83,4 +89,7 @@ class RIFilter(IntermediateFilter):
                                  rows=rows, backend=backend, device=device)
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate) -> int:
+        if predicate == "within":
+            return ri.ri_within_verdict_pair(approx_r.store, i,
+                                             approx_s.store, j)
         return ri.ri_verdict_pair(approx_r.store, i, approx_s.store, j)

@@ -26,7 +26,7 @@ from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
 from ..device import InputLog, upload
 from ..kernels.compact import compact_mask, compact_mask_plain
 from . import refine as RF
-from .mbr_join import _prepare, candidate_rows, pair_mask_lane
+from .mbr_join import _prepare, candidate_rows, mbr_inside, pair_mask_lane
 
 __all__ = ["PIPELINE_MODES", "check_pipeline_mode", "to_host",
            "CandidateSet", "Stage", "StagePlan", "build_stage_plan",
@@ -139,14 +139,16 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
 
     * ``mbr`` — host grid-hash preprocessing producing the pair frame,
       uploaded once; with ``mbr_backend="torch"`` the intersection and
-      ownership test stays a device ``valid`` lane, otherwise the frame is
+      ownership test stays a device ``valid`` lane (for ``within`` with
+      the MBR containment test of ``JoinPlan.candidates``, made on the
+      host MBR tables and uploaded, folded in), otherwise the frame is
       pre-filtered on the host.
     * ``filter`` — the filter's ``status_lane`` over the frame, with
       invalid rows set to TRUE_NEG.
     * ``refine`` — on-device compaction of the INDECISIVE lane
       (``compact_mask``) and chunked float64 refinement of the packed
-      prefix (``refine.fused_refine_lanes``), scattered back to frame
-      lanes.
+      prefix (``refine.fused_refine_lanes``, the predicate's core),
+      scattered back to frame lanes.
 
     The ``"cuda"`` backends launch the kernels (the trichotomy kernel for
     the status lane, the scan kernel for the compaction); the others run
@@ -177,6 +179,8 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
         cs = frame(ri, si)
         cs.valid = pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, cs.ri_dev,
                                   cs.si_dev, own_x, own_y, dev)
+        if predicate == "within":
+            cs.valid &= upload(mbr_inside(mbrs_r[ri], mbrs_s[si]), dev)
         return cs
 
     def filter_stage(cs):
@@ -198,7 +202,8 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
                    else compact_mask_plain)
         perm, count = compact(cs.status == INDECISIVE)
         res, unc = RF.fused_refine_lanes(plan.R, plan.S, cs.ri_dev,
-                                         cs.si_dev, perm, count, dev)
+                                         cs.si_dev, perm, count, dev,
+                                         predicate)
         perm = perm.to(torch.int64)
         N = len(cs)
         hit_ref = torch.zeros(N, dtype=torch.bool, device=dev)

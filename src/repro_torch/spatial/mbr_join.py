@@ -25,7 +25,7 @@ from ..device import resolve_device, upload
 
 __all__ = ["MBR_BACKENDS", "mbr_join", "mbr_intersect_mask",
            "adaptive_grid", "joint_extent", "check_mbr_backend",
-           "candidate_rows", "pair_mask_lane"]
+           "candidate_rows", "pair_mask_lane", "mbr_inside"]
 
 MBR_BACKENDS = ("numpy", "torch", "sequential")
 
@@ -145,6 +145,13 @@ def _cross_rows(obj_r, buck_r, obj_s, buck_s):
     ri = obj_r[start_r[ir][grp] + a]
     si = obj_s[start_s[is_][grp] + b]
     return ri, si, common[grp]
+
+
+def mbr_inside(mr: np.ndarray, ms: np.ndarray) -> np.ndarray:
+    """[N] bool: does MBR ``mr[n]`` lie inside MBR ``ms[n]`` (closed)? The
+    ``within`` predicate's candidate test."""
+    return ((mr[:, 0] >= ms[:, 0]) & (mr[:, 1] >= ms[:, 1])
+            & (mr[:, 2] <= ms[:, 2]) & (mr[:, 3] <= ms[:, 3]))
 
 
 def _prepare(mbrs_r, mbrs_s, grid: int | None):

@@ -3,11 +3,14 @@ pipeline modes.
 
     plan = JoinPlan(R, S, filter="april", n_order=12)     # device="cuda"
     plan.build()                                          # APRIL stores
-    hits, stats = plan.execute("intersects")
+    hits, stats = plan.execute("intersects")    # "within", "selection"
 
 Execution runs the paper's stages dataset-batched: grid-hash MBR
-candidates (``mbr_backend``) -> the APRIL trichotomy (``filter_backend``)
--> exact refinement of the INDECISIVE rows (``refine_backend``). With
+candidates (``mbr_backend``; for ``within`` only the rows whose r MBR lies
+inside the s MBR) -> the filter's trichotomy (``filter_backend``) -> exact
+refinement of the INDECISIVE rows (``refine_backend``). ``selection`` is
+``intersects`` with the query polygons as S: result rows are (data index,
+query index). ``linestring`` is not ported and raises. With
 ``pipeline_mode="staged"`` each stage's survivors come back to the host;
 with ``"fused"`` the stages chain on the device and meet the host once, at
 the end (``spatial/fused.py``). Results are ``concat(pairs[TRUE_HIT],
@@ -30,7 +33,7 @@ from . import refine
 from .filters import Approximation, IntermediateFilter, get_filter
 from .filters.base import check_predicate
 from .fused import check_pipeline_mode, execute_fused
-from .mbr_join import check_mbr_backend, mbr_join
+from .mbr_join import check_mbr_backend, mbr_inside, mbr_join
 
 __all__ = ["JoinStats", "JoinPlan"]
 
@@ -101,9 +104,10 @@ class JoinPlan:
     """A reusable two-dataset join session over one intermediate filter.
 
     ``device`` (``None`` -> ``"cuda"``; raises without a GPU) is where the
-    filter and refinement run. ``filter_backend`` and ``refine_backend``
-    are ``"numpy" | "torch" | "cuda" | "sequential"``; ``"cuda"`` needs a
-    CUDA device. ``mbr_backend`` is ``"numpy" | "torch" | "sequential"``
+    filter and refinement run. ``filter_backend`` is ``"numpy" | "torch" |
+    "cuda" | "sequential"``, ``refine_backend`` the same or ``"device64"``
+    (the float64 device cores); ``"cuda"`` needs a CUDA device.
+    ``mbr_backend`` is ``"numpy" | "torch" | "sequential"``
     (``"torch"`` tests the candidate rows on the device, the reference's
     ``"jnp"``); ``pipeline_mode`` is ``"staged" | "fused"``;
     ``build_opts`` go to ``filter.build`` and ``filter_opts`` (e.g.
@@ -185,10 +189,17 @@ class JoinPlan:
         return self
 
     def candidates(self, predicate: str = "intersects") -> np.ndarray:
-        """Candidate pairs of the grid-hash MBR join, [N, 2] int64."""
+        """Candidate pairs of the grid-hash MBR join, [N, 2] int64. For
+        ``within`` only the pairs whose r MBR lies inside the s MBR:
+        containment implies intersection, so the stricter test runs on the
+        hash join's rows."""
         check_predicate(predicate)
-        return mbr_join(self.R.mbrs, self.S.mbrs, grid=self.mbr_grid,
-                        backend=self.mbr_backend, device=self.device)
+        pairs = mbr_join(self.R.mbrs, self.S.mbrs, grid=self.mbr_grid,
+                         backend=self.mbr_backend, device=self.device)
+        if predicate == "within":
+            pairs = pairs[mbr_inside(self.R.mbrs[pairs[:, 0]],
+                                     self.S.mbrs[pairs[:, 1]])]
+        return pairs
 
     def execute(self, predicate: str = "intersects",
                 ) -> tuple[np.ndarray, JoinStats]:

@@ -1,21 +1,33 @@
-"""Refinement: exact polygon intersection for the INDECISIVE candidate
-pairs, batched over power-of-two buckets of the per-pair Er x Es tile size
-(padding waste <= 2x, working set bounded per chunk).
+"""Refinement: exact ``intersects`` (and ``selection``) or ``within`` for
+the INDECISIVE candidate pairs, batched over power-of-two buckets of the
+per-pair Er x Es tile size (padding waste <= 2x, working set bounded per
+chunk).
 
 Backends (``refine_backend`` on ``JoinPlan``):
 
 * ``sequential`` — the per-pair float64 reference over the
-  :mod:`~repro_torch.core.geometry` oracle;
-* ``numpy`` — the vectorized host pass with CMBR edge pruning and
-  branch-free containment by representative points;
+  :mod:`~repro_torch.core.geometry` oracles;
+* ``numpy`` — the vectorized host pass: for ``intersects`` CMBR edge
+  pruning and branch-free containment by representative points; for
+  ``within`` the staged MBR vertex test, closed PiP of every vertex and a
+  proper-crossing sweep;
 * ``torch`` / ``cuda`` — the edge x edge sweep runs in float32 with a
   relative guard band, through the sweep's plain PyTorch version on any
   device (``torch``) or the CUDA kernel (``cuda``), once per refine call:
-  the CMBR-kept edges of every bucket's rows go up as one ragged CSR.
-  Definite crossings come from the sweep; rows with none get the host
-  closed-PiP of the representative points against the unpruned rings;
+  the kept edges of every bucket's rows go up as one ragged CSR (CMBR-kept
+  for ``intersects``, every edge for ``within``). For ``intersects``,
+  definite crossings come from the sweep, rows with none get the host
+  closed-PiP of the representative points against the unpruned rings, and
   rows that tripped the band are re-checked on the host in float64, per
-  bucket. Every backend is verdict-identical to ``sequential``.
+  bucket. For ``within`` a definite crossing means "not within"; the other
+  rows take the host pass;
+* ``device64`` — the float64 device cores (twins of the reference's jnp
+  cores, its ``refine_backend="jnp"``) on each bucket's rings, gathered
+  from :func:`device_geometry` and run in chunks; ``(res, unc)`` come back
+  once per bucket and the ``unc`` rows are re-checked on the host in
+  float64.
+
+Every backend is verdict-identical to ``sequential``.
 
 The fused chain refines on the device instead (:func:`fused_refine_lanes`):
 float64 PyTorch twins of the reference's jnp cores over a front-packed
@@ -29,14 +41,15 @@ import torch
 
 from ..core import geometry
 from ..core.geometry import polygon_edges, segments_intersect, size_buckets
-from ..device import InputLog, check_backend_device, resolve_device
+from ..device import InputLog, check_backend_device, resolve_device, upload
 from ..kernels.refine import edges_intersect_csr, edges_intersect_csr_plain
 
 __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
-           "refine", "refine_pairs", "refine_pairs_seq", "device_geometry",
-           "fused_refine_lanes"]
+           "refine", "refine_pairs", "refine_pairs_seq",
+           "refine_within_pairs", "refine_within_pairs_seq",
+           "device_geometry", "fused_refine_lanes"]
 
-REFINE_BACKENDS = ("numpy", "torch", "cuda", "sequential")
+REFINE_BACKENDS = ("numpy", "torch", "cuda", "device64", "sequential")
 
 #: bound on the padded [N, Er, Es] orientation working set per bucket chunk
 _CHUNK_ELEMS = 1 << 20
@@ -59,8 +72,19 @@ def refine_pairs_seq(R, S, pairs: np.ndarray) -> np.ndarray:
         for i, j in pairs], bool)
 
 
+def refine_within_pairs_seq(R, S, pairs: np.ndarray) -> np.ndarray:
+    """Per-pair float64 reference for exact 'r within s'."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    if len(pairs) == 0:
+        return np.zeros(0, bool)
+    return np.asarray([
+        geometry.polygon_within(R.verts[i], R.nverts[i],
+                                S.verts[j], S.nverts[j])
+        for i, j in pairs], bool)
+
+
 # ---------------------------------------------------------------------------
-# numpy batched core
+# numpy batched cores
 # ---------------------------------------------------------------------------
 
 def _cmbr_mask(mr: np.ndarray, ms: np.ndarray, e0, e1):
@@ -146,6 +170,55 @@ def _intersects_batch_np(vr, nr, vs, ns, rep_r, rep_s, mr, ms,
     in_s = _pip_batch_np(rep_r[:, None, :], ones, b0, b1, bm)[:, 0]
     in_r = _pip_batch_np(rep_s[:, None, :], ones, a0, a1, am)[:, 0]
     return crossed | in_s | in_r
+
+
+def _proper_cross_np(a0, a1, am, b0, b1, bm) -> np.ndarray:
+    """Any *proper* (transversal, all orientations nonzero) edge crossing
+    per row."""
+    d1 = geometry._orient(b0[:, None, :, 0], b0[:, None, :, 1],
+                          b1[:, None, :, 0], b1[:, None, :, 1],
+                          a0[:, :, None, 0], a0[:, :, None, 1])
+    d2 = geometry._orient(b0[:, None, :, 0], b0[:, None, :, 1],
+                          b1[:, None, :, 0], b1[:, None, :, 1],
+                          a1[:, :, None, 0], a1[:, :, None, 1])
+    d3 = geometry._orient(a0[:, :, None, 0], a0[:, :, None, 1],
+                          a1[:, :, None, 0], a1[:, :, None, 1],
+                          b0[:, None, :, 0], b0[:, None, :, 1])
+    d4 = geometry._orient(a0[:, :, None, 0], a0[:, :, None, 1],
+                          a1[:, :, None, 0], a1[:, :, None, 1],
+                          b1[:, None, :, 0], b1[:, None, :, 1])
+    proper = (((d1 > 0) != (d2 > 0)) & ((d3 > 0) != (d4 > 0))
+              & (d1 != 0) & (d2 != 0) & (d3 != 0) & (d4 != 0))
+    return (proper & am[:, :, None] & bm[:, None, :]).any(axis=(1, 2))
+
+
+def _within_batch_np(vr, nr, vs, ns, mr, ms, use_cmbr: bool) -> np.ndarray:
+    """Staged 'r within s': exact MBR vertex test -> closed PiP of the
+    surviving rows' vertices -> proper-crossing sweep of the all-inside
+    rows only. Each stage is exact, so the staging changes no verdict."""
+    N = len(vr)
+    out = np.zeros(N, bool)
+    pmask = np.arange(vr.shape[1])[None, :] < nr[:, None]
+    x, y = vr[..., 0], vr[..., 1]
+    inmbr = (((x >= ms[:, None, 0]) & (x <= ms[:, None, 2])
+              & (y >= ms[:, None, 1]) & (y <= ms[:, None, 3])) | ~pmask)
+    cand = inmbr.all(axis=1)          # a vertex outside MBR(s) decides False
+    if not cand.any():
+        return out
+    b0, b1, bm = polygon_edges(vs[cand], ns[cand])
+    all_in = _pip_batch_np(vr[cand], pmask[cand], b0, b1, bm).all(axis=1)
+    if not all_in.any():
+        return out
+    keep = np.nonzero(cand)[0][all_in]
+    a0, a1, am = polygon_edges(vr[keep], nr[keep])
+    b0, b1, bm = b0[all_in], b1[all_in], bm[all_in]
+    if use_cmbr:
+        a0, a1, am = _compact_edges(
+            a0, a1, am & _cmbr_mask(mr[keep], ms[keep], a0, a1))
+        b0, b1, bm = _compact_edges(
+            b0, b1, bm & _cmbr_mask(mr[keep], ms[keep], b0, b1))
+    out[keep] = ~_proper_cross_np(a0, a1, am, b0, b1, bm)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +314,70 @@ def _refine_device_intersects(backend, dev, R, S, pairs, buckets, rep_r,
     return out
 
 
+def _refine_device_within(backend, dev, R, S, pairs,
+                          buckets) -> np.ndarray:
+    """The staged float32 sweep over the unpruned rings of every bucket's
+    rows in one call: a definite crossing means "not within"; per bucket,
+    the other rows (no crossing, or a tripped band) take the host pass."""
+    pieces = [_kept_edges(R, S, pairs[sel], Va, Vb, use_cmbr=False)
+              for sel, Va, Vb in buckets]
+    hit, unc = _sweep(backend, dev, _csr(pieces))
+    out = np.zeros(len(pairs), bool)
+    pos = 0
+    for sel, Va, Vb in buckets:
+        h, u = hit[pos:pos + len(sel)], unc[pos:pos + len(sel)]
+        pos += len(sel)
+        p = pairs[sel]
+        res = np.zeros(len(sel), bool)
+        todo = ~h | u
+        if todo.any():
+            vr, nr, vs, ns = _bucket_rings(R, S, p[todo], Va, Vb)
+            res[todo] = _within_batch_np(vr, nr, vs, ns, R.mbrs[p[todo, 0]],
+                                         S.mbrs[p[todo, 1]], True)
+        out[sel] = res
+    return out
+
+
+def _refine_device64(kind, dev, R, S, pairs, buckets, rep_r, rep_s,
+                     use_cmbr) -> np.ndarray:
+    """The float64 device cores over each bucket's rings, gathered from
+    :func:`device_geometry` on ``dev`` and run in chunks bounded by
+    ``_FUSED_CHUNK_BYTES``; ``(res, unc)`` come back once per bucket and
+    the ``unc`` rows are re-checked on the host in float64."""
+    geom_r = device_geometry(R, dev)
+    geom_s = device_geometry(S, dev)
+    out = np.zeros(len(pairs), bool)
+    for sel, Va, Vb in buckets:
+        p = pairs[sel]
+        ri = upload(np.ascontiguousarray(p[:, 0]), dev)
+        si = upload(np.ascontiguousarray(p[:, 1]), dev)
+        C = max(1, _FUSED_CHUNK_BYTES // (Va * Vb * _BYTES_PER_COUPLE))
+        lanes = []
+        for c0 in range(0, len(p), C):
+            rr, ss = ri[c0:c0 + C], si[c0:c0 + C]
+            args = (geom_r["verts"][rr, :Va], geom_r["nverts"][rr],
+                    geom_s["verts"][ss, :Vb], geom_s["nverts"][ss])
+            if kind == "within":
+                lanes.append(torch.stack(_within_impl(*args)))
+            else:
+                lanes.append(torch.stack(_intersects_impl(
+                    *args, geom_r["reps"][rr], geom_s["reps"][ss])))
+        res, unc = torch.cat(lanes, dim=1).cpu().numpy()
+        if unc.any():    # borderline signs: re-run on the host in float64
+            vr, nr, vs, ns = _bucket_rings(R, S, p[unc], Va, Vb)
+            mr, ms = R.mbrs[p[unc, 0]], S.mbrs[p[unc, 1]]
+            if kind == "within":
+                res[unc] = _within_batch_np(vr, nr, vs, ns, mr, ms, True)
+            else:
+                res[unc] = _intersects_batch_np(
+                    vr, nr, vs, ns, rep_r[sel][unc], rep_s[sel][unc], mr, ms,
+                    use_cmbr)
+        out[sel] = res
+    return out
+
+
 # ---------------------------------------------------------------------------
-# Bucketed public driver
+# Bucketed public drivers
 # ---------------------------------------------------------------------------
 
 def _buckets(nvr: np.ndarray, nvs: np.ndarray):
@@ -253,18 +388,27 @@ def _buckets(nvr: np.ndarray, nvs: np.ndarray):
             for sel in size_buckets(sizes, _CHUNK_ELEMS)]
 
 
+def _device_of(backend: str, device):
+    """The device a backend runs on: ``None`` for the host backends, else
+    ``device`` resolved (``None`` -> ``"cuda"``, which raises without a
+    GPU) and checked against the backend."""
+    if backend not in ("torch", "cuda", "device64"):
+        return None
+    dev = resolve_device(device)
+    check_backend_device(backend, dev)
+    return dev
+
+
 def refine_pairs(R, S, pairs: np.ndarray, use_cmbr: bool = True,
                  backend: str = "numpy", device=None) -> np.ndarray:
     """Exact intersection for candidate pairs [N,2] -> [N] bool, batched
     over vertex-count buckets on the selected backend: ``numpy`` runs each
     bucket on the host; ``torch`` and ``cuda`` run every bucket's float32
     sweep in one call on ``device`` (``None`` -> ``"cuda"``) and the
-    rest per bucket on the host."""
+    rest per bucket on the host; ``device64`` runs the float64 device
+    core per bucket on ``device``."""
     check_refine_backend(backend)
-    dev = None
-    if backend in ("torch", "cuda"):
-        dev = resolve_device(device)
-        check_backend_device(backend, dev)
+    dev = _device_of(backend, device)
     pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
     if len(pairs) == 0:
         return np.zeros(0, bool)
@@ -275,6 +419,9 @@ def refine_pairs(R, S, pairs: np.ndarray, use_cmbr: bool = True,
     rep_r = _reps(R, pairs[:, 0])
     rep_s = _reps(S, pairs[:, 1])
     buckets = _buckets(nvr, nvs)
+    if backend == "device64":
+        return _refine_device64("intersects", dev, R, S, pairs, buckets,
+                                rep_r, rep_s, use_cmbr)
     if dev is not None:
         return _refine_device_intersects(backend, dev, R, S, pairs, buckets,
                                          rep_r, rep_s, use_cmbr)
@@ -288,25 +435,59 @@ def refine_pairs(R, S, pairs: np.ndarray, use_cmbr: bool = True,
     return out
 
 
+def refine_within_pairs(R, S, pairs: np.ndarray, backend: str = "numpy",
+                        device=None) -> np.ndarray:
+    """Exact 'r within s' for candidate pairs [N,2] -> [N] bool, batched
+    over vertex-count buckets on the selected backend (as
+    :func:`refine_pairs`)."""
+    check_refine_backend(backend)
+    dev = _device_of(backend, device)
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    if len(pairs) == 0:
+        return np.zeros(0, bool)
+    if backend == "sequential":
+        return refine_within_pairs_seq(R, S, pairs)
+    buckets = _buckets(R.nverts[pairs[:, 0]], S.nverts[pairs[:, 1]])
+    if backend == "device64":
+        return _refine_device64("within", dev, R, S, pairs, buckets, None,
+                                None, True)
+    if dev is not None:
+        return _refine_device_within(backend, dev, R, S, pairs, buckets)
+    out = np.zeros(len(pairs), bool)
+    for sel, Va, Vb in buckets:
+        p = pairs[sel]
+        vr, nr, vs, ns = _bucket_rings(R, S, p, Va, Vb)
+        out[sel] = _within_batch_np(vr, nr, vs, ns, R.mbrs[p[:, 0]],
+                                    S.mbrs[p[:, 1]], True)
+    return out
+
+
 def refine(R, S, pairs: np.ndarray, predicate: str = "intersects",
            backend: str = "numpy", device=None) -> np.ndarray:
-    """Predicate dispatcher. Only ``intersects`` is ported; ``within``,
-    ``linestring`` and ``selection`` are ROADMAP A1-A3 work."""
-    if predicate in ("within", "linestring", "selection"):
+    """Predicate dispatcher: ``intersects`` and ``selection`` (the query
+    polygons as S) refine by intersection, ``within`` by containment;
+    ``linestring`` is ROADMAP A1-A3 work and raises."""
+    if predicate == "within":
+        return refine_within_pairs(R, S, pairs, backend=backend,
+                                   device=device)
+    if predicate == "linestring":
         raise NotImplementedError(
-            f"refinement for predicate {predicate!r} is not ported yet: "
-            "ROADMAP A1-A3 (within, linestring and selection predicates)")
-    if predicate != "intersects":
-        raise ValueError(f"unknown predicate {predicate!r}")
+            "refinement for predicate 'linestring' is not ported yet: "
+            "ROADMAP A1-A3 (the line stores and the linestring predicate)")
+    if predicate not in ("intersects", "selection"):
+        raise ValueError(f"unknown predicate {predicate!r}; expected one of "
+                         "('intersects', 'within', 'linestring', "
+                         "'selection')")
     return refine_pairs(R, S, pairs, backend=backend, device=device)
 
 
 # ---------------------------------------------------------------------------
-# float64 device cores of the fused chain (twins of the reference's jnp
-# cores). Every product and sum is its own eager op, so nothing contracts
-# into an FMA and the signs are those of strict IEEE numpy; the guard band
-# stays all the same, so a sign the reference's compiled cores may flip is
-# flagged ``unc`` and re-checked on the host in float64.
+# float64 device cores of the fused chain and the staged ``device64``
+# backend (twins of the reference's jnp cores). Every product and sum is
+# its own eager op, so nothing contracts into an FMA and the signs are
+# those of strict IEEE numpy; the guard band stays all the same, so a sign
+# the reference's compiled cores may flip is flagged ``unc`` and re-checked
+# on the host in float64.
 # ---------------------------------------------------------------------------
 
 #: relative guard half-width of the float64 sign tests
@@ -416,6 +597,31 @@ def _intersects_impl(vr, nr, vs, ns, rep_r, rep_s):
     return crossed | in_s[:, 0] | in_r[:, 0], unc & ~definite_true
 
 
+def _within_impl(vr, nr, vs, ns):
+    """(verdicts [N], uncertain [N]) of batched 'r within s' on the rows'
+    device: every vertex of r in the closed s and no proper crossing.
+    Uncertain rows had a borderline PiP sign, or a borderline orientation
+    in a row whose vertices all read inside, and must be re-checked on the
+    host."""
+    a0, a1, am = _edges(vr, nr)
+    b0, b1, bm = _edges(vs, ns)
+    pmask = torch.arange(vr.shape[1], device=vr.device)[None, :] \
+        < nr[:, None]
+    in_b, pip_unc = _pip_batch(vr, pmask, b0, b1, bm)
+    all_in = in_b.all(dim=1)
+    (d1, d2, d3, d4), ounc = _quad_orients(
+        a0[:, :, None, :], a1[:, :, None, :],
+        b0[:, None, :, :], b1[:, None, :, :])
+    proper = (((d1 > 0) != (d2 > 0)) & ((d3 > 0) != (d4 > 0))
+              & (d1 != 0) & (d2 != 0) & (d3 != 0) & (d4 != 0))
+    pair_mask = am[:, :, None] & bm[:, None, :]
+    proper = (proper & pair_mask).any(dim=2).any(dim=1)
+    # a certainly-not-all-inside row is False whatever the sweep says
+    unc = pip_unc.any(dim=1) | (
+        all_in & (ounc & pair_mask).any(dim=2).any(dim=1))
+    return all_in & ~proper, unc
+
+
 def device_geometry(D, device) -> dict:
     """float64 device copies of a dataset's rings, cut to its widest ring,
     their vertex counts (int64) and one representative interior point per
@@ -448,17 +654,24 @@ _FUSED_CHUNK_BYTES = 2 << 30
 _BYTES_PER_COUPLE = 160
 
 
-def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device):
+def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device,
+                       predicate: str = "intersects"):
     """Device (res, unc) lanes [N] over a front-packed INDECISIVE prefix.
 
     ``perm``/``count`` come from ``compact_mask`` over the INDECISIVE lane
     of the frame ``ri_dev``/``si_dev``; the lanes are in the packed order
-    (scatter them back through ``perm``). ``count`` stays on the device, so
-    every chunk of the frame is walked and rows past ``count`` are masked
-    out, as the reference's ``take`` does; the reference also skips the
-    dead chunks, which needs the count on the host or a device branch.
-    Chunking is row-wise, so the chunk size changes no verdict.
+    (scatter them back through ``perm``). ``predicate`` picks the core:
+    ``intersects`` and ``selection`` refine by intersection, ``within`` by
+    containment. ``count`` stays on the device, so every chunk of the
+    frame is walked and rows past ``count`` are masked out, as the
+    reference's ``take`` does; the reference also skips the dead chunks,
+    which needs the count on the host or a device branch. Chunking is
+    row-wise, so the chunk size changes no verdict.
     """
+    kind = {"intersects": "intersects", "selection": "intersects",
+            "within": "within"}.get(predicate)
+    if kind is None:
+        raise ValueError(f"no fused refine core for predicate {predicate!r}")
     dev = torch.device(device)
     geom_r = device_geometry(R, dev)
     geom_s = device_geometry(S, dev)
@@ -472,9 +685,13 @@ def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device):
         take = torch.arange(c0, c0 + idx.numel(), device=dev) < count
         rr = ri_dev[idx]
         ss = si_dev[idx]
-        v, u = _intersects_impl(geom_r["verts"][rr], geom_r["nverts"][rr],
-                                geom_s["verts"][ss], geom_s["nverts"][ss],
-                                geom_r["reps"][rr], geom_s["reps"][ss])
+        args = (geom_r["verts"][rr], geom_r["nverts"][rr],
+                geom_s["verts"][ss], geom_s["nverts"][ss])
+        if kind == "within":
+            v, u = _within_impl(*args)
+        else:
+            v, u = _intersects_impl(*args, geom_r["reps"][rr],
+                                    geom_s["reps"][ss])
         res[c0:c0 + idx.numel()] = v & take
         unc[c0:c0 + idx.numel()] = u & take
     return res, unc

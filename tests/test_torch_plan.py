@@ -161,10 +161,18 @@ def test_filter_builds_of_lines_raise(datasets, name):
 
 @pytest.mark.parametrize("predicate", ["within", "linestring", "selection"])
 def test_uncovered_predicates_raise(datasets, predicate):
-    _, _, R, S = datasets
+    """``linestring`` is not ported and raises; ``within`` and
+    ``selection`` run and return the reference's pairs."""
+    R0, S0, R, S = datasets
     plan = JoinPlan(R, S, n_order=6, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        plan.execute(predicate)
+    if predicate == "linestring":
+        with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+            plan.execute(predicate)
+        return
+    want, _ = RJoinPlan(R0, S0, n_order=6).build().execute(predicate)
+    got, st = plan.execute(predicate)
+    assert st.predicate == predicate and len(want) > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_port_imports_neither_jax_nor_the_reference():

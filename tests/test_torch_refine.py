@@ -250,8 +250,8 @@ def test_refine_backend_checks(t1t10):
         refine.refine_pairs(Rt, St, pairs, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="refine backend"):
         refine.refine_pairs(Rt, St, pairs, backend="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        refine.refine(Rt, St, pairs, predicate="within", device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A1-A3"):
+        refine.refine(Rt, St, pairs, predicate="linestring", device="cpu")
     assert refine.refine_pairs(Rt, St, np.zeros((0, 2), np.int64),
                                backend="torch", device="cpu").shape == (0,)
 
