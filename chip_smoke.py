@@ -105,17 +105,22 @@ reference package. Phases, any failure exits non-zero:
    both first and under ``torch.profiler`` (each trace must show its one
    launch of B4, or of B3), then staged with ``refine_backend=
    "device64"`` and fused with ``mbr_backend`` ``"torch"``, each run's
-   pairs, order and counts equal to the port's staged numpy run; APRIL selection (the zip codes as query polygons)
+   pairs, order and counts equal to the port's staged numpy run; APRIL
+   selection (the zip codes as query polygons)
    staged and fused, likewise; APRIL intersects at T1 x T2 with
    ``"device64"``, equal to phase 4's default run; the ``ri``, ``ra``,
-   ``5cch``, ``april-c`` and ``none`` within joins at a third of the
-   counts, staged and fused, each giving APRIL's within result set. Launch
-   counts are reset before and read after each run: B4 once in each APRIL
-   within run, B2 once a staged ``cuda`` refine call, B3 once a fused run,
-   B1 in ``selection``. B2 is held exactly to its plain version on the
-   staged within run's sweep, B4 on the within AA of each fused run's whole
-   frame (and the status lane the run wrote to the plain lane), B3 on each
-   fused run's INDECISIVE lane; the fused stages pass
+   ``5cch``, ``april-c`` and ``none`` within joins at a ninth of the
+   counts (``WITHIN_HOST_SCALE``), staged and fused, each giving APRIL's
+   within result set. Launch counts are reset before and read after each
+   run: B4 once in each APRIL within run, B2 once a staged ``cuda`` refine
+   call, B3 once a fused run, B1 in ``selection``. Every run records the
+   inputs its kernels were given (``join.record_joins()``,
+   ``refine.record_sweeps()``, ``fused.record_chains()``), and each kernel
+   is then held exactly to its plain version on every one of them: B1 and
+   B4 on every interval-join call (the whole frame of a fused run, the
+   decoded lists of APRIL-C), B2 on every sweep, B3 on every fused chain's
+   INDECISIVE lane; each fused APRIL run's status lane must equal the plain
+   lane over its frame, and its stages pass
    ``set_sync_debug_mode("error")``. Each run prints its candidates,
    verdict mix, result pairs and stage times, beside the card's name and
    power limit; the within kernels are timed on the device alone and
@@ -209,6 +214,10 @@ RI_CASE_SEED = 19
 #: the host filters run at the main path's counts over this (DATASET_SPECS
 #: has T1 1200 and T2 4000, a third of the smoke's 3600 x 12000)
 HOST_SCALE = 3
+#: phase 10's host filters run at a further third of that (T2 1333 x T10
+#: 100 at the default counts): RI's build of the zip codes alone took
+#: about 52 s at 4000 x 300 on the card machine's host
+WITHIN_HOST_SCALE = 3 * HOST_SCALE
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 #: logit std of each head of the full-width draws (q is drawn at these
@@ -655,6 +664,51 @@ def _compact_checked(label, m) -> int:
     return int(kc)
 
 
+def _replayed(label, joins, sweeps, chains) -> str:
+    """B1 and B4 on every call a run's interval joins made, B2 on every
+    sweep its refine made and B3 on the INDECISIVE lane of every fused chain
+    it ran, each against its plain version (B3 also against the argsort
+    oracle), exactly, on the inputs the run recorded. Returns a printable
+    summary."""
+    import torch
+    from repro_torch.core.join import INDECISIVE
+    from repro_torch.kernels.interval_join import (april_trichotomy,
+                                                   april_trichotomy_plain,
+                                                   interval_overlap,
+                                                   interval_overlap_plain)
+    from repro_torch.kernels.refine import (edges_intersect_csr,
+                                            edges_intersect_csr_plain)
+    pairs = {"april_trichotomy": (april_trichotomy, april_trichotomy_plain),
+             "interval_overlap": (interval_overlap, interval_overlap_plain)}
+    rows = {name: [] for name in pairs}
+    for name, args in joins:
+        kernel, plain = pairs[name]
+        got, want = kernel(*args), plain(*args)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[{label}] {name} kernel != plain version "
+                                 f"on the run's call over "
+                                 f"{args[-1].numel()} rows")
+        rows[name].append(args[-1].numel())
+    swept = []
+    for sw in sweeps:
+        kh, ku = edges_intersect_csr(*sw)
+        ph, pu = edges_intersect_csr_plain(*sw)
+        torch.cuda.synchronize()
+        if not (torch.equal(kh, ph) and torch.equal(ku, pu)):
+            raise AssertionError(f"[{label}] edges_intersect kernel != plain "
+                                 f"version on the run's sweep")
+        swept.append(sw[2].numel() - 1)
+    lanes = [(len(cs), _compact_checked(label, cs.status == INDECISIVE))
+             for cs in chains if cs.status is not None]
+    return (f"replayed on the run's recorded inputs, tolerance exact: "
+            f"april_trichotomy == plain on calls of {rows['april_trichotomy']}"
+            f" rows, interval_overlap == plain on calls of "
+            f"{rows['interval_overlap']} rows, edges_intersect == plain on "
+            f"sweeps of {swept} rows, compact_mask == plain == oracle on "
+            f"lanes of (rows, INDECISIVE) {lanes}")
+
+
 def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
                   wrappers) -> dict:
     """Phase 10: the ``within`` and ``selection`` joins and the staged
@@ -662,13 +716,12 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
     of the ``kernels`` line gains."""
     import torch
     from repro_torch import JoinPlan, make_dataset
-    from repro_torch.core.join import INDECISIVE, TRUE_NEG, fused_status_rows
+    from repro_torch.core import join
+    from repro_torch.core.join import INDECISIVE, TRUE_NEG
     from repro_torch.datagen.synthetic import DATASET_SPECS
     from repro_torch.kernels.compact import compact_mask
-    from repro_torch.kernels.interval_join import (interval_overlap,
-                                                   interval_overlap_plain)
-    from repro_torch.kernels.refine import (edges_intersect_csr,
-                                            edges_intersect_csr_plain)
+    from repro_torch.kernels.interval_join import interval_overlap
+    from repro_torch.kernels.refine import edges_intersect_csr
     from repro_torch.spatial import fused
     from repro_torch.spatial import refine as refine_mod
     t_phase = time.perf_counter()
@@ -687,15 +740,17 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
           f"s (T2 x {len(S)} store reused from phase 4)", flush=True)
     launches = {}
 
-    def run(label, predicate, R_, S_, pre_, **opts):
-        """One join, launch counts reset before and read after, its sweeps
-        and chains recorded; prints its counts and stage times."""
+    def run(label, predicate, R_, S_, pre_, replay=True, **opts):
+        """One join, launch counts reset before and read after, the inputs
+        of its kernels recorded and, with ``replay``, every kernel held to
+        its plain version on them; prints its counts and stage times."""
         _reset(wrappers)
         t0 = time.perf_counter()
         p = JoinPlan(R_, S_, filter=opts.pop("filter", "april"),
                      n_order=args.n_order, **opts).build(prebuilt=pre_)
         with refine_mod.record_sweeps() as sweeps, \
-                fused.record_chains() as chains:
+                fused.record_chains() as chains, \
+                join.record_joins() as joins:
             res, st = p.execute(predicate)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -706,19 +761,23 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
               f"{st.n_true_negs}/{st.n_indecisive}, {st.n_results} result "
               f"pairs; {json.dumps(st.stage_times())}; "
               f"{json.dumps(st.extra)}", flush=True)
-        return p, res, st, sweeps, chains
+        rec = (joins, sweeps, chains)
+        if replay and any(rec):
+            print(f"[{label}] {_replayed(label, *rec)}", flush=True)
+        return p, res, st, rec
 
     def profiled(label, kernel, *a, **kw):
         """``run`` under the profiler, taken again until its trace shows
-        the one launch of ``kernel`` the run makes."""
+        the one launch of ``kernel`` the run makes; the replay follows,
+        outside the trace."""
         box = []
-        prof = _profile_showing(label, lambda: box.append(run(label, *a,
-                                                              **kw)),
-                                kernel, launches=1)
+        prof = _profile_showing(label, lambda: box.append(run(
+            label, *a, replay=False, **kw)), kernel, launches=1)
         print(f"profile [{label}] (card {smi}): device busy "
               f"{prof['device_busy_us'] / 1e3:.2f} ms of "
               f"{prof['wall_us'] / 1e6:.2f} s "
               f"({100 * prof['device_busy_share']:.2f} %)", flush=True)
+        print(f"[{label}] {_replayed(label, *box[-1][3])}", flush=True)
         return box[-1]
 
     def need(label, **want):
@@ -729,111 +788,97 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
                 raise AssertionError(f"[{label}] {got} {name} launches, "
                                      f"expected {'>= 1' if n is True else n}")
 
-    # APRIL within, T2 x T10: the profiled runs first, while this process's
-    # profiler still records device events (see _attention_in_fresh_process),
-    # then numpy, staged device64 and fused with the torch MBR lane
-    _, res, st, sweeps, _ = profiled("within-staged",
-                                     "interval_overlap_kernel", "within", S,
-                                     Z, pre)
-    fused_numpy = profiled("within-fused-numpy", "compact_mask_kernel",
-                           "within", S, Z, pre, pipeline_mode="fused")
-    _, want, want_st, _, _ = run("within-numpy", "within", S, Z, pre,
-                                 filter_backend="numpy",
-                                 refine_backend="numpy")
-    _same_run("within-staged", res, st, want, want_st)
-    need("within-staged", interval_overlap=True,
-         edges_intersect_csr=int(st.n_indecisive > 0))
-    (sw,) = sweeps
-    kh, ku = edges_intersect_csr(*sw)
-    ph, pu = edges_intersect_csr_plain(*sw)
-    torch.cuda.synchronize()
-    if not (torch.equal(kh, ph) and torch.equal(ku, pu)):
-        raise AssertionError("[within-staged] edges_intersect kernel != "
-                             "plain version on the run's within sweep")
-    print(f"[within-staged] == numpy pairs, order and counts; edge sweep "
-          f"kernel == plain version on its one call ({sw[2].numel() - 1} "
-          f"rows, {int(kh.sum())} definite crossings, {int(ku.sum())} in "
-          f"the band); tolerance: exact", flush=True)
-    _, res, st, _, _ = run("within-device64", "within", S, Z, pre,
-                           refine_backend="device64")
-    _same_run("within-device64", res, st, want, want_st)
-    need("within-device64", interval_overlap=True, edges_intersect_csr=0)
-    frames = {}
-    for mb in ("numpy", "torch"):
-        label = f"within-fused-{mb}"
-        if mb == "numpy":
-            p, res, st, _, chains = fused_numpy
-        else:
-            p, res, st, _, chains = run(label, "within", S, Z, pre,
-                                        pipeline_mode="fused",
-                                        mbr_backend="torch")
-        _same_run(label, res, st, want, want_st)
-        need(label, interval_overlap=1, compact_mask=1,
-             edges_intersect_csr=0)
-        (cs,) = chains
-        _sync_checked(p, label, cs.status, "within")
-        # B4's within AA over the whole frame, and the lane the run wrote,
-        # against the plain versions
-        lists = [p.filter._lists(a, k).to(dev) for a, k in
-                 ((p.approx_r, "A"), (p.approx_s, "A"))]
-        got = interval_overlap(*lists, cs.ri_dev, cs.si_dev)
-        plain = interval_overlap_plain(*lists, cs.ri_dev, cs.si_dev)
-        lane = fused_status_rows(
-            p.filter._lists(p.approx_r, "A"), None,
-            p.filter._lists(p.approx_s, "A"),
-            p.filter._lists(p.approx_s, "F"), cs.ri, cs.si,
-            predicate="within", rows=(cs.ri_dev, cs.si_dev),
-            backend="torch", device=dev)
+    def fused_checked(label, p, rec, predicate):
+        """A fused APRIL run's chain: its stages again under
+        ``set_sync_debug_mode("error")``, and the status lane it wrote
+        against the filter's plain lane over its frame, under its valid
+        lane. Returns the chain."""
+        (cs,) = rec[2]
+        _sync_checked(p, label, cs.status, predicate)
+        lane = p.filter.status_lane(p.approx_r, p.approx_s, cs.ri, cs.si,
+                                    predicate=predicate, backend="torch",
+                                    device=dev, rows=(cs.ri_dev, cs.si_dev))
         if cs.valid is not None:
             lane = torch.where(cs.valid, lane, TRUE_NEG)
         torch.cuda.synchronize()
-        if not torch.equal(got, plain):
-            raise AssertionError(f"[{label}] interval_overlap kernel != "
-                                 "plain version on the run's within AA")
         if not torch.equal(cs.status, lane):
             raise AssertionError(f"[{label}] the status lane != the plain "
-                                 "within lane")
-        n_ind = _compact_checked(label, cs.status == INDECISIVE)
-        frames[mb] = (lists, (cs.ri_dev, cs.si_dev), cs.status == INDECISIVE)
-        print(f"[{label}] == numpy pairs, order and counts; stages passed "
-              f"set_sync_debug_mode('error'); interval_overlap kernel == "
-              f"plain version on the within AA of all {len(cs)} frame rows "
-              f"({int(plain.sum())} overlap); status lane == plain; "
-              f"compaction kernel == plain == oracle ({n_ind} INDECISIVE); "
+                                 f"{predicate} lane")
+        print(f"[{label}] stages passed set_sync_debug_mode('error'); status "
+              f"lane == the plain lane over all {len(cs)} frame rows; "
               f"tolerance: exact", flush=True)
-        del cs, chains, got, plain, lane
+        return cs
+
+    # APRIL within, T2 x T10: the profiled runs first, while this process's
+    # profiler still records device events (see _attention_in_fresh_process),
+    # then numpy, staged device64 and fused with the torch MBR lane
+    _, res, st, rec = profiled("within-staged", "interval_overlap_kernel",
+                               "within", S, Z, pre)
+    (sw,) = rec[1]
+    fused_numpy = profiled("within-fused-numpy", "compact_mask_kernel",
+                           "within", S, Z, pre, pipeline_mode="fused")
+    _, want, want_st, _ = run("within-numpy", "within", S, Z, pre,
+                              filter_backend="numpy", refine_backend="numpy")
+    _same_run("within-staged", res, st, want, want_st)
+    need("within-staged", interval_overlap=True,
+         edges_intersect_csr=int(st.n_indecisive > 0))
+    _, res, st, _ = run("within-device64", "within", S, Z, pre,
+                        refine_backend="device64")
+    _same_run("within-device64", res, st, want, want_st)
+    need("within-device64", interval_overlap=True, edges_intersect_csr=0)
+    for mb in ("numpy", "torch"):
+        label = f"within-fused-{mb}"
+        if mb == "numpy":
+            p, res, st, rec = fused_numpy
+        else:
+            p, res, st, rec = run(label, "within", S, Z, pre,
+                                  pipeline_mode="fused", mbr_backend="torch")
+        _same_run(label, res, st, want, want_st)
+        need(label, interval_overlap=1, compact_mask=1,
+             edges_intersect_csr=0)
+        cs = fused_checked(label, p, rec, "within")
+        if mb == "numpy":
+            # the within AA call and the INDECISIVE lane, timed below
+            (aa_args,) = [a for name, a in rec[0]
+                          if name == "interval_overlap"]
+            ind = cs.status == INDECISIVE
+        del cs, rec
     del fused_numpy
+    print("[within] staged cuda, staged device64 and fused (numpy and torch "
+          "MBR) == numpy pairs, order and counts", flush=True)
 
     # APRIL selection, T2 x T10: the zip codes as query polygons
-    _, want_q, want_q_st, _, _ = run("selection-numpy", "selection", S, Z,
-                                     pre, filter_backend="numpy",
-                                     refine_backend="numpy")
+    _, want_q, want_q_st, _ = run("selection-numpy", "selection", S, Z, pre,
+                                  filter_backend="numpy",
+                                  refine_backend="numpy")
     for label, opts in (("selection-staged", {}),
                         ("selection-fused", {"pipeline_mode": "fused"})):
-        _, res, st, _, _ = run(label, "selection", S, Z, pre, **opts)
+        p, res, st, rec = run(label, "selection", S, Z, pre, **opts)
         _same_run(label, res, st, want_q, want_q_st)
         if "fused" in label:
             need(label, april_trichotomy=1, compact_mask=1,
                  edges_intersect_csr=0)
+            fused_checked(label, p, rec, "selection")
         else:
             need(label, april_trichotomy=True,
                  edges_intersect_csr=int(st.n_indecisive > 0))
+        del rec
     print(f"[selection] staged and fused == numpy pairs, order and counts "
           f"({len(want_q)} pairs)", flush=True)
 
     # APRIL intersects, T1 x T2, staged with the float64 device refine
-    _, res, st, _, _ = run("intersects-device64", "intersects", R, S,
-                           (plan.approx_r, plan.approx_s),
-                           refine_backend="device64")
+    _, res, st, _ = run("intersects-device64", "intersects", R, S,
+                        (plan.approx_r, plan.approx_s),
+                        refine_backend="device64")
     _same_run("intersects-device64", res, st, want_default, want_default_st)
     need("intersects-device64", april_trichotomy=True, edges_intersect_csr=0)
     print(f"[intersects-device64] == the phase 4 default run: {len(res)} "
           f"pairs, order and counts", flush=True)
 
-    # every filter's within join at the DATASET_SPECS counts
+    # every filter's within join at a ninth of the main counts
     t0 = time.perf_counter()
-    W2 = make_dataset("T2", seed=1, count=args.s_count // HOST_SCALE)
-    Z2 = make_dataset("T10", seed=2, count=zips // HOST_SCALE)
+    W2 = make_dataset("T2", seed=1, count=args.s_count // WITHIN_HOST_SCALE)
+    Z2 = make_dataset("T10", seed=2, count=zips // WITHIN_HOST_SCALE)
     april2 = JoinPlan(W2, Z2, filter="april", n_order=args.n_order).build()
     want_set = _pair_set(april2.execute("within")[0])
     print(f"host filters: APRIL within at {len(W2)} x {len(Z2)} "
@@ -846,9 +891,9 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
         runs = {}
         for mode in ("staged", "fused"):
             label = f"{name}-within-{mode}"
-            _, res, st, _, _ = run(label, "within", W2, Z2,
-                                   (host.approx_r, host.approx_s),
-                                   filter=name, pipeline_mode=mode)
+            _, res, st, _ = run(label, "within", W2, Z2,
+                                (host.approx_r, host.approx_s),
+                                filter=name, pipeline_mode=mode)
             if mode == "fused":
                 need(label, compact_mask=1, edges_intersect_csr=0)
             else:
@@ -865,7 +910,7 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
               f"pairs)", flush=True)
 
     # the within path's kernel work on the device alone, beside its bounds
-    (xa, ya), rows, ind = frames["numpy"]
+    xa, ya, *rows = aa_args
     aa_bytes = _nbytes(*xa, *ya, *rows) + rows[0].numel()
     sw_couples = int((torch.diff(sw[2]) * torch.diff(sw[5])).sum())
     sw_rows = sw[2].numel() - 1

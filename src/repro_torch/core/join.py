@@ -36,7 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..device import check_backend_device, resolve_device, upload
+from ..device import InputLog, check_backend_device, resolve_device, upload
 from ..kernels.interval_join import (CSRLists, april_trichotomy,
                                      april_trichotomy_plain, interval_overlap,
                                      interval_overlap_plain)
@@ -49,6 +49,7 @@ __all__ = [
     "containment_join_pair", "april_verdict_pair", "within_verdict_pair",
     "overlap_rows_np", "contain_rows_np", "contain_rows",
     "april_trichotomy_rows", "within_trichotomy_rows", "fused_status_rows",
+    "record_joins",
 ]
 
 I32_MAX = np.int32(np.iinfo(np.int32).max)
@@ -145,7 +146,7 @@ class IntervalLists:
     host.
     """
 
-    __slots__ = ("off", "starts", "lasts", "_device", "_keys")
+    __slots__ = ("off", "starts", "lasts", "_device", "_keys", "_host_keys")
 
     def __init__(self, off: np.ndarray, starts: np.ndarray,
                  lasts: np.ndarray):
@@ -154,6 +155,7 @@ class IntervalLists:
         self.lasts = np.ascontiguousarray(lasts, np.int32)
         self._device: dict[str, CSRLists] = {}
         self._keys: dict[str, torch.Tensor] = {}
+        self._host_keys: np.ndarray | None = None
 
     @classmethod
     def from_intervals(cls, off: np.ndarray, ints: np.ndarray):
@@ -188,18 +190,25 @@ class IntervalLists:
                 *(torch.from_numpy(a).to(dev) for a in (self.off, s, l)))
         return self._device[key]
 
+    def host_keys(self) -> np.ndarray:
+        """[T] uint64, built once and cached: each interval's inclusive
+        last keyed by its row (:func:`_rowkey`), ascending over the whole
+        store (rows in order, lists sorted), so one ``searchsorted`` finds
+        the first interval of any row that ends at or after a value."""
+        if self._host_keys is None:
+            row = np.repeat(np.arange(len(self)), self.counts(
+                np.arange(len(self))))
+            self._host_keys = _rowkey(row, self.lasts)
+        return self._host_keys
+
     def last_keys(self, device) -> torch.Tensor:
-        """[T] int64 on ``device``, uploaded once and cached: each
-        interval's inclusive last keyed by its row, ``row << 33 | last +
-        2^31``, ascending over the whole store (rows in order, lists
-        sorted), so one ``searchsorted`` finds an interval in any row."""
+        """:meth:`host_keys` as int64 on ``device``, uploaded once and
+        cached."""
         dev = torch.device(device)
         key = str(dev)
         if key not in self._keys:
-            row = np.repeat(np.arange(len(self)), self.counts(
-                np.arange(len(self))))
             self._keys[key] = torch.from_numpy(
-                _rowkey(row, self.lasts).astype(np.int64)).to(dev)
+                self.host_keys().astype(np.int64)).to(dev)
         return self._keys[key]
 
 
@@ -213,13 +222,13 @@ _KEY_BIAS = np.int64(1) << np.int64(31)
 
 def _flat_rows(L: IntervalLists, idx: np.ndarray):
     """Expand rows ``idx`` of ``L`` into flat (row-of-entry [T],
-    global-interval [T], counts [B]) arrays."""
+    global-interval [T]) arrays."""
     idx = np.asarray(idx, np.int64)
     lo = L.off[idx]
     cnt = (L.off[idx + 1] - lo).astype(np.int64)
     b_of = np.repeat(np.arange(len(idx)), cnt)
     pos = np.arange(len(b_of)) - np.repeat(np.cumsum(cnt) - cnt, cnt)
-    return b_of, lo[b_of] + pos, cnt
+    return b_of, lo[b_of] + pos
 
 
 def _rowkey(b_of: np.ndarray, vals_i32: np.ndarray) -> np.ndarray:
@@ -227,26 +236,33 @@ def _rowkey(b_of: np.ndarray, vals_i32: np.ndarray) -> np.ndarray:
             + (vals_i32.astype(np.int64) + _KEY_BIAS).astype(np.uint64))
 
 
+def _first_ending(L: IntervalLists, rows: np.ndarray, vals: np.ndarray):
+    """(j, ok): for each entry, the first interval j of row ``rows[k]`` of
+    ``L`` whose inclusive last is at or after ``vals[k]``, one
+    ``searchsorted`` over the store's row keys; ``ok`` is False where the
+    row has none (``j`` is then clamped into the store)."""
+    j = np.searchsorted(L.host_keys(), _rowkey(rows, vals), side="left")
+    ok = j < L.off[rows + 1]
+    return np.minimum(j, len(L.starts) - 1), ok
+
+
 def overlap_rows_np(X: IntervalLists, xi: np.ndarray,
                     Y: IntervalLists, yi: np.ndarray) -> np.ndarray:
-    """[N] bool: does X[xi[n]] overlap Y[yi[n]]? One flat vectorized pass:
-    per x interval, binary-search the row-keyed flat y-lasts for the first
-    y with ``yl >= xs``, then test ``ys <= xl``."""
+    """[N] bool: does X[xi[n]] overlap Y[yi[n]]? One flat vectorized pass
+    over the side with fewer intervals in the frame (the test is
+    symmetric): per interval, the first interval of the other side's row
+    with ``last >= start`` (:func:`_first_ending`), then ``its start <=
+    last``."""
     xi = np.asarray(xi, np.int64)
-    N = len(xi)
-    out = np.zeros(N, bool)
-    if N == 0:
+    yi = np.asarray(yi, np.int64)
+    out = np.zeros(len(xi), bool)
+    if X.counts(xi).sum() > Y.counts(yi).sum():
+        X, xi, Y, yi = Y, yi, X, xi
+    if len(xi) == 0 or len(Y.starts) == 0:
         return out
-    bx, gx, _ = _flat_rows(X, xi)
-    by, gy, cy = _flat_rows(Y, yi)
-    if len(bx) == 0 or len(by) == 0:
-        return out
-    ykeys = _rowkey(by, Y.lasts[gy])
-    yend = np.cumsum(cy)
-    j = np.searchsorted(ykeys, _rowkey(bx, X.starts[gx]), side="left")
-    ok = j < yend[bx]
-    jj = np.minimum(j, len(gy) - 1)
-    hit = ok & (Y.starts[gy[jj]] <= X.lasts[gx])
+    bx, gx = _flat_rows(X, xi)
+    j, ok = _first_ending(Y, yi[bx], X.starts[gx])
+    hit = ok & (Y.starts[j] <= X.lasts[gx])
     out[bx[hit]] = True
     return out
 
@@ -254,24 +270,18 @@ def overlap_rows_np(X: IntervalLists, xi: np.ndarray,
 def contain_rows_np(X: IntervalLists, xi: np.ndarray,
                     F: IntervalLists, fi: np.ndarray) -> np.ndarray:
     """[N] bool: is every interval of X[xi[n]] inside some interval of
-    F[fi[n]]? (the within join's AF test, §4.3.2). False for an empty X or
-    F list; the trichotomy drivers consult it only on AA survivors."""
+    F[fi[n]]? (the within join's AF test, §4.3.2). Per X interval, the
+    first F interval of the row ending at or after its last
+    (:func:`_first_ending`) must hold it. False for an empty X or F list;
+    the trichotomy drivers consult it only on AA survivors."""
     xi = np.asarray(xi, np.int64)
-    N = len(xi)
+    fi = np.asarray(fi, np.int64)
     out = (X.counts(xi) > 0) & (F.counts(fi) > 0)
-    if N == 0:
+    if len(xi) == 0 or len(F.starts) == 0:
         return out
-    bx, gx, _ = _flat_rows(X, xi)
-    bf, gf, cf = _flat_rows(F, fi)
-    if len(bx) == 0 or len(bf) == 0:
-        return out      # some side is empty on every row
-    fkeys = _rowkey(bf, F.lasts[gf])
-    fend = np.cumsum(cf)
-    j = np.searchsorted(fkeys, _rowkey(bx, X.lasts[gx]), side="left")
-    ok = j < fend[bx]
-    jj = np.minimum(j, len(gf) - 1)
-    inside = ok & (F.starts[gf[jj]] <= X.starts[gx]) \
-        & (X.lasts[gx] <= F.lasts[gf[jj]])
+    bx, gx = _flat_rows(X, xi)
+    j, ok = _first_ending(F, fi[bx], X.lasts[gx])
+    inside = ok & (F.starts[j] <= X.starts[gx]) & (X.lasts[gx] <= F.lasts[j])
     out[bx[~inside]] = False
     return out
 
@@ -291,15 +301,40 @@ def _rows(idx: np.ndarray, L: IntervalLists, dev: torch.device,
     return upload(idx, dev)
 
 
+_JOINS = InputLog()
+
+
+def record_joins():
+    """Collect the device inputs of every interval-join call the staged
+    and fused drivers make inside the block, one ``(kernel, args)`` item a
+    call: ``("april_trichotomy", (xa, xf, ya, yf, ri, si))`` or
+    ``("interval_overlap", (x, y, xi, yi))``, whether the call went to the
+    kernel or to its plain version, so that the kernels can be replayed on
+    exactly what a join gave them."""
+    return _JOINS.record()
+
+
+def _interval_join(name: str, backend: str, *args) -> torch.Tensor:
+    """One call of the trichotomy or overlap kernel (``cuda``) or of its
+    plain version (other backends) on device tensors, noted in
+    :func:`record_joins`."""
+    _JOINS.add((name, args))
+    if name == "april_trichotomy":
+        fn = april_trichotomy if backend == "cuda" else april_trichotomy_plain
+    else:
+        fn = interval_overlap if backend == "cuda" else interval_overlap_plain
+    return fn(*args)
+
+
 def _overlap_fn(backend: str, dev: torch.device):
     """Host-in, host-out overlap rows for one backend."""
     if backend == "numpy":
         return overlap_rows_np
-    fn = interval_overlap_plain if backend == "torch" else interval_overlap
 
     def overlap(X, xi, Y, yi):
-        got = fn(X.to(dev), Y.to(dev), _rows(xi, X, dev, "xi"),
-                 _rows(yi, Y, dev, "yi"))
+        got = _interval_join("interval_overlap", backend, X.to(dev),
+                             Y.to(dev), _rows(xi, X, dev, "xi"),
+                             _rows(yi, Y, dev, "yi"))
         return got.cpu().numpy()
     return overlap
 
@@ -339,7 +374,7 @@ def contain_rows(X: IntervalLists, xi: np.ndarray, F: IntervalLists,
     gx = x.off[xi_d][bx] + torch.arange(T, device=dev) - first[bx]
     xs, xl = x.starts[gx], x.lasts[gx]
     frow = fi_d[bx]
-    q = (frow << 33) + (xl.to(torch.int64) + (1 << 31))
+    q = (frow << int(_KEY_SHIFT)) + (xl.to(torch.int64) + int(_KEY_BIAS))
     j = torch.searchsorted(F.last_keys(dev), q, side="left")
     ok = j < f.off[frow + 1]
     jj = torch.clamp(j, max=len(F.starts) - 1)
@@ -404,9 +439,10 @@ def april_trichotomy_rows(
     if N == 0:
         return np.zeros(0, np.int8)
     if backend == "cuda" and set(order) == {"AA", "AF", "FA"}:
-        got = april_trichotomy(Xa.to(dev), Xf.to(dev), Ya.to(dev),
-                               Yf.to(dev), _rows(ri, Xa, dev, "ri"),
-                               _rows(si, Ya, dev, "si"))
+        got = _interval_join("april_trichotomy", backend, Xa.to(dev),
+                             Xf.to(dev), Ya.to(dev), Yf.to(dev),
+                             _rows(ri, Xa, dev, "ri"),
+                             _rows(si, Ya, dev, "si"))
         return got.cpu().numpy()
     overlap = _overlap_fn(backend, dev)
     aa = overlap(Xa, ri, Ya, si)
@@ -491,10 +527,10 @@ def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists | None,
         _check_frame(np.asarray(ri), Xa, "ri")
         _check_frame(np.asarray(si), Ya, "si")
     if predicate == "within":
-        fn = interval_overlap if backend == "cuda" else interval_overlap_plain
-        aa = fn(Xa.to(dev), Ya.to(dev), *rows)
+        aa = _interval_join("interval_overlap", backend, Xa.to(dev),
+                            Ya.to(dev), *rows)
         cont = contain_rows(Xa, ri, Yf, si, device=dev, rows=rows)
         return torch.where(aa, torch.where(cont, TRUE_HIT, INDECISIVE),
                            TRUE_NEG).to(torch.int8)
-    fn = april_trichotomy if backend == "cuda" else april_trichotomy_plain
-    return fn(Xa.to(dev), Xf.to(dev), Ya.to(dev), Yf.to(dev), *rows)
+    return _interval_join("april_trichotomy", backend, Xa.to(dev),
+                          Xf.to(dev), Ya.to(dev), Yf.to(dev), *rows)

@@ -351,17 +351,11 @@ def _refine_device64(kind, dev, R, S, pairs, buckets, rep_r, rep_s,
         p = pairs[sel]
         ri = upload(np.ascontiguousarray(p[:, 0]), dev)
         si = upload(np.ascontiguousarray(p[:, 1]), dev)
-        C = max(1, _FUSED_CHUNK_BYTES // (Va * Vb * _BYTES_PER_COUPLE))
-        lanes = []
-        for c0 in range(0, len(p), C):
-            rr, ss = ri[c0:c0 + C], si[c0:c0 + C]
-            args = (geom_r["verts"][rr, :Va], geom_r["nverts"][rr],
-                    geom_s["verts"][ss, :Vb], geom_s["nverts"][ss])
-            if kind == "within":
-                lanes.append(torch.stack(_within_impl(*args)))
-            else:
-                lanes.append(torch.stack(_intersects_impl(
-                    *args, geom_r["reps"][rr], geom_s["reps"][ss])))
+        C = _chunk_rows(Va, Vb)
+        lanes = [torch.stack(_core_lanes(kind, geom_r, geom_s,
+                                         ri[c0:c0 + C], si[c0:c0 + C], Va,
+                                         Vb))
+                 for c0 in range(0, len(p), C)]
         res, unc = torch.cat(lanes, dim=1).cpu().numpy()
         if unc.any():    # borderline signs: re-run on the host in float64
             vr, nr, vs, ns = _bucket_rings(R, S, p[unc], Va, Vb)
@@ -654,6 +648,22 @@ _FUSED_CHUNK_BYTES = 2 << 30
 _BYTES_PER_COUPLE = 160
 
 
+def _chunk_rows(Va: int, Vb: int) -> int:
+    """Rows a chunk of [C, Va, Vb] core temporaries may hold."""
+    return max(1, _FUSED_CHUNK_BYTES // (Va * Vb * _BYTES_PER_COUPLE))
+
+
+def _core_lanes(kind, geom_r, geom_s, rr, ss, Va, Vb):
+    """(verdicts, uncertain) of the float64 core of ``kind`` over rows
+    (rr[n], ss[n]) of the device geometries, their rings cut to Va and Vb
+    vertices."""
+    args = (geom_r["verts"][rr, :Va], geom_r["nverts"][rr],
+            geom_s["verts"][ss, :Vb], geom_s["nverts"][ss])
+    if kind == "within":
+        return _within_impl(*args)
+    return _intersects_impl(*args, geom_r["reps"][rr], geom_s["reps"][ss])
+
+
 def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device,
                        predicate: str = "intersects"):
     """Device (res, unc) lanes [N] over a front-packed INDECISIVE prefix.
@@ -678,20 +688,13 @@ def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device,
     N = perm.numel()
     res = torch.zeros(N, dtype=torch.bool, device=dev)
     unc = torch.zeros(N, dtype=torch.bool, device=dev)
-    couples = geom_r["verts"].shape[1] * geom_s["verts"].shape[1]
-    C = max(1, _FUSED_CHUNK_BYTES // (couples * _BYTES_PER_COUPLE))
+    Va, Vb = geom_r["verts"].shape[1], geom_s["verts"].shape[1]
+    C = _chunk_rows(Va, Vb)
     for c0 in range(0, N, C):
         idx = perm[c0:c0 + C].to(torch.int64)
         take = torch.arange(c0, c0 + idx.numel(), device=dev) < count
-        rr = ri_dev[idx]
-        ss = si_dev[idx]
-        args = (geom_r["verts"][rr], geom_r["nverts"][rr],
-                geom_s["verts"][ss], geom_s["nverts"][ss])
-        if kind == "within":
-            v, u = _within_impl(*args)
-        else:
-            v, u = _intersects_impl(*args, geom_r["reps"][rr],
-                                    geom_s["reps"][ss])
+        v, u = _core_lanes(kind, geom_r, geom_s, ri_dev[idx], si_dev[idx],
+                           Va, Vb)
         res[c0:c0 + idx.numel()] = v & take
         unc[c0:c0 + idx.numel()] = u & take
     return res, unc

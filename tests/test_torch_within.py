@@ -182,6 +182,68 @@ def test_containment_matches_reference(seed):
         assert not tjoin.contain_rows_np(a, own, b, own).any()
 
 
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_overlap_rows_match_reference(seed):
+    """The host overlap rows equal the reference's with either side the
+    smaller one (the port expands the side with fewer intervals), paired
+    as drawn and shuffled, and with an empty store on either side."""
+    rows = 96
+    (rX, tX, _), (rF, tF, _) = _containment_lists(seed, rows)
+    own = np.arange(rows)
+    shuffled = np.random.default_rng(seed).permutation(rows)
+    seen = []
+    for xi, yi in ((own, own), (own, shuffled), (own[:7], shuffled[:7])):
+        for (ra_, ta), (rb, tb) in (((rX, tX), (rF, tF)),
+                                    ((rF, tF), (rX, tX))):
+            want = rjoin.overlap_rows_np(ra_, xi, rb, yi)
+            np.testing.assert_array_equal(
+                tjoin.overlap_rows_np(ta, xi, tb, yi), want)
+            seen.append(want)
+    assert np.concatenate(seen).any() and not np.concatenate(seen).all()
+    empty = tjoin.IntervalLists.from_intervals(np.zeros(rows + 1, np.int64),
+                                               np.zeros((0, 2), np.uint64))
+    for a, b in ((tX, empty), (empty, tF)):
+        assert not tjoin.overlap_rows_np(a, own, b, own).any()
+
+
+@pytest.mark.parametrize("pipeline_mode", ["staged", "fused"])
+@pytest.mark.parametrize("predicate", ["within", "selection"])
+def test_record_joins_replays_the_run(wz, plans, predicate, pipeline_mode):
+    """``record_joins`` notes every interval-join call of a run, and the
+    plain versions replayed on what it noted give the run's own verdicts:
+    the fused chain's status lane under its valid lane."""
+    from repro_torch.kernels.interval_join import (april_trichotomy_plain,
+                                                   interval_overlap_plain)
+    from repro_torch.spatial import fused
+    _, _, R, S = wz
+    _, tplan = plans["april"]
+    plan = JoinPlan(R, S, filter="april", n_order=8, device="cpu",
+                    filter_backend="torch", pipeline_mode=pipeline_mode
+                    ).build(prebuilt=(tplan.approx_r, tplan.approx_s))
+    with tjoin.record_joins() as joins, fused.record_chains() as chains:
+        plan.execute(predicate)
+    plain = {"april_trichotomy": april_trichotomy_plain,
+             "interval_overlap": interval_overlap_plain}
+    assert joins
+    outs = [plain[name](*args) for name, args in joins]
+    if pipeline_mode == "fused":
+        (cs,) = chains
+        ((name, args),) = joins
+        assert args[-2] is cs.ri_dev and args[-1] is cs.si_dev
+        if predicate == "selection":
+            lane = torch.where(cs.valid, outs[0], tjoin.TRUE_NEG) \
+                if cs.valid is not None else outs[0]
+            assert torch.equal(cs.status, lane)
+        else:   # the lane is INDECISIVE or TRUE_HIT where AA overlaps
+            aa = outs[0] if cs.valid is None else outs[0] & cs.valid
+            assert torch.equal(cs.status != tjoin.TRUE_NEG, aa)
+    else:
+        assert not chains
+        names = [name for name, _ in joins]
+        assert names == (["interval_overlap"] if predicate == "within"
+                         else ["interval_overlap"] * 3)
+
+
 # ---------------------------------------------------------------------------
 # the staged within trichotomy and every filter's within verdicts
 # ---------------------------------------------------------------------------
