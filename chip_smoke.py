@@ -125,8 +125,36 @@ reference package. Phases, any failure exits non-zero:
    verdict mix, result pairs and stage times, beside the card's name and
    power limit; the within kernels are timed on the device alone and
    their rows of the ``kernels`` line gain the within launches;
-9. (in a child process of this script, after phase 10: late in a long
-   process the card machine's profiler records no device events) the
+11. (run after phase 10, before phase 9) the ``linestring`` joins
+   (polygon x linestring, §4.3.3): roads or rivers, the T8 chains
+   (``make_linestrings("T8", seed=3, count=12000)`` at the default
+   counts), x water bodies T2 (phase 4's S, its APRIL store and phase 5's
+   RI store reused through ``JoinPlan.build(prebuilt=...)``, so only the
+   line stores are built, each timed on its own line), ``r_kind="line"``:
+   APRIL staged with ``"cuda"`` and fused with ``mbr_backend``
+   ``"numpy"``, both first and under ``torch.profiler`` (the traces must
+   name B4, and B3 once), staged with ``refine_backend="device64"`` and
+   fused with ``mbr_backend`` ``"torch"``, each run's pairs, order and
+   counts equal to the port's staged numpy run, and 512 sampled
+   candidates equal to the float64 per-pair oracle; RI (every line cell
+   Weak) staged and fused, equal to its staged numpy run, whose set is
+   APRIL's; ``ra``, ``5cch``, ``april-c`` and ``none`` at a ninth of the
+   counts (``WITHIN_HOST_SCALE``), staged and fused, each giving APRIL's
+   result set. Launch counts are reset before and read after each run:
+   B4 twice in each APRIL run (C x A(s) over the frame, C x F(s) over its
+   survivors, or over every row when fused), B2 once a staged ``cuda``
+   refine call (every chain edge x every ring edge, no closing edge), B3
+   once a fused run, B5 once in each RI run. Every run records its
+   kernels' inputs, and B4, B2, B3 and B5 are held exactly to their plain
+   versions on all of them; each fused APRIL and RI run's status lane
+   equals the plain lane under its ``valid`` lane and its stages pass
+   ``set_sync_debug_mode("error")``. Each run prints its candidates,
+   verdict mix, result pairs and stage times beside the card's name and
+   power limit; the kernels are timed on the device alone and their rows
+   of the ``kernels`` line gain the linestring launches, device times and
+   bounds;
+9. (in a child process of this script, after phases 10 and 11: late in a
+   long process the card machine's profiler records no device events) the
    APRIL block-sparse attention kernels (``april_attention``, the LM
    bridge; no join runs it: bf16 on the tensor cores, f32 on the CUDA
    cores): on the test grid (``TEST_GRID``: the reference's cases from
@@ -664,12 +692,12 @@ def _compact_checked(label, m) -> int:
     return int(kc)
 
 
-def _replayed(label, joins, sweeps, chains) -> str:
+def _replayed(label, joins, sweeps, chains, frames=()) -> str:
     """B1 and B4 on every call a run's interval joins made, B2 on every
-    sweep its refine made and B3 on the INDECISIVE lane of every fused chain
-    it ran, each against its plain version (B3 also against the argsort
-    oracle), exactly, on the inputs the run recorded. Returns a printable
-    summary."""
+    sweep its refine made, B3 on the INDECISIVE lane of every fused chain
+    it ran and B5 on every RI frame its filter ran, each against its plain
+    version (B3 also against the argsort oracle), exactly, on the inputs
+    the run recorded. Returns a printable summary."""
     import torch
     from repro_torch.core.join import INDECISIVE
     from repro_torch.kernels.interval_join import (april_trichotomy,
@@ -678,6 +706,7 @@ def _replayed(label, joins, sweeps, chains) -> str:
                                                    interval_overlap_plain)
     from repro_torch.kernels.refine import (edges_intersect_csr,
                                             edges_intersect_csr_plain)
+    from repro_torch.kernels.ri_and import ri_trichotomy, ri_trichotomy_plain
     pairs = {"april_trichotomy": (april_trichotomy, april_trichotomy_plain),
              "interval_overlap": (interval_overlap, interval_overlap_plain)}
     rows = {name: [] for name in pairs}
@@ -701,12 +730,120 @@ def _replayed(label, joins, sweeps, chains) -> str:
         swept.append(sw[2].numel() - 1)
     lanes = [(len(cs), _compact_checked(label, cs.status == INDECISIVE))
              for cs in chains if cs.status is not None]
+    ri_rows = []
+    for fr in frames:
+        got, want = ri_trichotomy(*fr), ri_trichotomy_plain(*fr)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"[{label}] ri_trichotomy kernel != plain "
+                                 f"version on the run's frame of "
+                                 f"{fr[2].numel()} rows")
+        ri_rows.append(fr[2].numel())
     return (f"replayed on the run's recorded inputs, tolerance exact: "
             f"april_trichotomy == plain on calls of {rows['april_trichotomy']}"
             f" rows, interval_overlap == plain on calls of "
             f"{rows['interval_overlap']} rows, edges_intersect == plain on "
             f"sweeps of {swept} rows, compact_mask == plain == oracle on "
-            f"lanes of (rows, INDECISIVE) {lanes}")
+            f"lanes of (rows, INDECISIVE) {lanes}, ri_trichotomy == plain "
+            f"on frames of {ri_rows} rows")
+
+
+class _Runs:
+    """The joins of one phase on the card, each through ``run``: launch
+    counts reset before and read after (kept in ``launches`` by label),
+    the inputs of its kernels recorded and, with ``replay``, every kernel
+    held to its plain version on them; its counts and stage times
+    printed."""
+
+    def __init__(self, args, dev, smi, wrappers):
+        self.args, self.dev, self.smi = args, dev, smi
+        self.wrappers = wrappers
+        self.launches = {}
+
+    def run(self, label, predicate, R_, S_, pre_, replay=True, **opts):
+        """One join; returns (plan, pairs, stats, recorded inputs: the
+        interval joins, sweeps, fused chains and RI frames)."""
+        import torch
+        from repro_torch import JoinPlan
+        from repro_torch.core import join
+        from repro_torch.core import ri as ri_mod
+        from repro_torch.spatial import fused
+        from repro_torch.spatial import refine as refine_mod
+        _reset(self.wrappers)
+        t0 = time.perf_counter()
+        p = JoinPlan(R_, S_, filter=opts.pop("filter", "april"),
+                     n_order=self.args.n_order, **opts).build(prebuilt=pre_)
+        with refine_mod.record_sweeps() as sweeps, \
+                fused.record_chains() as chains, \
+                join.record_joins() as joins, \
+                ri_mod.record_frames() as frames:
+            res, st = p.execute(predicate)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        self.launches[label] = {fn.__name__: fn.launches
+                                for fn in self.wrappers}
+        print(f"[{label}] {wall:.2f} s; launches "
+              f"{json.dumps(self.launches[label])}; candidates "
+              f"{st.n_candidates}, TRUE_HIT/TRUE_NEG/INDECISIVE "
+              f"{st.n_true_hits}/{st.n_true_negs}/{st.n_indecisive}, "
+              f"{st.n_results} result pairs; {json.dumps(st.stage_times())}; "
+              f"{json.dumps(st.extra)} (card {self.smi})", flush=True)
+        rec = (joins, sweeps, chains, frames)
+        if replay and any(rec):
+            print(f"[{label}] {_replayed(label, *rec)}", flush=True)
+        return p, res, st, rec
+
+    def profiled(self, label, kernel, *a, launches=1, **kw):
+        """``run`` under the profiler, taken again until its trace shows
+        the ``launches`` of ``kernel`` the run makes; the replay follows,
+        outside the trace."""
+        box = []
+        prof = _profile_showing(label, lambda: box.append(self.run(
+            label, *a, replay=False, **kw)), kernel, launches=launches)
+        print(f"profile [{label}] (card {self.smi}): device busy "
+              f"{prof['device_busy_us'] / 1e3:.2f} ms of "
+              f"{prof['wall_us'] / 1e6:.2f} s "
+              f"({100 * prof['device_busy_share']:.2f} %)", flush=True)
+        print(f"[{label}] {_replayed(label, *box[-1][3])}", flush=True)
+        return box[-1]
+
+    def need(self, label, **want):
+        """Launch counts: an int must match, ``True`` means at least one."""
+        for name, n in want.items():
+            got = self.launches[label][name]
+            if (n is True and got < 1) or (n is not True and got != n):
+                raise AssertionError(f"[{label}] {got} {name} launches, "
+                                     f"expected {'>= 1' if n is True else n}")
+
+    def fused_checked(self, label, p, rec, predicate):
+        """A fused run's chain: its stages again under
+        ``set_sync_debug_mode("error")``, and the status lane it wrote
+        against the filter's plain lane over its frame, under its valid
+        lane. Returns the chain."""
+        import torch
+        from repro_torch.core.join import TRUE_NEG
+        (cs,) = rec[2]
+        _sync_checked(p, label, cs.status, predicate)
+        lane = p.filter.status_lane(p.approx_r, p.approx_s, cs.ri, cs.si,
+                                    predicate=predicate, backend="torch",
+                                    device=self.dev,
+                                    rows=(cs.ri_dev, cs.si_dev))
+        if cs.valid is not None:
+            lane = torch.where(cs.valid, lane, TRUE_NEG)
+        torch.cuda.synchronize()
+        if not torch.equal(cs.status, lane):
+            raise AssertionError(f"[{label}] the status lane != the plain "
+                                 f"{predicate} lane")
+        print(f"[{label}] stages passed set_sync_debug_mode('error'); status "
+              f"lane == the plain lane over all {len(cs)} frame rows; "
+              f"tolerance: exact", flush=True)
+        return cs
+
+    def by(self, label_prefix, name):
+        """Launches of ``name`` in every run whose label starts with
+        ``label_prefix``."""
+        return {k: v[name] for k, v in self.launches.items()
+                if k.startswith(label_prefix)}
 
 
 def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
@@ -716,14 +853,11 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
     of the ``kernels`` line gains."""
     import torch
     from repro_torch import JoinPlan, make_dataset
-    from repro_torch.core import join
-    from repro_torch.core.join import INDECISIVE, TRUE_NEG
+    from repro_torch.core.join import INDECISIVE
     from repro_torch.datagen.synthetic import DATASET_SPECS
     from repro_torch.kernels.compact import compact_mask
     from repro_torch.kernels.interval_join import interval_overlap
     from repro_torch.kernels.refine import edges_intersect_csr
-    from repro_torch.spatial import fused
-    from repro_torch.spatial import refine as refine_mod
     t_phase = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -738,76 +872,9 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
     pre = (base.approx_r, base.approx_s)
     print(f"host: T10 x {len(Z)} APRIL build {time.perf_counter() - t0:.1f} "
           f"s (T2 x {len(S)} store reused from phase 4)", flush=True)
-    launches = {}
-
-    def run(label, predicate, R_, S_, pre_, replay=True, **opts):
-        """One join, launch counts reset before and read after, the inputs
-        of its kernels recorded and, with ``replay``, every kernel held to
-        its plain version on them; prints its counts and stage times."""
-        _reset(wrappers)
-        t0 = time.perf_counter()
-        p = JoinPlan(R_, S_, filter=opts.pop("filter", "april"),
-                     n_order=args.n_order, **opts).build(prebuilt=pre_)
-        with refine_mod.record_sweeps() as sweeps, \
-                fused.record_chains() as chains, \
-                join.record_joins() as joins:
-            res, st = p.execute(predicate)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
-        print(f"[{label}] {wall:.2f} s; launches "
-              f"{json.dumps(launches[label])}; candidates {st.n_candidates}, "
-              f"TRUE_HIT/TRUE_NEG/INDECISIVE {st.n_true_hits}/"
-              f"{st.n_true_negs}/{st.n_indecisive}, {st.n_results} result "
-              f"pairs; {json.dumps(st.stage_times())}; "
-              f"{json.dumps(st.extra)}", flush=True)
-        rec = (joins, sweeps, chains)
-        if replay and any(rec):
-            print(f"[{label}] {_replayed(label, *rec)}", flush=True)
-        return p, res, st, rec
-
-    def profiled(label, kernel, *a, **kw):
-        """``run`` under the profiler, taken again until its trace shows
-        the one launch of ``kernel`` the run makes; the replay follows,
-        outside the trace."""
-        box = []
-        prof = _profile_showing(label, lambda: box.append(run(
-            label, *a, replay=False, **kw)), kernel, launches=1)
-        print(f"profile [{label}] (card {smi}): device busy "
-              f"{prof['device_busy_us'] / 1e3:.2f} ms of "
-              f"{prof['wall_us'] / 1e6:.2f} s "
-              f"({100 * prof['device_busy_share']:.2f} %)", flush=True)
-        print(f"[{label}] {_replayed(label, *box[-1][3])}", flush=True)
-        return box[-1]
-
-    def need(label, **want):
-        """Launch counts: an int must match, ``True`` means at least one."""
-        for name, n in want.items():
-            got = launches[label][name]
-            if (n is True and got < 1) or (n is not True and got != n):
-                raise AssertionError(f"[{label}] {got} {name} launches, "
-                                     f"expected {'>= 1' if n is True else n}")
-
-    def fused_checked(label, p, rec, predicate):
-        """A fused APRIL run's chain: its stages again under
-        ``set_sync_debug_mode("error")``, and the status lane it wrote
-        against the filter's plain lane over its frame, under its valid
-        lane. Returns the chain."""
-        (cs,) = rec[2]
-        _sync_checked(p, label, cs.status, predicate)
-        lane = p.filter.status_lane(p.approx_r, p.approx_s, cs.ri, cs.si,
-                                    predicate=predicate, backend="torch",
-                                    device=dev, rows=(cs.ri_dev, cs.si_dev))
-        if cs.valid is not None:
-            lane = torch.where(cs.valid, lane, TRUE_NEG)
-        torch.cuda.synchronize()
-        if not torch.equal(cs.status, lane):
-            raise AssertionError(f"[{label}] the status lane != the plain "
-                                 f"{predicate} lane")
-        print(f"[{label}] stages passed set_sync_debug_mode('error'); status "
-              f"lane == the plain lane over all {len(cs)} frame rows; "
-              f"tolerance: exact", flush=True)
-        return cs
+    runs = _Runs(args, dev, smi, wrappers)
+    run, profiled, need = runs.run, runs.profiled, runs.need
+    fused_checked, launches = runs.fused_checked, runs.launches
 
     # APRIL within, T2 x T10: the profiled runs first, while this process's
     # profiler still records device events (see _attention_in_fresh_process),
@@ -888,7 +955,7 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
         t0 = time.perf_counter()
         host = JoinPlan(W2, Z2, filter=name, n_order=args.n_order).build()
         t_build = time.perf_counter() - t0
-        runs = {}
+        got = {}
         for mode in ("staged", "fused"):
             label = f"{name}-within-{mode}"
             _, res, st, _ = run(label, "within", W2, Z2,
@@ -900,9 +967,9 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
                 need(label, edges_intersect_csr=int(st.n_indecisive > 0),
                      **({"interval_overlap": True} if name == "april-c"
                         else {}))
-            runs[mode] = (res, st)
-        _same_run(f"{name}-within-fused", *runs["fused"], *runs["staged"])
-        if _pair_set(runs["staged"][0]) != want_set:
+            got[mode] = (res, st)
+        _same_run(f"{name}-within-fused", *got["fused"], *got["staged"])
+        if _pair_set(got["staged"][0]) != want_set:
             raise AssertionError(f"[{name}-within] result set != the APRIL "
                                  "run's")
         print(f"[{name}-within] build {t_build:.2f} s; staged == fused "
@@ -918,10 +985,7 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
         / HBM_BYTES_PER_S
     t_ops = sw_couples * SWEEP_OPS_PER_COUPLE / F32_OPS_PER_S
 
-    def by(label_prefix, name):
-        return {k: v[name] for k, v in launches.items()
-                if k.startswith(label_prefix)}
-
+    by = runs.by
     extra = {
         "interval_overlap": {
             "launches_within": by("within", "interval_overlap"),
@@ -946,6 +1010,223 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
     print(f"within kernels on the device alone (card {smi}): "
           f"{json.dumps(extra)}", flush=True)
     print(f"phase 10 ok: within and selection, device64 "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
+    return extra
+
+
+def _linestring_phase(args, dev, S, plan, ri_s, wrappers) -> dict:
+    """Phase 11: the linestring joins (polygon x linestring, §4.3.3) on the
+    card. Returns, by kernel, the keys its row of the ``kernels`` line
+    gains."""
+    import torch
+    from repro_torch import JoinPlan, make_dataset, make_linestrings
+    from repro_torch.core.join import INDECISIVE
+    from repro_torch.kernels.compact import compact_mask
+    from repro_torch.kernels.interval_join import interval_overlap
+    from repro_torch.kernels.refine import edges_intersect_csr
+    from repro_torch.kernels.ri_and import ri_trichotomy
+    from repro_torch.spatial import refine as refine_mod
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"phase 11 card: {smi}", flush=True)
+    # roads or rivers (the T8 chains) against water bodies (T2, phase 4's
+    # S); only the line stores are built, the polygon stores are reused
+    t0 = time.perf_counter()
+    L = make_linestrings("T8", seed=3, count=args.s_count)
+    print(f"host: T8 x {len(L)} chains {time.perf_counter() - t0:.1f} s, "
+          f"{int(L.nverts.sum())} vertices", flush=True)
+    line = {"r_kind": "line"}
+    t0 = time.perf_counter()
+    base = JoinPlan(L, S, filter="april", n_order=args.n_order,
+                    **line).build(prebuilt=(None, plan.approx_s))
+    print(f"host: T8 line cell store {time.perf_counter() - t0:.1f} s, "
+          f"{len(base.approx_r.store.ids)} cells (T2 x {len(S)} APRIL "
+          f"store reused from phase 4)", flush=True)
+    t0 = time.perf_counter()
+    ri_base = JoinPlan(L, S, filter="ri", n_order=args.n_order,
+                       **line).build(prebuilt=(None, ri_s))
+    print(f"host: T8 RI line store {time.perf_counter() - t0:.1f} s, "
+          f"{len(ri_base.approx_r.store.ints)} intervals, all Weak (T2 RI "
+          f"store reused from phase 5)", flush=True)
+    pre = (base.approx_r, base.approx_s)
+    ri_pre = (ri_base.approx_r, ri_base.approx_s)
+    runs = _Runs(args, dev, smi, wrappers)
+    run, need = runs.run, runs.need
+
+    # APRIL: the profiled runs first, while this process's profiler may
+    # still record device events (see _attention_in_fresh_process)
+    _, res, st, staged_rec = runs.profiled(
+        "line-staged", "interval_overlap_kernel", "linestring", L, S, pre,
+        launches=None, **line)
+    fused_numpy = runs.profiled("line-fused-numpy", "compact_mask_kernel",
+                                "linestring", L, S, pre, launches=1,
+                                pipeline_mode="fused", **line)
+    _, want, want_st, _ = run("line-numpy", "linestring", L, S, pre,
+                              filter_backend="numpy", refine_backend="numpy",
+                              **line)
+    _same_run("line-staged", res, st, want, want_st)
+    # B4 on the whole frame (C x A(s)), then on its survivors (C x F(s))
+    n_ov = 1 + int(want_st.n_true_hits + want_st.n_indecisive > 0)
+    need("line-staged", interval_overlap=n_ov,
+         edges_intersect_csr=int(st.n_indecisive > 0))
+    cands = base.candidates("linestring")
+    rng = np.random.default_rng(0)
+    sample = cands[rng.choice(len(cands), size=min(512, len(cands)),
+                              replace=False)]
+    exact = refine_mod.refine_line_poly_pairs_seq(L, S, sample)
+    in_res = _pair_set(want)
+    bad = [p for p, e in zip(map(tuple, sample.tolist()), exact)
+           if e != (p in in_res)]
+    if bad:
+        raise AssertionError(f"[line] pairs {bad[:8]} disagree with the "
+                             "float64 oracle")
+    _, res, st, _ = run("line-device64", "linestring", L, S, pre,
+                        refine_backend="device64", **line)
+    _same_run("line-device64", res, st, want, want_st)
+    need("line-device64", interval_overlap=n_ov, edges_intersect_csr=0)
+    for mb in ("numpy", "torch"):
+        label = f"line-fused-{mb}"
+        if mb == "numpy":
+            p, res, st, rec = fused_numpy
+        else:
+            p, res, st, rec = run(label, "linestring", L, S, pre,
+                                  pipeline_mode="fused", mbr_backend="torch",
+                                  **line)
+        _same_run(label, res, st, want, want_st)
+        need(label, interval_overlap=2, compact_mask=1, edges_intersect_csr=0)
+        cs = runs.fused_checked(label, p, rec, "linestring")
+        if mb == "numpy":
+            # the fused run's two B4 calls and its INDECISIVE lane, timed
+            # below
+            fused_joins = [a for name, a in rec[0]
+                           if name == "interval_overlap"]
+            ind = cs.status == INDECISIVE
+        del cs, rec
+    del fused_numpy
+    print(f"[line] staged cuda, staged device64 and fused (numpy and torch "
+          f"MBR) == numpy pairs, order and counts ({len(want)} pairs); "
+          f"{len(sample)} sampled candidates == float64 oracle", flush=True)
+
+    # RI: every line cell Weak, Algorithm 1 as for intersects
+    _, ri_want, ri_want_st, _ = run("line-ri-numpy", "linestring", L, S,
+                                    ri_pre, filter="ri",
+                                    filter_backend="numpy",
+                                    refine_backend="numpy", **line)
+    if _pair_set(ri_want) != in_res:
+        raise AssertionError("[line-ri-numpy] result set != the APRIL run's")
+    for label, opts in (("line-ri-staged", {}),
+                        ("line-ri-fused", {"pipeline_mode": "fused"})):
+        p, res, st, rec = run(label, "linestring", L, S, ri_pre, filter="ri",
+                              **opts, **line)
+        _same_run(label, res, st, ri_want, ri_want_st)
+        if opts:
+            need(label, ri_trichotomy=1, compact_mask=1,
+                 edges_intersect_csr=0)
+            runs.fused_checked(label, p, rec, "linestring")
+        else:
+            need(label, ri_trichotomy=1,
+                 edges_intersect_csr=int(st.n_indecisive > 0))
+            (ri_frame,) = rec[3]
+        del rec
+    print(f"[line-ri] staged and fused == RI numpy pairs, order and counts; "
+          f"set == APRIL's", flush=True)
+
+    # the host filters at a ninth of the counts
+    t0 = time.perf_counter()
+    n_host = args.s_count // WITHIN_HOST_SCALE
+    L2 = make_linestrings("T8", seed=3, count=n_host)
+    S2 = make_dataset("T2", seed=1, count=n_host)
+    _, res2, _, _ = run("line-april-ninth", "linestring", L2, S2, None,
+                        **line)
+    want_set = _pair_set(res2)
+    print(f"host filters: APRIL linestring at {len(L2)} x {len(S2)} "
+          f"{time.perf_counter() - t0:.1f} s, {len(want_set)} pairs",
+          flush=True)
+    for name in ("ra", "5cch", "april-c", "none"):
+        t0 = time.perf_counter()
+        host = JoinPlan(L2, S2, filter=name, n_order=args.n_order,
+                        **line).build()
+        t_build = time.perf_counter() - t0
+        got = {}
+        for mode in ("staged", "fused"):
+            label = f"line-{name}-{mode}"
+            _, res, st, _ = run(label, "linestring", L2, S2,
+                                (host.approx_r, host.approx_s), filter=name,
+                                pipeline_mode=mode, **line)
+            if mode == "fused":
+                need(label, compact_mask=1, edges_intersect_csr=0)
+            else:
+                need(label, edges_intersect_csr=int(st.n_indecisive > 0),
+                     **({"interval_overlap": True} if name == "april-c"
+                        else {}))
+            got[mode] = (res, st)
+        _same_run(f"line-{name}-fused", *got["fused"], *got["staged"])
+        if _pair_set(got["staged"][0]) != want_set:
+            raise AssertionError(f"[line-{name}] result set != the APRIL "
+                                 "run's")
+        print(f"[line-{name}] build {t_build:.2f} s; staged == fused pairs, "
+              f"order and counts; set == APRIL's ({len(want_set)} pairs)",
+              flush=True)
+
+    # the linestring path's kernel work on the device alone, beside its
+    # bounds: B4 the staged run's two launches and the fused run's two,
+    # B2 the staged sweep (every chain edge x every ring edge), B5 the
+    # staged RI frame, B3 the fused INDECISIVE lane
+    staged_joins = [a for name, a in staged_rec[0]
+                    if name == "interval_overlap"]
+
+    def ov_bound_ms(calls) -> float:
+        """Each list and row index read once, one byte written a row."""
+        return sum(_nbytes(*x, *y, xi, yi) + xi.numel()
+                   for x, y, xi, yi in calls) / HBM_BYTES_PER_S * 1e3
+
+    def by(name) -> dict:
+        """The linestring runs that launched ``name``, and how often."""
+        return {k: v for k, v in runs.by("line", name).items() if v}
+
+    extra = {
+        "interval_overlap": {
+            "launches_linestring": by("interval_overlap"),
+            "linestring_frame_rows": staged_joins[0][2].numel(),
+            "linestring_staged_device_ms": _device_ms(
+                lambda: [interval_overlap(*a) for a in staged_joins]),
+            "linestring_staged_bound_ms": ov_bound_ms(staged_joins),
+            "linestring_fused_device_ms": _device_ms(
+                lambda: [interval_overlap(*a) for a in fused_joins]),
+            "linestring_fused_bound_ms": ov_bound_ms(fused_joins)},
+        "exclusive_scan": {
+            "launches_linestring": by("compact_mask"),
+            "linestring_device_ms": _device_ms(lambda: compact_mask(ind))},
+        "ri_trichotomy": {
+            "launches_linestring": by("ri_trichotomy"),
+            "linestring_frame_rows": ri_frame[2].numel(),
+            "linestring_device_ms": _device_ms(
+                lambda: ri_trichotomy(*ri_frame)),
+            "linestring_bound_ms": _ri_bound_bytes(*ri_frame)
+            / HBM_BYTES_PER_S * 1e3},
+        "edges_intersect": {
+            "launches_linestring": by("edges_intersect_csr")},
+    }
+    if staged_rec[1]:
+        (sw,) = staged_rec[1]
+        couples = int((torch.diff(sw[2]) * torch.diff(sw[5])).sum())
+        rows = sw[2].numel() - 1
+        t_bytes = (16 * (sw[0].shape[0] + sw[3].shape[0]) + 18 * rows) \
+            / HBM_BYTES_PER_S
+        t_ops = couples * SWEEP_OPS_PER_COUPLE / F32_OPS_PER_S
+        extra["edges_intersect"].update({
+            "linestring_sweep_rows": rows,
+            "linestring_sweep_couples": couples,
+            "linestring_sweep_device_ms": _device_ms(
+                lambda: edges_intersect_csr(*sw)),
+            "linestring_sweep_bound_ms": max(t_bytes, t_ops) * 1e3,
+            "linestring_sweep_bound_by": "bytes" if t_bytes >= t_ops
+            else "operations"})
+    print(f"linestring kernels on the device alone (card {smi}): "
+          f"{json.dumps(extra)}", flush=True)
+    print(f"phase 11 ok: linestring joins "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return extra
 
@@ -1806,6 +2087,11 @@ def main() -> int:
                            stats["default"], wrappers)
     for k in kernels:
         k.update(within.get(k["name"], {}))
+
+    # 11. the linestring joins
+    line = _linestring_phase(args, dev, S, plan, ri_s, wrappers)
+    for k in kernels:
+        k.update(line.get(k["name"], {}))
 
     # 9. the attention kernel, which no join runs, in a fresh process
     kernels.extend(_attention_in_fresh_process())

@@ -6,5 +6,6 @@ nothing of the reference. Entry points run on the CUDA card unless the
 caller passes ``device="cpu"``, which runs the kernels' plain PyTorch
 versions.
 """
-from .datagen import PolygonDataset, make_dataset  # noqa: F401
+from .datagen import (  # noqa: F401
+    PolygonDataset, make_dataset, make_linestrings)
 from .spatial import JoinPlan, JoinStats  # noqa: F401

@@ -15,9 +15,9 @@ import numpy as np
 
 from ..core.join import INDECISIVE, TRUE_NEG
 
-__all__ = ["FiveCCH", "build_5cch", "fivecch_verdict_pair",
-           "fivecch_within_verdict_pair", "fivecch_filter_batch",
-           "convex_hull"]
+__all__ = ["FiveCCH", "build_5cch", "build_5cch_lines",
+           "fivecch_verdict_pair", "fivecch_within_verdict_pair",
+           "fivecch_filter_batch", "convex_hull"]
 
 # 5 fixed outward normals (72-degree steps)
 _ANG = np.pi / 2 + 2 * np.pi * np.arange(5) / 5
@@ -115,6 +115,14 @@ def build_5cch(dataset, backend: str = "numpy") -> FiveCCH:
                    hull_off=np.asarray(off, np.int64),
                    hull_pts=(np.concatenate(hulls, axis=0) if hulls
                              else np.zeros((0, 2))))
+
+
+def build_5cch_lines(dataset, backend: str = "numpy") -> FiveCCH:
+    """5C+CH store for open linestrings: the pentagon and hull of a chain's
+    vertices enclose the chain, so disjointness stays conservative (a
+    2-vertex chain's hull is its two points, and only the pentagon test
+    applies to it)."""
+    return build_5cch(dataset, backend=backend)
 
 
 def convex_disjoint(ha: np.ndarray, hb: np.ndarray) -> bool:

@@ -21,9 +21,10 @@ import numpy as np
 
 from ..core import geometry
 from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
+from ..core.rasterize import clip_segments_to_grid, dda_traverse
 
-__all__ = ["RAStore", "build_ra", "ra_verdict_pair", "ra_filter_batch",
-           "ra_within_verdict_pair", "ra_within_batch"]
+__all__ = ["RAStore", "build_ra", "build_ra_lines", "ra_verdict_pair",
+           "ra_filter_batch", "ra_within_verdict_pair", "ra_within_batch"]
 
 EMPTY, WEAK, STRONG, FULL = 0, 1, 2, 3
 _MID = np.array([0.0, 0.25, 0.75, 1.0])
@@ -123,6 +124,50 @@ def build_ra(dataset, max_cells: int = 750, omega: float = 1.0 / (1 << 16),
         seg[frac >= 1.0 - 1e-12] = FULL
         p0 = p1
     return RAStore(omega=omega, k=k, origin=np.stack([ox, oy], axis=1),
+                   shape=np.stack([nx, ny], axis=1),
+                   cells=_grids_from_classes(cls, coff, nx, ny))
+
+
+def build_ra_lines(dataset, max_cells: int = 750,
+                   omega: float = 1.0 / (1 << 16),
+                   backend: str = "numpy") -> RAStore:
+    """RA store for open linestrings: the cells a chain crosses are Weak (a
+    line has no area, so never Strong or Full), the rest Empty; Table 1
+    still applies (Weak x Full certifies a hit, Weak x Weak or Strong stays
+    INDECISIVE). One clipped traversal over every chain's edges, each in
+    its own object's grid frame (the grid bound G = 2^n of the power-of-two
+    grid that covers the object's window). Only the batched numpy build is
+    ported."""
+    if backend != "numpy":
+        raise NotImplementedError(
+            f"RA build_backend={backend!r} is not ported yet (only the "
+            "batched numpy build): ROADMAP A7 (device construction)")
+    k, side, ox, oy, nx, ny = _fit_grid_multi(dataset.mbrs, max_cells, omega)
+    n_ord = np.maximum(
+        1, np.ceil(np.log2(np.maximum(nx, ny).astype(np.float64)))
+    ).astype(np.int64)
+    G = np.int64(1) << n_ord
+    # the cell size of Extent(ox, oy, side * G) at order n_ord, as the
+    # per-object rasterization computes it
+    h = (side * G) / G
+    verts = np.asarray(dataset.verts, np.float64)
+    nverts = np.asarray(dataset.nverts, np.int64)
+    V = verts.shape[1]
+    edge_valid = np.arange(V)[None, :] < nverts[:, None] - 1
+    pe, ve = np.nonzero(edge_valid)
+    org = np.stack([ox, oy], axis=1)
+    a = (verts[pe, ve] - org[pe]) / h[pe, None]
+    b = (verts[pe, np.minimum(ve + 1, V - 1)] - org[pe]) / h[pe, None]
+    a_c, b_c, keep = clip_segments_to_grid(a, b, G[pe].astype(np.float64))
+    pe = pe[keep]
+    eid, cells = dda_traverse(a_c[keep], b_c[keep], G[pe])
+    pid = pe[eid]
+    coff = np.concatenate([[0], np.cumsum(nx * ny)])
+    cls = np.full(coff[-1], EMPTY, np.int8)
+    inb = (cells[:, 0] < nx[pid]) & (cells[:, 1] < ny[pid])
+    cls[coff[:-1][pid[inb]] + cells[inb, 1] * nx[pid[inb]]
+        + cells[inb, 0]] = WEAK
+    return RAStore(omega=omega, k=k, origin=org,
                    shape=np.stack([nx, ny], axis=1),
                    cells=_grids_from_classes(cls, coff, nx, ny))
 

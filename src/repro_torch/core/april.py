@@ -1,8 +1,10 @@
-"""APRIL approximation store: per-polygon A- and F-interval lists.
+"""APRIL approximation stores: per-polygon A- and F-interval lists, and
+for open chains (linestrings, §4.3.3) the sorted cell ids of each chain.
 
 Host storage is CSR-style: one flat [sum_I, 2] uint64 half-open interval
 array plus [P+1] offsets, per list kind. The filter join reads them as
-biased int32 with inclusive lasts (``core.join.IntervalLists``).
+biased int32 with inclusive lasts (``core.join.IntervalLists``), a
+chain's cells as unit intervals.
 """
 from __future__ import annotations
 
@@ -10,10 +12,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from . import intervalize
+from . import intervalize, rasterize
+from .hilbert import xy2d
 from .rasterize import Extent, GLOBAL_EXTENT
 
-__all__ = ["AprilStore", "build_april"]
+__all__ = ["AprilStore", "build_april", "LineCellStore", "build_line_cells"]
 
 
 @dataclass
@@ -51,3 +54,36 @@ def build_april(dataset, n_order: int,
         dataset.verts, dataset.nverts, n_order, extent)
     return AprilStore(n_order=n_order, extent=extent, a_off=a_off,
                       a_ints=a_ints, f_off=f_off, f_ints=f_ints)
+
+
+@dataclass
+class LineCellStore:
+    """CSR store of the sorted Partial cell ids of each linestring
+    (§4.3.3): an open chain's approximation is its cell-id set, joined as
+    unit intervals."""
+    n_order: int
+    off: np.ndarray     # [P+1] int64
+    ids: np.ndarray     # [sum_K] uint64, sorted per row
+
+    def __len__(self) -> int:
+        return len(self.off) - 1
+
+    def cell_ids(self, i: int) -> np.ndarray:
+        return self.ids[self.off[i]: self.off[i + 1]]
+
+    def size_bytes(self) -> int:
+        return 4 * len(self.ids) + 8 * len(self.off)
+
+
+def build_line_cells(dataset, n_order: int,
+                     extent: Extent = GLOBAL_EXTENT) -> LineCellStore:
+    """Every chain's cells in one open-chain traversal of the whole
+    dataset, Hilbert-keyed and sorted per chain."""
+    P = len(dataset)
+    off, cells = rasterize.dda_partial_cells_multi(
+        dataset.verts, dataset.nverts, n_order, extent, closed=False)
+    ids = xy2d(n_order, cells[:, 0], cells[:, 1])
+    pid = np.repeat(np.arange(P), np.diff(off))
+    shift = np.uint64(1) << np.uint64(2 * n_order)
+    order = np.argsort(pid.astype(np.uint64) * shift + ids)
+    return LineCellStore(n_order=n_order, off=off, ids=ids[order])

@@ -2,11 +2,12 @@
 
 * **Faithful sequential merge joins** (:func:`interval_join_pair`,
   :func:`containment_join_pair`, :func:`april_verdict_pair`,
-  :func:`within_verdict_pair`) — the paper's two-pointer loops with early
-  exit, the per-pair reference.
+  :func:`within_verdict_pair`, :func:`linestring_verdict_pair`) — the
+  paper's two-pointer loops with early exit, the per-pair reference.
 * **Batched staged trichotomies** (:func:`april_trichotomy_rows`,
-  :func:`within_trichotomy_rows`) over :class:`IntervalLists`, a dataset
-  side's lists CSR-packed in biased int32 with inclusive lasts, uploaded
+  :func:`within_trichotomy_rows`, :func:`linestring_trichotomy_rows`) over
+  :class:`IntervalLists`, a dataset side's lists CSR-packed in biased int32
+  with inclusive lasts (a chain's cell ids as unit intervals), uploaded
   to a device once and cached. The within join's containment test runs on
   the host (:func:`contain_rows_np`) or on the device
   (:func:`contain_rows`), a row-keyed ``torch.searchsorted`` with no
@@ -28,8 +29,8 @@ read.
 
 Verdicts follow the paper's trichotomy: TRUE_NEG (AA-join empty), TRUE_HIT
 (``intersects``: the AF- or FA-join finds an overlap; ``within``: every
-interval of A(r) lies inside one of F(s)) or INDECISIVE (forwarded to
-refinement).
+interval of A(r) lies inside one of F(s); ``linestring``: a cell of the
+chain lies in F(s)) or INDECISIVE (forwarded to refinement).
 """
 from __future__ import annotations
 
@@ -47,9 +48,9 @@ __all__ = [
     "TRUE_NEG", "TRUE_HIT", "INDECISIVE", "FILTER_BACKENDS",
     "check_filter_backend", "IntervalLists", "interval_join_pair",
     "containment_join_pair", "april_verdict_pair", "within_verdict_pair",
-    "overlap_rows_np", "contain_rows_np", "contain_rows",
-    "april_trichotomy_rows", "within_trichotomy_rows", "fused_status_rows",
-    "record_joins",
+    "linestring_verdict_pair", "overlap_rows_np", "contain_rows_np",
+    "contain_rows", "april_trichotomy_rows", "within_trichotomy_rows",
+    "linestring_trichotomy_rows", "fused_status_rows", "record_joins",
 ]
 
 I32_MAX = np.int32(np.iinfo(np.int32).max)
@@ -133,6 +134,20 @@ def within_verdict_pair(Ar, Fr, As, Fs) -> int:
     return INDECISIVE
 
 
+def linestring_verdict_pair(Ap, Fp, cell_ids: np.ndarray) -> int:
+    """Polygon x linestring filter for one pair (§4.3.3): the chain is its
+    sorted Partial cell ids, joined as unit intervals. No cell in A(p) ->
+    TRUE_NEG; a cell in F(p) -> TRUE_HIT; else INDECISIVE."""
+    ids = np.asarray(cell_ids)
+    cells = np.stack([ids, ids + ids.dtype.type(1)], axis=1) if len(ids) \
+        else np.zeros((0, 2), np.uint64)
+    if not interval_join_pair(Ap, cells):
+        return TRUE_NEG
+    if interval_join_pair(Fp, cells):
+        return TRUE_HIT
+    return INDECISIVE
+
+
 # ---------------------------------------------------------------------------
 # Interval lists, host and device
 # ---------------------------------------------------------------------------
@@ -167,6 +182,13 @@ class IntervalLists:
             starts = np.zeros(0, np.int32)
             lasts = np.zeros(0, np.int32)
         return cls(off, starts, lasts)
+
+    @classmethod
+    def from_unit_cells(cls, off: np.ndarray, ids: np.ndarray):
+        """From CSR sorted cell ids (a line store), each the unit interval
+        [id, id + 1): start and inclusive last are both the id, biased."""
+        b = u32_to_biased_i32(ids) if len(ids) else np.zeros(0, np.int32)
+        return cls(off, b, b.copy())
 
     def __len__(self) -> int:
         return len(self.off) - 1
@@ -494,6 +516,43 @@ def within_trichotomy_rows(
     return verdicts
 
 
+def linestring_trichotomy_rows(
+    C: IntervalLists, Ya: IntervalLists, Yf: IntervalLists,
+    li: np.ndarray, si: np.ndarray, *, backend: str = "numpy", device=None,
+) -> np.ndarray:
+    """Polygon x linestring trichotomy (§4.3.3) over rows (li[n], si[n]) ->
+    [N] int8: the chain's unit intervals ``C`` against A(s) over the whole
+    batch, then against F(s) on the compacted survivors only. ``torch`` and
+    ``cuda`` run both joins through the interval-overlap kernel's plain
+    version or the kernel on ``device`` (``None`` -> ``"cuda"``), two
+    calls; ``numpy`` runs them on the host; ``sequential`` is the per-pair
+    reference."""
+    check_filter_backend(backend)
+    li = np.asarray(li, np.int64)
+    si = np.asarray(si, np.int64)
+    N = len(li)
+    if backend == "sequential":
+        return np.asarray([
+            linestring_verdict_pair(
+                _lists_np(Ya, s), _lists_np(Yf, s),
+                C.starts[C.off[r]:C.off[r + 1]].astype(np.int64))
+            for r, s in zip(li, si)], np.int8).reshape(N)
+    dev = None
+    if backend != "numpy":
+        dev = resolve_device(device)
+        check_backend_device(backend, dev)
+    if N == 0:
+        return np.zeros(0, np.int8)
+    overlap = _overlap_fn(backend, dev)
+    aa = overlap(C, li, Ya, si)
+    verdicts = np.where(aa, INDECISIVE, TRUE_NEG).astype(np.int8)
+    sel = np.nonzero(aa)[0]
+    if len(sel):
+        fhit = overlap(C, li[sel], Yf, si[sel])
+        verdicts[sel[fhit]] = TRUE_HIT
+    return verdicts
+
+
 def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists | None,
                       Ya: IntervalLists, Yf: IntervalLists, ri: np.ndarray,
                       si: np.ndarray, *, predicate: str = "intersects",
@@ -508,7 +567,10 @@ def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists | None,
     reference's per-width buckets and power-of-two padding are not needed.
     ``within`` (``Xf`` unused) is one interval-overlap kernel launch for
     the AA-join over every row, the containment of A(r) in F(s) over every
-    row (:func:`contain_rows`), and the verdict select. Other backends run
+    row (:func:`contain_rows`), and the verdict select. ``linestring``
+    (``Xa`` the chain's unit intervals, ``Xf`` unused) is two
+    interval-overlap launches over every row, the chain against A(s) and
+    against F(s), and the verdict select. Other backends run
     the kernels' plain versions on ``device``. Rows with an empty A list
     on either side read TRUE_NEG, as in the staged drivers. The frame is
     range-checked on the host; ``rows`` are its int64 copies already on
@@ -517,7 +579,7 @@ def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists | None,
     already be on ``device`` for the call to stay free of host syncs.
     """
     check_filter_backend(backend)
-    if predicate not in ("intersects", "selection", "within"):
+    if predicate not in ("intersects", "selection", "within", "linestring"):
         raise ValueError(f"no fused status lane for predicate {predicate!r}")
     dev = resolve_device(device)
     check_backend_device(backend, dev)
@@ -531,6 +593,13 @@ def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists | None,
                             Ya.to(dev), *rows)
         cont = contain_rows(Xa, ri, Yf, si, device=dev, rows=rows)
         return torch.where(aa, torch.where(cont, TRUE_HIT, INDECISIVE),
+                           TRUE_NEG).to(torch.int8)
+    if predicate == "linestring":
+        aa = _interval_join("interval_overlap", backend, Xa.to(dev),
+                            Ya.to(dev), *rows)
+        fhit = _interval_join("interval_overlap", backend, Xa.to(dev),
+                              Yf.to(dev), *rows)
+        return torch.where(aa, torch.where(fhit, TRUE_HIT, INDECISIVE),
                            TRUE_NEG).to(torch.int8)
     return _interval_join("april_trichotomy", backend, Xa.to(dev),
                           Xf.to(dev), Ya.to(dev), Yf.to(dev), *rows)

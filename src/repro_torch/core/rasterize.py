@@ -2,7 +2,8 @@
 
 The multi-polygon Amanatides-Woo traversal that one-step intervalization
 needs: every cell crossed by a polygon boundary (the Partial cells) of a
-whole dataset in one vectorized pass. RI construction adds the scanline
+whole dataset in one vectorized pass, or every cell an open chain crosses
+(the line stores). RI construction adds the scanline
 parity fill of the Full cells and the exact coverage fraction of every
 Partial cell, both dataset-batched. A raster ``extent`` is the square
 (x0, y0, side) covered by the grid.
@@ -161,12 +162,15 @@ def dda_traverse(a: np.ndarray, b: np.ndarray, G,
 
 def dda_partial_cells_multi(
     verts: np.ndarray, nverts: np.ndarray, n_order: int,
-    extent: Extent = GLOBAL_EXTENT,
+    extent: Extent = GLOBAL_EXTENT, closed: bool = True,
 ) -> tuple[np.ndarray, np.ndarray]:
-    """Partial cells of MANY closed rings in one traversal.
+    """Partial cells of MANY closed rings, or with ``closed=False`` of many
+    open chains (linestrings, §4.3.3: edge i runs vertex i -> i + 1 for
+    i < nverts - 1, and no edge joins the last vertex to the first), in one
+    traversal.
 
     verts: padded [P,V,2]; nverts: [P]. Returns CSR ``(off [P+1],
-    cells [T,2])`` with each polygon's unique cells sorted by (cx, cy).
+    cells [T,2])`` with each object's unique cells sorted by (cx, cy).
     Edges are clipped to the extent before traversal (dropped when fully
     outside, not clamped into the border row/column).
     """
@@ -176,8 +180,13 @@ def dda_partial_cells_multi(
     G = 1 << n_order
     g = _grid_coords(verts.reshape(-1, 2), n_order, extent).reshape(P, V, 2)
     idx = np.arange(V)[None, :]
-    edge_valid = idx < nverts[:, None]
-    nxt = np.where(edge_valid, (idx + 1) % np.maximum(nverts[:, None], 1), 0)
+    if closed:
+        edge_valid = idx < nverts[:, None]
+        nxt = np.where(edge_valid,
+                       (idx + 1) % np.maximum(nverts[:, None], 1), 0)
+    else:
+        edge_valid = idx < nverts[:, None] - 1
+        nxt = np.where(edge_valid, np.minimum(idx + 1, V - 1), 0)
     pe, ve = np.nonzero(edge_valid)
     a = g[pe, ve]
     b = g[pe, nxt[pe, ve]]

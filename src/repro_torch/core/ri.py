@@ -39,6 +39,7 @@ from ..device import InputLog, check_backend_device, resolve_device, upload
 from ..kernels.ri_and import (RIStoreTensors, pack_stream_words,
                               ri_trichotomy, ri_trichotomy_plain)
 from . import rasterize
+from .april import build_line_cells
 from .hilbert import u32_to_biased_i32, xy2d
 from .intervalize import runs_from_sorted
 from .join import (INDECISIVE, TRUE_HIT, TRUE_NEG, _check_frame,
@@ -160,9 +161,18 @@ def build_ri(dataset, n_order: int, extent: Extent = GLOBAL_EXTENT,
 
 def build_ri_lines(dataset, n_order: int, extent: Extent = GLOBAL_EXTENT,
                    encoding: str = "R", backend: str = "numpy") -> RIStore:
-    raise NotImplementedError(
-        "RI line stores are not ported yet: ROADMAP A1-A3 (the linestring "
-        "predicate)")
+    """RI store for open linestrings: every cell a chain crosses is Weak (a
+    line has no interior, so its own side never certifies a hit, but Weak
+    against a Full polygon cell still ANDs non-zero, §3.3). The batched
+    numpy construction (``backend="numpy"``) only."""
+    if backend != "numpy":
+        raise NotImplementedError(
+            f"RI build_backend={backend!r} is not ported yet (only the "
+            "batched numpy build): ROADMAP A7 (device construction)")
+    lines = build_line_cells(dataset, n_order, extent)
+    return _pack_store_flat(lines.off, lines.ids,
+                            np.full(len(lines.ids), WEAK, np.int8), n_order,
+                            extent, encoding)
 
 
 def ri_within_verdict_pair(store_x: RIStore, i: int, store_y: RIStore,

@@ -1,1 +1,2 @@
-from .synthetic import DATASET_SPECS, PolygonDataset, make_dataset  # noqa: F401
+from .synthetic import (  # noqa: F401
+    DATASET_SPECS, PolygonDataset, make_dataset, make_linestrings)

@@ -1,9 +1,10 @@
-"""Reproducible synthetic polygon datasets.
+"""Reproducible synthetic polygon and linestring datasets.
 
 Seeded star-shaped rings in the unit square whose statistics mirror the
-paper's TIGER/OSM layers (cardinality ratios, vertex counts, MBR areas).
-For a given ``(name, seed, count)`` the arrays are bit-identical to the
-reference package's generator.
+paper's TIGER/OSM layers (cardinality ratios, vertex counts, MBR areas),
+and seeded random-walk chains (roads or rivers, the linestring joins of
+§4.3.3). For a given ``(name, seed, count)`` the arrays are bit-identical
+to the reference package's generators.
 """
 from __future__ import annotations
 
@@ -14,7 +15,8 @@ import numpy as np
 
 from ..core import geometry
 
-__all__ = ["PolygonDataset", "make_dataset", "DATASET_SPECS"]
+__all__ = ["PolygonDataset", "make_dataset", "make_linestrings",
+           "DATASET_SPECS"]
 
 
 @dataclass
@@ -93,4 +95,29 @@ def make_dataset(
                     r + 1e-4, 1 - r - 1e-4)
         pts = _star_polygon(rng, c, r, int(nvs[i]), jitter)
         verts[i, : nvs[i]] = pts
+    return PolygonDataset(name=name, verts=verts, nverts=nvs)
+
+
+def make_linestrings(
+    name: str = "T8", seed: int = 0, count: int = 2000, avg_vertices: int = 20,
+    step: float = 0.004,
+) -> PolygonDataset:
+    """Random-walk linestrings (roads or rivers). They reuse the
+    PolygonDataset storage, but are open chains: the last vertex does not
+    join the first. Vertex counts are clipped at 2, and each step is
+    clamped into the unit square."""
+    rng = np.random.default_rng(zlib.crc32(f"{name}:{seed}".encode()))
+    nvs = np.clip(rng.poisson(avg_vertices, size=count), 2,
+                  None).astype(np.int64)
+    vmax = int(nvs.max())
+    verts = np.zeros((count, vmax, 2), dtype=np.float64)
+    for i in range(count):
+        start = rng.uniform(0.05, 0.95, size=2)
+        heading = rng.uniform(0, 2 * np.pi)
+        pts = [start]
+        for _ in range(int(nvs[i]) - 1):
+            heading += rng.normal(0, 0.6)
+            nxt = pts[-1] + step * np.array([np.cos(heading), np.sin(heading)])
+            pts.append(np.clip(nxt, 1e-6, 1 - 1e-6))
+        verts[i, : nvs[i]] = np.asarray(pts)
     return PolygonDataset(name=name, verts=verts, nverts=nvs)

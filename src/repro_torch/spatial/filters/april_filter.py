@@ -1,12 +1,15 @@
 """The APRIL intermediate filter (paper §4) and its compressed variant
-APRIL-C (§5.1) for the ``intersects``, ``selection`` and ``within``
-predicates.
+APRIL-C (§5.1) for the ``intersects``, ``selection``, ``within`` and
+``linestring`` predicates.
 
 The batched path runs the staged trichotomies of ``core.join`` over
 :class:`~repro_torch.core.join.IntervalLists`, wrapped once per
 Approximation (cached in ``meta``) and uploaded to the device once. The
 fused chain's status lane is computed on the device by
-``core.join.fused_status_rows``.
+``core.join.fused_status_rows``. A line side (``kind="line"``, open
+chains) is a :class:`LineCellStore`: each chain's sorted Partial cell ids,
+joined as unit intervals against A(s) and F(s) (§4.3.3); both filters
+build it alike, uncompressed.
 
 APRIL-C stores each object's lists as delta + VByte buffers. Its batched
 path decodes in bounds on the host (A lists for the batch's objects, F
@@ -20,13 +23,14 @@ from __future__ import annotations
 import numpy as np
 
 from ...core import compress, join
-from ...core.april import build_april
+from ...core.april import LineCellStore, build_april, build_line_cells
 from ...core.rasterize import Extent, GLOBAL_EXTENT
 from ...device import check_backend_device, resolve_device
 from .base import (Approximation, IntermediateFilter, check_predicate,
                    register_filter)
 
-__all__ = ["AprilFilter", "AprilCompressedFilter"]
+__all__ = ["LineCellStore", "build_line_cells", "AprilFilter",
+           "AprilCompressedFilter"]
 
 _DEFAULT_ORDER = ("AA", "AF", "FA")
 
@@ -46,19 +50,26 @@ class AprilFilter(IntermediateFilter):
                 "(only the batched build): ROADMAP A7 (device construction)")
         if opts:
             raise TypeError(f"unexpected build options {sorted(opts)}")
-        store = build_april(dataset, n_order, extent)
+        store = (build_line_cells(dataset, n_order, extent) if kind == "line"
+                 else build_april(dataset, n_order, extent))
         return Approximation(filter=self.name, store=store, n_order=n_order,
                              extent=extent, kind=kind,
                              meta={"build_opts": {"method": method}})
 
     @staticmethod
     def _lists(approx, kind: str) -> join.IntervalLists:
+        """The device-ready lists of one kind: ``"A"``, ``"F"``, or
+        ``"line"`` (a line store's cells as unit intervals)."""
         cache = approx.meta.setdefault("interval_lists", {})
         if kind not in cache:
             store = approx.store
-            off = store.a_off if kind == "A" else store.f_off
-            ints = store.a_ints if kind == "A" else store.f_ints
-            cache[kind] = join.IntervalLists.from_intervals(off, ints)
+            if kind == "line":
+                cache[kind] = join.IntervalLists.from_unit_cells(store.off,
+                                                                 store.ids)
+            else:
+                off = store.a_off if kind == "A" else store.f_off
+                ints = store.a_ints if kind == "A" else store.f_ints
+                cache[kind] = join.IntervalLists.from_intervals(off, ints)
         return cache[kind]
 
     def verdicts(self, approx_r, approx_s, pairs, *,
@@ -73,6 +84,11 @@ class AprilFilter(IntermediateFilter):
             return self.verdicts_seq(approx_r, approx_s, pairs,
                                      predicate=predicate, order=order)
         pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+        if predicate == "linestring":
+            return join.linestring_trichotomy_rows(
+                self._lists(approx_r, "line"), self._lists(approx_s, "A"),
+                self._lists(approx_s, "F"), pairs[:, 0], pairs[:, 1],
+                backend=backend, device=device)
         if predicate == "within":
             return join.within_trichotomy_rows(
                 self._lists(approx_r, "A"), self._lists(approx_s, "A"),
@@ -86,7 +102,7 @@ class AprilFilter(IntermediateFilter):
 
     def to_device(self, approx_r, approx_s, device) -> None:
         for approx in (approx_r, approx_s):
-            for kind in ("A", "F"):
+            for kind in (("line",) if approx.kind == "line" else ("A", "F")):
                 self._lists(approx, kind).to(device)
         # the within lane's containment searches F(s) by its row keys
         self._lists(approx_s, "F").last_keys(device)
@@ -100,26 +116,33 @@ class AprilFilter(IntermediateFilter):
         when given). The sequential backend, and for ``intersects`` and
         ``selection`` a join order other than the full three-join set
         (which leaves AA survivors INDECISIVE), keep the uploaded host
-        lane, so fused == staged row for row. ``within`` ignores
-        ``order``, as its staged verdicts do."""
+        lane, so fused == staged row for row. ``within`` and
+        ``linestring`` ignore ``order``, as their staged verdicts do."""
         check_predicate(predicate)
         join.check_filter_backend(backend)
         if backend == "sequential" or (
-                predicate != "within"
+                predicate in ("intersects", "selection")
                 and set(order) != set(_DEFAULT_ORDER)):
             return super().status_lane(approx_r, approx_s, ri, si,
                                        predicate=predicate, backend=backend,
                                        device=device, order=order, **opts)
         if opts:
             raise TypeError(f"unexpected filter options {sorted(opts)}")
+        if predicate == "linestring":
+            xa, xf = self._lists(approx_r, "line"), None
+        else:
+            xa, xf = self._lists(approx_r, "A"), self._lists(approx_r, "F")
         return join.fused_status_rows(
-            self._lists(approx_r, "A"), self._lists(approx_r, "F"),
-            self._lists(approx_s, "A"), self._lists(approx_s, "F"), ri, si,
-            predicate=predicate, rows=rows, backend=backend, device=device)
+            xa, xf, self._lists(approx_s, "A"), self._lists(approx_s, "F"),
+            ri, si, predicate=predicate, rows=rows, backend=backend,
+            device=device)
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate,
                      order: tuple[str, ...] = _DEFAULT_ORDER) -> int:
         sr, ss = approx_r.store, approx_s.store
+        if predicate == "linestring":
+            return join.linestring_verdict_pair(ss.a_list(j), ss.f_list(j),
+                                                sr.cell_ids(i))
         if predicate == "within":
             return join.within_verdict_pair(sr.a_list(i), sr.f_list(i),
                                             ss.a_list(j), ss.f_list(j))
@@ -138,7 +161,10 @@ class AprilCompressedFilter(AprilFilter):
         approx = super().build(dataset, n_order=n_order, extent=extent,
                                kind=kind, side=side, method=method,
                                build_backend=build_backend, **opts)
-        approx.store = compress.compress_april(approx.store)
+        # a line side has no interval lists to compress: it keeps the
+        # uncompressed cell-id store
+        if kind != "line":
+            approx.store = compress.compress_april(approx.store)
         return approx
 
     @staticmethod
@@ -159,7 +185,7 @@ class AprilCompressedFilter(AprilFilter):
         if backend == "sequential":
             return self.verdicts_seq(approx_r, approx_s, pairs,
                                      predicate=predicate, order=order)
-        if predicate != "within" and "AA" not in order:
+        if predicate in ("intersects", "selection") and "AA" not in order:
             raise ValueError("order must include 'AA'")
         dev = None
         if backend != "numpy":
@@ -171,12 +197,22 @@ class AprilCompressedFilter(AprilFilter):
         pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
         ri, si = pairs[:, 0], pairs[:, 1]
         overlap = join._overlap_fn(backend, dev)
-        Xa, xa_rows = self._decode(approx_r, ri, "A")
+        if predicate == "linestring":
+            # the line side is an uncompressed cell-id store
+            Xa, xa_rows = self._lists(approx_r, "line"), ri
+        else:
+            Xa, xa_rows = self._decode(approx_r, ri, "A")
         Ya, ya_rows = self._decode(approx_s, si, "A")
         aa = overlap(Xa, xa_rows, Ya, ya_rows)
         verdicts = np.where(aa, join.INDECISIVE,
                             join.TRUE_NEG).astype(np.int8)
         sel = np.nonzero(aa)[0]
+        if predicate == "linestring":
+            if len(sel):
+                Yf, yf_rows = self._decode(approx_s, si[sel], "F")
+                fhit = overlap(Xa, xa_rows[sel], Yf, yf_rows)
+                verdicts[sel[fhit]] = join.TRUE_HIT
+            return verdicts
         if predicate == "within":
             if len(sel):
                 Yf, yf_rows = self._decode(approx_s, si[sel], "F")
@@ -213,7 +249,7 @@ class AprilCompressedFilter(AprilFilter):
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate,
                      order: tuple[str, ...] = _DEFAULT_ORDER) -> int:
-        if predicate == "within":
+        if predicate in ("within", "linestring"):
             return super()._verdict_one(approx_r, approx_s, i, j,
                                         predicate=predicate, order=order)
         # the streaming join-while-decompress (§5.1)

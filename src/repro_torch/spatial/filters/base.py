@@ -23,21 +23,20 @@ from ...core.join import FILTER_BACKENDS, INDECISIVE, check_filter_backend
 from ...core.rasterize import Extent, GLOBAL_EXTENT
 from ...device import resolve_device, upload
 
-__all__ = ["PREDICATES", "FILTER_BACKENDS", "Approximation",
+__all__ = ["PREDICATES", "KINDS", "FILTER_BACKENDS", "Approximation",
            "IntermediateFilter", "register_filter", "get_filter",
            "available_filters", "check_predicate"]
 
 PREDICATES = ("intersects", "within", "linestring", "selection")
+#: what a dataset side holds: closed rings, or open chains (linestrings)
+KINDS = ("polygon", "line")
 
 
 def check_predicate(predicate: str) -> None:
-    """``intersects``, ``within`` and ``selection`` are ported;
-    ``linestring`` raises. ``selection`` (polygonal range queries, §4.3.1)
-    is the ``intersects`` test with the query polygons as the S side."""
-    if predicate == "linestring":
-        raise NotImplementedError(
-            "predicate 'linestring' is not ported yet: ROADMAP A1-A3 (the "
-            "line stores and the linestring predicate)")
+    """``selection`` (polygonal range queries, §4.3.1) is the
+    ``intersects`` test with the query polygons as the S side;
+    ``linestring`` (§4.3.3) expects the R side built with
+    ``kind="line"``."""
     if predicate not in PREDICATES:
         raise ValueError(f"unknown predicate {predicate!r}; "
                          f"expected one of {PREDICATES}")
@@ -107,10 +106,10 @@ class IntermediateFilter(abc.ABC):
 
     @staticmethod
     def _check_kind(kind: str) -> None:
-        if kind != "polygon":
-            raise NotImplementedError(
-                "line approximations are not ported yet: ROADMAP A1-A3 "
-                "(the linestring predicate)")
+        """``polygon`` (closed rings) or ``line`` (open chains, §4.3.3)."""
+        if kind not in KINDS:
+            raise ValueError(f"unknown kind {kind!r}; expected one of "
+                             f"{KINDS}")
 
     @staticmethod
     def _check(predicate: str, backend: str) -> None:

@@ -30,8 +30,9 @@ class FiveCCHFilter(IntermediateFilter):
         if opts:
             raise TypeError(f"unexpected build options {sorted(opts)}")
         # n_order is unused: 5C+CH is raster-free
-        return Approximation(filter=self.name,
-                             store=fivec_ch.build_5cch(dataset),
+        build = (fivec_ch.build_5cch_lines if kind == "line"
+                 else fivec_ch.build_5cch)
+        return Approximation(filter=self.name, store=build(dataset),
                              n_order=None, extent=extent, kind=kind)
 
     def verdicts(self, approx_r, approx_s, pairs, *,

@@ -30,8 +30,9 @@ class RAFilter(IntermediateFilter):
         if opts:
             raise TypeError(f"unexpected build options {sorted(opts)}")
         # n_order is unused: RA grids are per object, sized by max_cells
+        build = ra.build_ra_lines if kind == "line" else ra.build_ra
         return Approximation(filter=self.name,
-                             store=ra.build_ra(dataset, max_cells=max_cells),
+                             store=build(dataset, max_cells=max_cells),
                              n_order=None, extent=extent, kind=kind,
                              meta={"build_opts": {"max_cells": max_cells}})
 

@@ -1,5 +1,5 @@
 """RI (Raster Intervals) intermediate filter (paper §3) for the
-``intersects``, ``selection`` and ``within`` predicates.
+``intersects``, ``selection``, ``within`` and ``linestring`` predicates.
 
 Each side is built in its own encoding (R for ``side="r"``, S for
 ``side="s"``, ``encoding=`` overrides), so the usual join skips the XOR
@@ -12,7 +12,9 @@ Approximation and cached in ``meta``). The fused chain's status lane is
 the same kernel launched over the chain's device frame, with no host read.
 The within filter (§3.4) runs on the host whatever the backend
 (``core.ri.ri_within_batch``), as in the reference, and its fused lane is
-those verdicts, uploaded once.
+those verdicts, uploaded once. ``linestring`` shares Algorithm 1 with
+``intersects``: a line store's cells are all Weak, so a non-zero AND
+still certifies the hit.
 """
 from __future__ import annotations
 
@@ -37,7 +39,8 @@ class RIFilter(IntermediateFilter):
         if opts:
             raise TypeError(f"unexpected build options {sorted(opts)}")
         enc = encoding or ("R" if side == "r" else "S")
-        store = ri.build_ri(dataset, n_order, extent, enc)
+        build = ri.build_ri_lines if kind == "line" else ri.build_ri
+        store = build(dataset, n_order, extent, enc)
         return Approximation(filter=self.name, store=store, n_order=n_order,
                              extent=extent, kind=kind,
                              meta={"build_opts": {"encoding": enc}})

@@ -147,8 +147,9 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
       invalid rows set to TRUE_NEG.
     * ``refine`` — on-device compaction of the INDECISIVE lane
       (``compact_mask``) and chunked float64 refinement of the packed
-      prefix (``refine.fused_refine_lanes``, the predicate's core),
-      scattered back to frame lanes.
+      prefix (``refine.fused_refine_lanes``, the predicate's core:
+      intersection, containment, or for ``linestring`` chain x polygon
+      intersection), scattered back to frame lanes.
 
     The ``"cuda"`` backends launch the kernels (the trichotomy kernel for
     the status lane, the scan kernel for the compaction); the others run
@@ -233,7 +234,7 @@ def execute_fused(plan, predicate: str, stats):
     the stage times are dispatch only.
     """
     plan.filter.to_device(plan.approx_r, plan.approx_s, plan.device)
-    RF.device_geometry(plan.R, plan.device)
+    RF.device_geometry(plan.R, plan.device, kind=plan.r_kind)
     RF.device_geometry(plan.S, plan.device)
     cs = build_stage_plan(plan, predicate).run(stats=stats)
     _CHAINS.add(cs)

@@ -4,13 +4,15 @@ pipeline modes.
     plan = JoinPlan(R, S, filter="april", n_order=12)     # device="cuda"
     plan.build()                                          # APRIL stores
     hits, stats = plan.execute("intersects")    # "within", "selection"
+    JoinPlan(L, S, r_kind="line").build().execute("linestring")
 
 Execution runs the paper's stages dataset-batched: grid-hash MBR
 candidates (``mbr_backend``; for ``within`` only the rows whose r MBR lies
 inside the s MBR) -> the filter's trichotomy (``filter_backend``) -> exact
 refinement of the INDECISIVE rows (``refine_backend``). ``selection`` is
 ``intersects`` with the query polygons as S: result rows are (data index,
-query index). ``linestring`` is not ported and raises. With
+query index). ``linestring`` (§4.3.3) joins open chains, built with
+``r_kind="line"`` as R, to the polygons of S. With
 ``pipeline_mode="staged"`` each stage's survivors come back to the host;
 with ``"fused"`` the stages chain on the device and meet the host once, at
 the end (``spatial/fused.py``). Results are ``concat(pairs[TRUE_HIT],
@@ -136,10 +138,10 @@ class JoinPlan:
         if mbr_index is not None:
             raise NotImplementedError(
                 "mbr_index is not ported yet: ROADMAP A8 (orchestration)")
-        if "line" in (r_kind, s_kind):
-            raise NotImplementedError(
-                "line datasets are not ported yet: ROADMAP A1-A3 (the "
-                "linestring predicate)")
+        if s_kind != "polygon":
+            raise ValueError("the chains of a linestring join are the R "
+                             "side (r_kind='line'); s_kind must be "
+                             "'polygon'")
         self.device = resolve_device(device)
         default = "cuda" if self.device.type == "cuda" else "torch"
         filter_backend = filter_backend or default
@@ -203,8 +205,17 @@ class JoinPlan:
 
     def execute(self, predicate: str = "intersects",
                 ) -> tuple[np.ndarray, JoinStats]:
-        """Run MBR -> filter -> refine; returns (result pairs [K,2], stats)."""
+        """Run MBR -> filter -> refine; returns (result pairs [K,2], stats).
+        ``linestring`` needs the chains as R (``r_kind="line"``), and a
+        line plan runs no other predicate."""
         check_predicate(predicate)
+        if predicate == "linestring" and self.r_kind != "line":
+            raise ValueError("predicate 'linestring' needs JoinPlan(..., "
+                             "r_kind='line') with the chains as R")
+        if predicate != "linestring" and self.r_kind == "line":
+            raise ValueError(
+                f"predicate {predicate!r} needs polygon approximations, but "
+                "this plan was built with r_kind='line'")
         if self.approx_r is None or self.approx_s is None:
             self.build()
         stats = JoinStats(method=self.filter.name, predicate=predicate,

@@ -1,7 +1,7 @@
-"""Refinement: exact ``intersects`` (and ``selection``) or ``within`` for
-the INDECISIVE candidate pairs, batched over power-of-two buckets of the
-per-pair Er x Es tile size (padding waste <= 2x, working set bounded per
-chunk).
+"""Refinement: exact ``intersects`` (and ``selection``), ``within`` or
+``linestring`` (an open chain against a polygon) for the INDECISIVE
+candidate pairs, batched over power-of-two buckets of the per-pair Er x Es
+tile size (padding waste <= 2x, working set bounded per chunk).
 
 Backends (``refine_backend`` on ``JoinPlan``):
 
@@ -10,7 +10,8 @@ Backends (``refine_backend`` on ``JoinPlan``):
 * ``numpy`` — the vectorized host pass: for ``intersects`` CMBR edge
   pruning and branch-free containment by representative points; for
   ``within`` the staged MBR vertex test, closed PiP of every vertex and a
-  proper-crossing sweep;
+  proper-crossing sweep; for ``linestring`` a CMBR-pruned sweep of the
+  chain's edges (no closing edge) and the closed PiP of its first vertex;
 * ``torch`` / ``cuda`` — the edge x edge sweep runs in float32 with a
   relative guard band, through the sweep's plain PyTorch version on any
   device (``torch``) or the CUDA kernel (``cuda``), once per refine call:
@@ -20,7 +21,10 @@ Backends (``refine_backend`` on ``JoinPlan``):
   closed-PiP of the representative points against the unpruned rings, and
   rows that tripped the band are re-checked on the host in float64, per
   bucket. For ``within`` a definite crossing means "not within"; the other
-  rows take the host pass;
+  rows take the host pass. For ``linestring`` every chain edge meets every
+  ring edge, unpruned: a definite crossing is a hit, rows with none get the
+  host closed-PiP of the chain's first vertex, and rows that tripped the
+  band take the host pass, unpruned;
 * ``device64`` — the float64 device cores (twins of the reference's jnp
   cores, its ``refine_backend="jnp"``) on each bucket's rings, gathered
   from :func:`device_geometry` and run in chunks; ``(res, unc)`` come back
@@ -47,6 +51,7 @@ from ..kernels.refine import edges_intersect_csr, edges_intersect_csr_plain
 __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
            "refine", "refine_pairs", "refine_pairs_seq",
            "refine_within_pairs", "refine_within_pairs_seq",
+           "refine_line_poly_pairs", "refine_line_poly_pairs_seq",
            "device_geometry", "fused_refine_lanes"]
 
 REFINE_BACKENDS = ("numpy", "torch", "cuda", "device64", "sequential")
@@ -83,9 +88,34 @@ def refine_within_pairs_seq(R, S, pairs: np.ndarray) -> np.ndarray:
         for i, j in pairs], bool)
 
 
+def refine_line_poly_pairs_seq(L, S, pairs: np.ndarray) -> np.ndarray:
+    """Per-pair float64 reference for linestring x polygon intersection:
+    an edge of the open chain meets an edge of the ring, or the chain's
+    first vertex lies in the closed polygon."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    out = np.zeros(len(pairs), bool)
+    for k, (li, pj) in enumerate(pairs):
+        line = L.verts[li, : L.nverts[li]]
+        poly = S.verts[pj, : S.nverts[pj]]
+        crossed = bool(segments_intersect(
+            line[:-1, None, :], line[1:, None, :],
+            poly[None, :, :], np.roll(poly, -1, axis=0)[None, :, :]).any())
+        out[k] = crossed or bool(
+            geometry.points_in_polygon_closed(line[:1], poly)[0])
+    return out
+
+
 # ---------------------------------------------------------------------------
 # numpy batched cores
 # ---------------------------------------------------------------------------
+
+def _chain_edges(verts: np.ndarray, nverts: np.ndarray):
+    """Open-chain edges: (starts [N, V-1, 2], ends, mask). Edge i runs
+    vertex i -> i + 1; the ring-closing edge of ``polygon_edges`` is
+    absent."""
+    mask = np.arange(verts.shape[1] - 1)[None, :] < (nverts[:, None] - 1)
+    return verts[:, :-1], verts[:, 1:], mask
+
 
 def _cmbr_mask(mr: np.ndarray, ms: np.ndarray, e0, e1):
     """Edges overlapping the pair's common MBR (inclusive — exact pruning:
@@ -192,6 +222,18 @@ def _proper_cross_np(a0, a1, am, b0, b1, bm) -> np.ndarray:
     return (proper & am[:, :, None] & bm[:, None, :]).any(axis=(1, 2))
 
 
+def _line_batch_np(vl, nl, vs, ns, mr, ms, use_cmbr: bool) -> np.ndarray:
+    """Batched linestring x polygon: a (CMBR-pruned, with ``use_cmbr``)
+    sweep of the chain's edges against the ring's, or the chain's first
+    vertex in the closed polygon (PiP against the unpruned ring)."""
+    a0, a1, am = _chain_edges(vl, nl)
+    b0, b1, bm = polygon_edges(vs, ns)
+    head_in = _pip_batch_np(vl[:, :1], np.ones((len(vl), 1), bool),
+                            b0, b1, bm)[:, 0]
+    crossed = _sweep_pruned(a0, a1, am, b0, b1, bm, mr, ms, use_cmbr)
+    return crossed | head_in
+
+
 def _within_batch_np(vr, nr, vs, ns, mr, ms, use_cmbr: bool) -> np.ndarray:
     """Staged 'r within s': exact MBR vertex test -> closed PiP of the
     surviving rows' vertices -> proper-crossing sweep of the all-inside
@@ -253,12 +295,13 @@ def _bucket_rings(R, S, p, Va, Vb):
             S.verts[:, :Vb][p[:, 1]], S.nverts[p[:, 1]])
 
 
-def _kept_edges(R, S, p, Va, Vb, use_cmbr: bool):
+def _kept_edges(R, S, p, Va, Vb, use_cmbr: bool, chain: bool = False):
     """The edges of one bucket's rows that the sweep needs, float32, row
     after row, a side at a time: ((a0, a1, a counts), (b0, b1, b counts))
-    with the CMBR masks applied when ``use_cmbr``."""
+    with the CMBR masks applied when ``use_cmbr``. With ``chain`` the R
+    side is open chains, with no closing edge."""
     vr, nr, vs, ns = _bucket_rings(R, S, p, Va, Vb)
-    a0, a1, am = polygon_edges(vr, nr)
+    a0, a1, am = (_chain_edges if chain else polygon_edges)(vr, nr)
     b0, b1, bm = polygon_edges(vs, ns)
     if use_cmbr:
         am = am & _cmbr_mask(R.mbrs[p[:, 0]], S.mbrs[p[:, 1]], a0, a1)
@@ -338,13 +381,46 @@ def _refine_device_within(backend, dev, R, S, pairs,
     return out
 
 
+def _refine_device_line(backend, dev, L, S, pairs, buckets) -> np.ndarray:
+    """The staged float32 sweep of every bucket's chain edges against its
+    ring edges, unpruned, in one call; per bucket, a definite crossing is a
+    hit, the rows with none get the host closed-PiP of the chain's first
+    vertex, and the rows that tripped the band take the host pass,
+    unpruned."""
+    pieces = [_kept_edges(L, S, pairs[sel], Va, Vb, use_cmbr=False,
+                          chain=True)
+              for sel, Va, Vb in buckets]
+    hit, unc = _sweep(backend, dev, _csr(pieces))
+    out = np.zeros(len(pairs), bool)
+    pos = 0
+    for sel, Va, Vb in buckets:
+        h, u = hit[pos:pos + len(sel)], unc[pos:pos + len(sel)]
+        pos += len(sel)
+        p = pairs[sel]
+        res = h & ~u
+        rest = ~h & ~u
+        if rest.any():
+            vl, _, vs, ns = _bucket_rings(L, S, p[rest], Va, Vb)
+            b0, b1, bm = polygon_edges(vs, ns)
+            res[rest] = _pip_batch_np(vl[:, :1],
+                                      np.ones((int(rest.sum()), 1), bool),
+                                      b0, b1, bm)[:, 0]
+        if u.any():
+            vl, nl, vs, ns = _bucket_rings(L, S, p[u], Va, Vb)
+            res[u] = _line_batch_np(vl, nl, vs, ns, L.mbrs[p[u, 0]],
+                                    S.mbrs[p[u, 1]], False)
+        out[sel] = res
+    return out
+
+
 def _refine_device64(kind, dev, R, S, pairs, buckets, rep_r, rep_s,
                      use_cmbr) -> np.ndarray:
     """The float64 device cores over each bucket's rings, gathered from
     :func:`device_geometry` on ``dev`` and run in chunks bounded by
     ``_FUSED_CHUNK_BYTES``; ``(res, unc)`` come back once per bucket and
     the ``unc`` rows are re-checked on the host in float64."""
-    geom_r = device_geometry(R, dev)
+    geom_r = device_geometry(R, dev, kind="line" if kind == "line"
+                             else "polygon")
     geom_s = device_geometry(S, dev)
     out = np.zeros(len(pairs), bool)
     for sel, Va, Vb in buckets:
@@ -362,6 +438,8 @@ def _refine_device64(kind, dev, R, S, pairs, buckets, rep_r, rep_s,
             mr, ms = R.mbrs[p[unc, 0]], S.mbrs[p[unc, 1]]
             if kind == "within":
                 res[unc] = _within_batch_np(vr, nr, vs, ns, mr, ms, True)
+            elif kind == "line":
+                res[unc] = _line_batch_np(vr, nr, vs, ns, mr, ms, True)
             else:
                 res[unc] = _intersects_batch_np(
                     vr, nr, vs, ns, rep_r[sel][unc], rep_s[sel][unc], mr, ms,
@@ -456,18 +534,48 @@ def refine_within_pairs(R, S, pairs: np.ndarray, backend: str = "numpy",
     return out
 
 
+def refine_line_poly_pairs(L, S, pairs: np.ndarray, backend: str = "numpy",
+                           device=None) -> np.ndarray:
+    """Exact linestring x polygon intersection for (chain, polygon) pairs
+    [N,2] -> [N] bool, batched over vertex-count buckets on the selected
+    backend: ``numpy`` runs each bucket on the host, CMBR-pruned;
+    ``torch`` and ``cuda`` run every bucket's float32 sweep, unpruned, in
+    one call on ``device`` (``None`` -> ``"cuda"``) and the rest per
+    bucket on the host; ``device64`` runs the float64 device core per
+    bucket on ``device``."""
+    check_refine_backend(backend)
+    dev = _device_of(backend, device)
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    if len(pairs) == 0:
+        return np.zeros(0, bool)
+    if backend == "sequential":
+        return refine_line_poly_pairs_seq(L, S, pairs)
+    buckets = _buckets(L.nverts[pairs[:, 0]], S.nverts[pairs[:, 1]])
+    if backend == "device64":
+        return _refine_device64("line", dev, L, S, pairs, buckets, None,
+                                None, True)
+    if dev is not None:
+        return _refine_device_line(backend, dev, L, S, pairs, buckets)
+    out = np.zeros(len(pairs), bool)
+    for sel, Va, Vb in buckets:
+        p = pairs[sel]
+        vl, nl, vs, ns = _bucket_rings(L, S, p, Va, Vb)
+        out[sel] = _line_batch_np(vl, nl, vs, ns, L.mbrs[p[:, 0]],
+                                  S.mbrs[p[:, 1]], True)
+    return out
+
+
 def refine(R, S, pairs: np.ndarray, predicate: str = "intersects",
            backend: str = "numpy", device=None) -> np.ndarray:
     """Predicate dispatcher: ``intersects`` and ``selection`` (the query
-    polygons as S) refine by intersection, ``within`` by containment;
-    ``linestring`` is ROADMAP A1-A3 work and raises."""
+    polygons as S) refine by intersection, ``within`` by containment,
+    ``linestring`` (the chains as R) by chain x polygon intersection."""
     if predicate == "within":
         return refine_within_pairs(R, S, pairs, backend=backend,
                                    device=device)
     if predicate == "linestring":
-        raise NotImplementedError(
-            "refinement for predicate 'linestring' is not ported yet: "
-            "ROADMAP A1-A3 (the line stores and the linestring predicate)")
+        return refine_line_poly_pairs(R, S, pairs, backend=backend,
+                                      device=device)
     if predicate not in ("intersects", "selection"):
         raise ValueError(f"unknown predicate {predicate!r}; expected one of "
                          "('intersects', 'within', 'linestring', "
@@ -591,6 +699,28 @@ def _intersects_impl(vr, nr, vs, ns, rep_r, rep_s):
     return crossed | in_s[:, 0] | in_r[:, 0], unc & ~definite_true
 
 
+def _line_impl(vl, nl, vs, ns):
+    """(verdicts [N], uncertain [N]) of batched linestring x polygon on the
+    rows' device: a chain edge crossing or touching a ring edge, or the
+    chain's first vertex in the closed polygon. A True reached through a
+    non-borderline element is definite; other rows with a borderline sign
+    are uncertain and must be re-checked on the host."""
+    mask = torch.arange(vl.shape[1] - 1, device=vl.device)[None, :] \
+        < (nl[:, None] - 1)
+    a0, a1 = vl[:, :-1], vl[:, 1:]
+    b0, b1, bm = _edges(vs, ns)
+    hit, hunc = _segments_intersect(a0[:, :, None, :], a1[:, :, None, :],
+                                    b0[:, None, :, :], b1[:, None, :, :])
+    pair_mask = mask[:, :, None] & bm[:, None, :]
+    crossed = (hit & pair_mask).any(dim=2).any(dim=1)
+    ones = torch.ones((vl.shape[0], 1), dtype=torch.bool, device=vl.device)
+    head_in, hu = _pip_batch(vl[:, :1], ones, b0, b1, bm)
+    unc = (hunc & pair_mask).any(dim=2).any(dim=1) | hu[:, 0]
+    definite_true = ((hit & ~hunc & pair_mask).any(dim=2).any(dim=1)
+                     | (head_in[:, 0] & ~hu[:, 0]))
+    return crossed | head_in[:, 0], unc & ~definite_true
+
+
 def _within_impl(vr, nr, vs, ns):
     """(verdicts [N], uncertain [N]) of batched 'r within s' on the rows'
     device: every vertex of r in the closed s and no proper crossing.
@@ -616,26 +746,28 @@ def _within_impl(vr, nr, vs, ns):
     return all_in & ~proper, unc
 
 
-def device_geometry(D, device) -> dict:
-    """float64 device copies of a dataset's rings, cut to its widest ring,
-    their vertex counts (int64) and one representative interior point per
-    object. Uploaded once per device and cached on the dataset, keyed on
-    the identity of its ``verts`` array (a patched dataset swaps the array,
-    which invalidates the copy)."""
+def device_geometry(D, device, kind: str = "polygon") -> dict:
+    """float64 device copies of a dataset's rings (``kind="polygon"``) or
+    open chains (``kind="line"``), cut to the widest, and their vertex
+    counts (int64); for rings also one representative interior point per
+    object. Uploaded once per device and kind and cached on the dataset,
+    keyed on the identity of its ``verts`` array (a patched dataset swaps
+    the array, which invalidates the copy)."""
     dev = torch.device(device)
     cache = D.__dict__.setdefault("_device_geom", {})
-    key = str(dev)
+    key = (str(dev), kind)
     hit = cache.get(key)
     if hit is not None and hit[0] == id(D.verts):
         return hit[1]
     nverts = np.asarray(D.nverts, np.int64)
     V = max(1, int(nverts.max(initial=1)))
     verts = np.ascontiguousarray(np.asarray(D.verts, np.float64)[:, :V])
-    reps = geometry.representative_points(D.verts, D.nverts)
     geom = {"verts": torch.from_numpy(verts).to(dev),
-            "nverts": torch.from_numpy(nverts).to(dev),
-            "reps": torch.from_numpy(np.ascontiguousarray(reps,
-                                                          np.float64)).to(dev)}
+            "nverts": torch.from_numpy(nverts).to(dev)}
+    if kind != "line":
+        reps = geometry.representative_points(D.verts, D.nverts)
+        geom["reps"] = torch.from_numpy(
+            np.ascontiguousarray(reps, np.float64)).to(dev)
     cache[key] = (id(D.verts), geom)
     return geom
 
@@ -661,6 +793,8 @@ def _core_lanes(kind, geom_r, geom_s, rr, ss, Va, Vb):
             geom_s["verts"][ss, :Vb], geom_s["nverts"][ss])
     if kind == "within":
         return _within_impl(*args)
+    if kind == "line":
+        return _line_impl(*args)
     return _intersects_impl(*args, geom_r["reps"][rr], geom_s["reps"][ss])
 
 
@@ -672,18 +806,20 @@ def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device,
     of the frame ``ri_dev``/``si_dev``; the lanes are in the packed order
     (scatter them back through ``perm``). ``predicate`` picks the core:
     ``intersects`` and ``selection`` refine by intersection, ``within`` by
-    containment. ``count`` stays on the device, so every chunk of the
+    containment, ``linestring`` (R the chains) by chain x polygon
+    intersection. ``count`` stays on the device, so every chunk of the
     frame is walked and rows past ``count`` are masked out, as the
     reference's ``take`` does; the reference also skips the dead chunks,
     which needs the count on the host or a device branch. Chunking is
     row-wise, so the chunk size changes no verdict.
     """
     kind = {"intersects": "intersects", "selection": "intersects",
-            "within": "within"}.get(predicate)
+            "within": "within", "linestring": "line"}.get(predicate)
     if kind is None:
         raise ValueError(f"no fused refine core for predicate {predicate!r}")
     dev = torch.device(device)
-    geom_r = device_geometry(R, dev)
+    geom_r = device_geometry(R, dev, kind="line" if kind == "line"
+                             else "polygon")
     geom_s = device_geometry(S, dev)
     N = perm.numel()
     res = torch.zeros(N, dtype=torch.bool, device=dev)

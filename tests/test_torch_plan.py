@@ -17,6 +17,7 @@ from repro.core import hilbert as rhilbert  # noqa: E402
 from repro.core.april import build_april as r_build_april  # noqa: E402
 from repro.datagen import make_dataset as r_make_dataset  # noqa: E402
 from repro.spatial import JoinPlan as RJoinPlan  # noqa: E402
+from repro.spatial.filters import get_filter as r_get_filter  # noqa: E402
 from repro.spatial.mbr_join import mbr_join as r_mbr_join  # noqa: E402
 
 import repro_torch  # noqa: E402
@@ -146,30 +147,58 @@ def test_cuda_backends_need_a_cuda_device(datasets):
     ({"filter": "5cch", "plan_mode": "adaptive"}, "ROADMAP A8"),
 ])
 def test_uncovered_knobs_raise(datasets, kw, match):
-    _, _, R, S = datasets
+    """Knobs still to port raise, naming their ROADMAP item. The line
+    knobs (``r_kind="line"``, ROADMAP A1-A3) are ported: those cases run
+    the linestring join of T1's rings as open chains against T2 and
+    return the reference's pairs, order and counts."""
+    R0, S0, R, S = datasets
+    if kw.get("r_kind") == "line":
+        want, wst = RJoinPlan(R0, S0, n_order=7, **kw).build().execute(
+            "linestring")
+        got, st = JoinPlan(R, S, device="cpu", n_order=7, **kw).build(
+        ).execute("linestring")
+        assert len(want) > 0 and st.n_indecisive == wst.n_indecisive
+        np.testing.assert_array_equal(got, want)
+        return
     with pytest.raises(NotImplementedError, match=match):
         JoinPlan(R, S, device="cpu", **kw).build()
 
 
 @pytest.mark.parametrize("name", ["ri", "5cch", "ra", "april-c"])
 def test_filter_builds_of_lines_raise(datasets, name):
-    """The filters' own kind check, reached without JoinPlan's."""
-    _, _, R, _ = datasets
-    with pytest.raises(NotImplementedError, match="ROADMAP A1"):
-        get_filter(name).build(R, n_order=6, kind="line")
+    """Each filter's own line build, reached without JoinPlan, equals the
+    reference's (line builds no longer raise: ROADMAP A1-A3 is ported),
+    and a kind the reference does not know raises."""
+    R0, _, R, _ = datasets
+    got = get_filter(name).build(R, n_order=6, kind="line").store
+    want = r_get_filter(name).build(R0, n_order=6, kind="line").store
+    arrays = {"ri": ("off", "ints", "bit_off", "bits"),
+              "5cch": ("pent", "hull_off", "hull_pts"),
+              "ra": ("k", "origin", "shape"), "april-c": ("off", "ids")}
+    for k in arrays[name]:
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+    if name == "ra":
+        for a, b in zip(got.cells, want.cells, strict=True):
+            np.testing.assert_array_equal(a, b)
+    with pytest.raises(ValueError, match="unknown kind"):
+        get_filter(name).build(R, n_order=6, kind="curve")
 
 
 @pytest.mark.parametrize("predicate", ["within", "linestring", "selection"])
 def test_uncovered_predicates_raise(datasets, predicate):
-    """``linestring`` is not ported and raises; ``within`` and
-    ``selection`` run and return the reference's pairs."""
+    """Every predicate is ported and returns the reference's pairs:
+    ``within`` and ``selection`` on the polygon plan, ``linestring`` on a
+    line plan (T1's rings as open chains), where the polygon plan raises
+    the reference's ValueError."""
     R0, S0, R, S = datasets
     plan = JoinPlan(R, S, n_order=6, device="cpu")
+    kw = {}
     if predicate == "linestring":
-        with pytest.raises(NotImplementedError, match="ROADMAP A1"):
+        with pytest.raises(ValueError, match="r_kind='line'"):
             plan.execute(predicate)
-        return
-    want, _ = RJoinPlan(R0, S0, n_order=6).build().execute(predicate)
+        kw = {"r_kind": "line"}
+        plan = JoinPlan(R, S, n_order=6, device="cpu", **kw)
+    want, _ = RJoinPlan(R0, S0, n_order=6, **kw).build().execute(predicate)
     got, st = plan.execute(predicate)
     assert st.predicate == predicate and len(want) > 0
     np.testing.assert_array_equal(got, want)

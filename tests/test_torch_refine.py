@@ -245,13 +245,16 @@ def test_snapped_vertex_fuzz(seed):
 
 
 def test_refine_backend_checks(t1t10):
-    _, _, Rt, St, pairs = t1t10
+    R, S, Rt, St, pairs = t1t10
     with pytest.raises(ValueError, match="CUDA device"):
         refine.refine_pairs(Rt, St, pairs, backend="cuda", device="cpu")
     with pytest.raises(ValueError, match="refine backend"):
         refine.refine_pairs(Rt, St, pairs, backend="pallas")
-    with pytest.raises(NotImplementedError, match="ROADMAP A1-A3"):
-        refine.refine(Rt, St, pairs, predicate="linestring", device="cpu")
+    # linestring refines the r rings as open chains, as the reference does
+    np.testing.assert_array_equal(
+        refine.refine(Rt, St, pairs, predicate="linestring", device="cpu"),
+        rrefine.refine(R, S, pairs, predicate="linestring",
+                       backend="numpy"))
     assert refine.refine_pairs(Rt, St, np.zeros((0, 2), np.int64),
                                backend="torch", device="cpu").shape == (0,)
 

@@ -519,13 +519,22 @@ def test_device64_intersects_plan_matches_reference(plans):
 
 
 def test_linestring_still_raises(wz):
-    _, _, R, S = wz
+    """``linestring`` on a polygon plan raises the reference's ValueError;
+    its candidates are the reference's, and with the rings as open chains
+    (``r_kind="line"``) the join returns the reference's pairs."""
+    R0, S0, R, S = wz
     plan = JoinPlan(R, S, n_order=6, device="cpu")
-    for call in (lambda: plan.execute("linestring"),
-                 lambda: plan.candidates("linestring"),
-                 lambda: JoinPlan(R, S, device="cpu", r_kind="line")):
-        with pytest.raises(NotImplementedError, match="ROADMAP A1-A3"):
-            call()
+    with pytest.raises(ValueError, match="r_kind='line'"):
+        plan.execute("linestring")
+    np.testing.assert_array_equal(
+        plan.candidates("linestring"),
+        RJoinPlan(R0, S0, n_order=6).candidates("linestring"))
+    want, _ = RJoinPlan(R0, S0, n_order=6, r_kind="line").build().execute(
+        "linestring")
+    got, _ = JoinPlan(R, S, n_order=6, device="cpu", r_kind="line").build(
+    ).execute("linestring")
+    assert len(want) > 0
+    np.testing.assert_array_equal(got, want)
 
 
 # ---------------------------------------------------------------------------
