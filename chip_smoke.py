@@ -153,8 +153,30 @@ reference package. Phases, any failure exits non-zero:
    power limit; the kernels are timed on the device alone and their rows
    of the ``kernels`` line gain the linestring launches, device times and
    bounds;
-9. (in a child process of this script, after phases 10 and 11: late in a
-   long process the card machine's profiler records no device events) the
+12. (run after phase 11, before phase 9) the construction paths: every
+   filter's ``build_backend="torch"`` build (the batched build with its
+   gap-head PiP or box clip pass on the card) at full size, APRIL and RI
+   of T1 x T2 (3600 x 12000 at the default counts, ``n_order`` 12), APRIL
+   of the zip codes (T10, 900) and RA and 5C+CH at phase 6's counts, each
+   store identical (every array's dtype, shape and bytes) to the numpy
+   store its phase built; the seconds of each build stage (``dda``,
+   ``scanline``, the device pass ``pip`` or ``clip``, ``pack``; RA ``fit``,
+   5C+CH ``pentagon`` and ``hull``; ``geometry.BUILD_STAGES``) for the
+   numpy build (recorded in phases 3, 5, 6 and 10) and the torch build,
+   beside the card's name and power limit; the device busy share of two
+   torch builds under ``torch.profiler`` (RI's and APRIL's of phase 6's
+   T1); the ``intersects`` join of the plan whose APRIL stores the
+   torch build made, its pairs, order and counts equal to phase 4's
+   default run, with B1 and B2 launched; then, on a prefix
+   (``CONSTRUCTION_PREFIX``: T1 polygons, T8 chains of phase 11), every
+   filter's ``torch`` and ``sequential`` builds, polygon and line, and
+   APRIL's per-polygon methods ``pips``, ``neighbors`` (on the first
+   ``NEIGHBORS_PREFIX`` polygons), ``scanline`` and ``floodfill``, each
+   identical to the numpy build of the same prefix.
+   No kernel runs in the builds: they hold nothing against a plain
+   version;
+9. (in a child process of this script, after phases 10, 11 and 12: late in
+   a long process the card machine's profiler records no device events) the
    APRIL block-sparse attention kernels (``april_attention``, the LM
    bridge; no join runs it: bf16 on the tensor cores, f32 on the CUDA
    cores): on the test grid (``TEST_GRID``: the reference's cases from
@@ -246,6 +268,12 @@ HOST_SCALE = 3
 #: 100 at the default counts): RI's build of the zip codes alone took
 #: about 52 s at 4000 x 300 on the card machine's host
 WITHIN_HOST_SCALE = 3 * HOST_SCALE
+#: phase 12's prefix (T1 polygons, T8 chains) for the sequential builds and
+#: APRIL's per-polygon methods, which are Python loops; APRIL's
+#: ``neighbors`` (a neighbour walk a gap, about 0.2 s a T1 polygon at
+#: order 12 on the card machine's host) runs on the first of them only
+CONSTRUCTION_PREFIX = (60, 400)
+NEIGHBORS_PREFIX = 20
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 #: logit std of each head of the full-width draws (q is drawn at these
@@ -847,12 +875,14 @@ class _Runs:
 
 
 def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
-                  wrappers) -> dict:
+                  wrappers, builds) -> dict:
     """Phase 10: the ``within`` and ``selection`` joins and the staged
     ``device64`` refine on the card. Returns, by kernel, the keys its row
-    of the ``kernels`` line gains."""
+    of the ``kernels`` line gains; the zip codes, their APRIL store and its
+    build's seconds and stages go into ``builds``."""
     import torch
     from repro_torch import JoinPlan, make_dataset
+    from repro_torch.core.geometry import BUILD_STAGES
     from repro_torch.core.join import INDECISIVE
     from repro_torch.datagen.synthetic import DATASET_SPECS
     from repro_torch.kernels.compact import compact_mask
@@ -867,8 +897,12 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
     # zip codes (T10) to water bodies (T2) as DATASET_SPECS has them
     zips = DATASET_SPECS["T10"][0] * args.s_count // DATASET_SPECS["T2"][0]
     Z = make_dataset("T10", seed=2, count=zips)
-    base = JoinPlan(S, Z, filter="april", n_order=args.n_order).build(
-        prebuilt=(plan.approx_s, None))
+    t1 = time.perf_counter()
+    with BUILD_STAGES.record() as stages:
+        base = JoinPlan(S, Z, filter="april", n_order=args.n_order).build(
+            prebuilt=(plan.approx_s, None))
+    builds["april T10"] = (time.perf_counter() - t1, stages)
+    builds["Z"], builds["z_store"] = Z, base.approx_s.store
     pre = (base.approx_r, base.approx_s)
     print(f"host: T10 x {len(Z)} APRIL build {time.perf_counter() - t0:.1f} "
           f"s (T2 x {len(S)} store reused from phase 4)", flush=True)
@@ -1014,10 +1048,10 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
     return extra
 
 
-def _linestring_phase(args, dev, S, plan, ri_s, wrappers) -> dict:
+def _linestring_phase(args, dev, S, plan, ri_s, wrappers, builds) -> dict:
     """Phase 11: the linestring joins (polygon x linestring, §4.3.3) on the
     card. Returns, by kernel, the keys its row of the ``kernels`` line
-    gains."""
+    gains; the chains go into ``builds``."""
     import torch
     from repro_torch import JoinPlan, make_dataset, make_linestrings
     from repro_torch.core.join import INDECISIVE
@@ -1035,6 +1069,7 @@ def _linestring_phase(args, dev, S, plan, ri_s, wrappers) -> dict:
     # S); only the line stores are built, the polygon stores are reused
     t0 = time.perf_counter()
     L = make_linestrings("T8", seed=3, count=args.s_count)
+    builds["chains"] = L
     print(f"host: T8 x {len(L)} chains {time.perf_counter() - t0:.1f} s, "
           f"{int(L.nverts.sum())} vertices", flush=True)
     line = {"r_kind": "line"}
@@ -1229,6 +1264,174 @@ def _linestring_phase(args, dev, S, plan, ri_s, wrappers) -> dict:
     print(f"phase 11 ok: linestring joins "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return extra
+
+
+def _store_arrays(store) -> list:
+    """(name, value) of every array, or VByte buffer list, of a store."""
+    if hasattr(store, "a_bufs"):
+        return [("a_bufs", store.a_bufs), ("f_bufs", store.f_bufs)]
+    names = next(n for n in (("a_off", "a_ints", "f_off", "f_ints"),
+                             ("off", "ints", "bit_off", "bits"),
+                             ("off", "ids"), ("k", "origin", "shape"),
+                             ("pent", "hull_off", "hull_pts"))
+                 if all(hasattr(store, k) for k in n))
+    out = [(k, getattr(store, k)) for k in names]
+    if hasattr(store, "cells"):
+        out += [(f"grid {i}", g) for i, g in enumerate(store.cells)]
+    return out
+
+
+def _same_store(label, got, want) -> None:
+    """Two stores identical: every array's dtype, shape and bytes."""
+    g, w = _store_arrays(got), _store_arrays(want)
+    if [k for k, _ in g] != [k for k, _ in w]:
+        raise AssertionError(f"[{label}] different store kinds")
+    for (k, a), (_, b) in zip(g, w):
+        same = (a == b if isinstance(a, list) else
+                a.dtype == b.dtype and a.shape == b.shape
+                and a.tobytes() == b.tobytes())
+        if not same:
+            raise AssertionError(f"[{label}] store array {k} differs")
+
+
+def _construction_phase(args, dev, R, S, plan, ri_r, ri_s, want_default,
+                        want_default_st, builds, wrappers) -> None:
+    """Phase 12: the construction paths. Every filter's ``torch`` build
+    (the batched build with its PiP or clip pass on the card) at full size,
+    each store identical to the numpy store an earlier phase built and the
+    seconds of each stage beside it; the ``sequential`` builds and APRIL's
+    per-polygon methods on a prefix, against the numpy build of the same
+    prefix; one join through the ``torch``-built stores."""
+    import torch
+    from repro_torch import JoinPlan, PolygonDataset
+    from repro_torch.core import april
+    from repro_torch.core.geometry import BUILD_STAGES
+    from repro_torch.spatial import get_filter
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"phase 12 card: {smi}", flush=True)
+    torch_opts = {"build_backend": "torch"}
+
+    # the device busy share of two torch builds of phase 6's T1, profiled
+    # first, while this process's profiler still records device events:
+    # RI's (the clip pass) and APRIL's (the PiP pass)
+    R2, Z = builds["R2"], builds["Z"]
+    for label, fn in (
+            (f"RI T1 x {len(R2)}", lambda: get_filter("ri").build(
+                R2, n_order=args.n_order, device=dev, **torch_opts)),
+            (f"APRIL T1 x {len(R2)}", lambda: april.build_april(
+                R2, args.n_order, backend="torch", device=dev))):
+        prof = _profile(fn)
+        busy = (f"{prof['device_busy_us'] / 1e3:.2f} ms of "
+                f"{prof['wall_us'] / 1e6:.2f} s "
+                f"({100 * prof['device_busy_share']:.2f} %)"
+                if prof["device_busy_us"] > 0 else
+                "not measured: the trace holds no device event")
+        print(f"profile [torch build, {label}] (card {smi}): device busy "
+              f"{busy}; top {json.dumps(prof['top_device_us'])}",
+              flush=True)
+
+    # full size: each torch build against the numpy store of its phase,
+    # the stage seconds of both; the APRIL build is the end-to-end plan's
+    def timed(fn):
+        with BUILD_STAGES.record() as stages:
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, stages
+
+    def report(label, t_np, st_np, t_torch, st_torch):
+        share = {k: round(v / t_torch, 3) for k, v in st_torch.items()}
+        print(f"[construction {label}] numpy {t_np:.2f} s "
+              f"{json.dumps({k: round(v, 3) for k, v in st_np.items()})}; "
+              f"torch {t_torch:.2f} s "
+              f"{json.dumps({k: round(v, 3) for k, v in st_torch.items()})} "
+              f"(shares {json.dumps(share)}); stores identical "
+              f"(card {smi})", flush=True)
+
+    e2e, t, st = timed(lambda: JoinPlan(
+        R, S, filter="april", n_order=args.n_order,
+        build_opts=torch_opts).build())
+    _same_store("april T1", e2e.approx_r.store, plan.approx_r.store)
+    _same_store("april T2", e2e.approx_s.store, plan.approx_s.store)
+    report(f"APRIL T1 x {len(R)} + T2 x {len(S)}", *builds["april"], t, st)
+    ri_t, t, st = timed(lambda: JoinPlan(
+        R, S, filter="ri", n_order=args.n_order,
+        build_opts=torch_opts).build())
+    _same_store("ri T1", ri_t.approx_r.store, ri_r.store)
+    _same_store("ri T2", ri_t.approx_s.store, ri_s.store)
+    report(f"RI T1 x {len(R)} + T2 x {len(S)}", *builds["ri"], t, st)
+    del ri_t
+    z_store, t, st = timed(lambda: april.build_april(
+        Z, args.n_order, backend="torch", device=dev))
+    _same_store("april T10", z_store, builds["z_store"])
+    report(f"APRIL T10 x {len(Z)}", *builds["april T10"], t, st)
+    S2 = builds["S2"]
+    for name in ("ra", "5cch"):
+        host, t, st = timed(lambda: JoinPlan(
+            R2, S2, filter=name, n_order=args.n_order,
+            build_opts=torch_opts).build())
+        want_r, want_s = builds[f"{name} stores"]
+        _same_store(f"{name} T1", host.approx_r.store, want_r.store)
+        _same_store(f"{name} T2", host.approx_s.store, want_s.store)
+        report(f"{name} T1 x {len(R2)} + T2 x {len(S2)}", *builds[name], t,
+               st)
+
+    # the join through the torch-built stores: the main path's launches
+    _reset(wrappers)
+    t0 = time.perf_counter()
+    res, st = e2e.execute("intersects")
+    torch.cuda.synchronize()
+    launched = {fn.__name__: fn.launches for fn in wrappers}
+    _same_run("construction-e2e", res, st, want_default, want_default_st)
+    for name in ("april_trichotomy", "edges_intersect_csr"):
+        if launched[name] <= 0:
+            raise AssertionError(f"[construction-e2e] {name} never launched")
+    print(f"[construction-e2e] JoinPlan(build_opts={torch_opts}) "
+          f"intersects {time.perf_counter() - t0:.2f} s: {len(res)} pairs, "
+          f"order and counts == phase 4's default run; launches "
+          f"{json.dumps(launched)} (card {smi})", flush=True)
+    del e2e
+
+    # a prefix: the sequential builds, the torch builds and APRIL's
+    # per-polygon methods, each against the numpy build of the prefix
+    n_poly, n_chain = CONSTRUCTION_PREFIX
+    L = builds["chains"]
+    prefix = {"polygon": PolygonDataset("T1 prefix", R.verts[:n_poly],
+                                        R.nverts[:n_poly]),
+              "line": PolygonDataset("T8 prefix", L.verts[:n_chain],
+                                     L.nverts[:n_chain])}
+    secs = {}
+    for name in ("april", "april-c", "ri", "ra", "5cch"):
+        filt = get_filter(name)
+        for kind, D in prefix.items():
+            want = filt.build(D, n_order=args.n_order, kind=kind).store
+            for backend in ("torch", "sequential"):
+                t0 = time.perf_counter()
+                got = filt.build(D, n_order=args.n_order, kind=kind,
+                                 build_backend=backend, device=dev).store
+                secs[f"{name} {kind} {backend}"] = round(
+                    time.perf_counter() - t0, 3)
+                _same_store(f"{name} {kind} {backend}", got, want)
+    few = PolygonDataset("T1 prefix", R.verts[:NEIGHBORS_PREFIX],
+                         R.nverts[:NEIGHBORS_PREFIX])
+    for method in ("pips", "neighbors", "scanline", "floodfill"):
+        D = few if method == "neighbors" else prefix["polygon"]
+        want = plan.filter.build(D, n_order=args.n_order).store
+        t0 = time.perf_counter()
+        got = get_filter("april").build(D, n_order=args.n_order,
+                                        method=method).store
+        secs[f"april method {method}"] = round(time.perf_counter() - t0, 3)
+        _same_store(f"april {method}", got, want)
+    print(f"[construction prefix] T1 x {n_poly}, T8 x {n_chain}: every "
+          f"filter's torch and sequential builds (polygon and line) and "
+          f"APRIL's methods pips, scanline and floodfill (neighbors on T1 x "
+          f"{NEIGHBORS_PREFIX}) == the numpy build of the prefix; seconds "
+          f"{json.dumps(secs)}", flush=True)
+    print(f"phase 12 ok: construction paths "
+          f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
 
 def _attention_child(out: str) -> None:
@@ -1569,7 +1772,13 @@ def main() -> int:
     t0 = time.perf_counter()
     R = make_dataset("T1", seed=0, count=args.r_count)
     S = make_dataset("T2", seed=1, count=args.s_count)
-    plan = JoinPlan(R, S, filter="april", n_order=args.n_order).build()
+    # the numpy builds' seconds and stages (and some of their stores), for
+    # phase 12's torch builds
+    builds = {}
+    with geometry.BUILD_STAGES.record() as stages:
+        t1 = time.perf_counter()
+        plan = JoinPlan(R, S, filter="april", n_order=args.n_order).build()
+        builds["april"] = (time.perf_counter() - t1, stages)
     cands = plan.candidates("intersects")
     print(f"host: datasets + APRIL build + candidates "
           f"{time.perf_counter() - t0:.1f} s, {len(cands)} candidates",
@@ -1777,7 +1986,9 @@ def main() -> int:
     # join staged and fused, each run's frame recorded
     t_phase = time.perf_counter()
     t0 = time.perf_counter()
-    ri_plan = JoinPlan(R, S, filter="ri", n_order=args.n_order).build()
+    with geometry.BUILD_STAGES.record() as stages:
+        ri_plan = JoinPlan(R, S, filter="ri", n_order=args.n_order).build()
+    builds["ri"] = (time.perf_counter() - t0, stages)
     ri_r, ri_s = ri_plan.approx_r, ri_plan.approx_s
     print(f"host: RI build {time.perf_counter() - t0:.1f} s, "
           f"{len(ri_r.store.ints) + len(ri_s.store.ints)} intervals, "
@@ -1882,8 +2093,12 @@ def main() -> int:
         "intersects")[0])
     for name in ("none", "5cch", "ra", "april-c"):
         t0 = time.perf_counter()
-        host_plan = JoinPlan(R2, S2, filter=name, n_order=args.n_order).build()
+        with geometry.BUILD_STAGES.record() as stages:
+            host_plan = JoinPlan(R2, S2, filter=name,
+                                 n_order=args.n_order).build()
         t_build = time.perf_counter() - t0
+        builds[name] = (t_build, stages)
+        builds[f"{name} stores"] = (host_plan.approx_r, host_plan.approx_s)
         runs = {}
         for mode in ("staged", "fused"):
             label = f"{name}-{mode}"
@@ -1915,6 +2130,7 @@ def main() -> int:
         print(f"[{name}] build {t_build:.2f} s; staged == fused pairs, order "
               f"and counts; set == APRIL's ({len(want_set)} pairs)",
               flush=True)
+    builds["R2"], builds["S2"] = R2, S2
     print(f"phase 6 ok: host filters at {len(R2)} x {len(S2)} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
@@ -2084,14 +2300,19 @@ def main() -> int:
 
     # 10. the within and selection joins and the staged device64 refine
     within = _within_phase(args, dev, R, S, plan, results["default"],
-                           stats["default"], wrappers)
+                           stats["default"], wrappers, builds)
     for k in kernels:
         k.update(within.get(k["name"], {}))
 
     # 11. the linestring joins
-    line = _linestring_phase(args, dev, S, plan, ri_s, wrappers)
+    line = _linestring_phase(args, dev, S, plan, ri_s, wrappers, builds)
     for k in kernels:
         k.update(line.get(k["name"], {}))
+
+    # 12. the construction paths
+    _construction_phase(args, dev, R, S, plan, ri_r, ri_s,
+                        results["default"], stats["default"], builds,
+                        wrappers)
 
     # 9. the attention kernel, which no join runs, in a fresh process
     kernels.extend(_attention_in_fresh_process())

@@ -13,6 +13,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..core.geometry import BUILD_STAGES, build_device
 from ..core.join import INDECISIVE, TRUE_NEG
 
 __all__ = ["FiveCCH", "build_5cch", "build_5cch_lines",
@@ -84,6 +85,12 @@ def _corners_from_support(m: np.ndarray) -> np.ndarray:
     return np.stack([x, y], axis=-1)
 
 
+def _pentagon(verts: np.ndarray) -> np.ndarray:
+    """Corners of the 5-direction DOP enclosing ``verts``."""
+    m = (verts @ _DIRS.T).max(axis=0)        # [5] support values
+    return _corners_from_support(m)
+
+
 def _pentagons_multi(verts: np.ndarray, nverts: np.ndarray) -> np.ndarray:
     """Vectorized :func:`_pentagon` over the padded dataset: masked support
     values, then all corner solves as one einsum. [P,5,2]."""
@@ -95,34 +102,42 @@ def _pentagons_multi(verts: np.ndarray, nverts: np.ndarray) -> np.ndarray:
     return _corners_from_support(sup)
 
 
-def build_5cch(dataset, backend: str = "numpy") -> FiveCCH:
-    """Build the 5C+CH store: the pentagon (5-DOP) stage vectorized over the
-    whole dataset, then a monotone-chain hull per object (cheap relative to
-    rasterizing filters). Only the batched numpy build is ported."""
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"5C+CH build_backend={backend!r} is not ported yet (only the "
-            "batched numpy build): ROADMAP A7 (device construction)")
+def build_5cch(dataset, backend: str = "numpy", device=None) -> FiveCCH:
+    """Build the 5C+CH store. ``numpy`` and ``torch`` (no device pass, as
+    the reference's ``jnp``) vectorize the pentagon (5-DOP) stage over the
+    whole dataset; ``sequential`` is the per-object reference. The
+    convex-hull stage is a monotone chain per object either way (cheap
+    relative to rasterizing filters)."""
+    build_device(backend, device)
     P = len(dataset)
-    pent = _pentagons_multi(dataset.verts, dataset.nverts)
+    stage = BUILD_STAGES.stage
+    if backend == "sequential":
+        pent = np.zeros((P, 5, 2))
+        for i in range(P):
+            pent[i] = _pentagon(dataset.polygon(i))
+    else:
+        with stage("pentagon"):
+            pent = _pentagons_multi(dataset.verts, dataset.nverts)
     off = [0]
     hulls = []
-    for i in range(P):
-        h = convex_hull(dataset.polygon(i))
-        hulls.append(h)
-        off.append(off[-1] + len(h))
+    with stage("hull"):
+        for i in range(P):
+            h = convex_hull(dataset.polygon(i))
+            hulls.append(h)
+            off.append(off[-1] + len(h))
     return FiveCCH(pent=pent,
                    hull_off=np.asarray(off, np.int64),
                    hull_pts=(np.concatenate(hulls, axis=0) if hulls
                              else np.zeros((0, 2))))
 
 
-def build_5cch_lines(dataset, backend: str = "numpy") -> FiveCCH:
+def build_5cch_lines(dataset, backend: str = "numpy",
+                     device=None) -> FiveCCH:
     """5C+CH store for open linestrings: the pentagon and hull of a chain's
     vertices enclose the chain, so disjointness stays conservative (a
     2-vertex chain's hull is its two points, and only the pentagon test
     applies to it)."""
-    return build_5cch(dataset, backend=backend)
+    return build_5cch(dataset, backend=backend, device=device)
 
 
 def convex_disjoint(ha: np.ndarray, hb: np.ndarray) -> bool:

@@ -11,7 +11,9 @@ Combination caveat (faithful to the information RA stores): classes, not
 fractions, are stored, so a combined 2x2 class uses coverage lower bounds;
 Full (resp. Empty) requires all four children Full (resp. Empty). With
 that, Table 1 verdicts stay conservative and the filter never contradicts
-the geometry. Host numpy.
+the geometry. Construction: ``numpy`` clips every (object x window-cell)
+row on the host, ``torch`` runs that clip on a device, ``sequential`` is
+the per-object reference loop; the line builds rasterize on the host.
 """
 from __future__ import annotations
 
@@ -19,9 +21,10 @@ from dataclasses import dataclass
 
 import numpy as np
 
-from ..core import geometry
+from ..core import geometry, rasterize
+from ..core.geometry import build_device
 from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
-from ..core.rasterize import clip_segments_to_grid, dda_traverse
+from ..core.rasterize import Extent, clip_segments_to_grid, dda_traverse
 
 __all__ = ["RAStore", "build_ra", "build_ra_lines", "ra_verdict_pair",
            "ra_filter_batch", "ra_within_verdict_pair", "ra_within_batch"]
@@ -51,6 +54,22 @@ class RAStore:
     def size_bytes(self) -> int:
         # 2 bits/cell packed (4 classes) + per-object header
         return sum((c.size + 3) // 4 for c in self.cells) + 24 * len(self.cells)
+
+
+def _fit_grid(mbr, max_cells: int, omega: float):
+    """Smallest aligned grid scale with cell count <= max_cells:
+    (k, side, ox, oy, nx, ny)."""
+    k = 0
+    while True:
+        side = omega * (1 << k)
+        nx = int(np.floor(mbr[2] / side)) - int(np.floor(mbr[0] / side)) + 1
+        ny = int(np.floor(mbr[3] / side)) - int(np.floor(mbr[1] / side)) + 1
+        if nx * ny <= max_cells or side > 1.0:
+            break
+        k += 1
+    ox = np.floor(mbr[0] / side) * side
+    oy = np.floor(mbr[1] / side) * side
+    return k, side, ox, oy, nx, ny
 
 
 def _fit_grid_multi(mbrs: np.ndarray, max_cells: int, omega: float):
@@ -87,16 +106,44 @@ def _grids_from_classes(cls_flat, coff, nx, ny):
 
 
 def build_ra(dataset, max_cells: int = 750, omega: float = 1.0 / (1 << 16),
-             backend: str = "numpy") -> RAStore:
-    """Build the RA store: the coverage fractions of ALL (object x
-    window-cell) rows in one padded Sutherland–Hodgman pass per object
-    slice. Only the batched numpy build is ported."""
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"RA build_backend={backend!r} is not ported yet (only the "
-            "batched numpy build): ROADMAP A7 (device construction)")
+             backend: str = "numpy", device=None) -> RAStore:
+    """Build the RA store. ``numpy`` and ``torch`` evaluate the coverage
+    fractions of ALL (object x window-cell) rows in one padded
+    Sutherland–Hodgman pass per object slice (on ``device`` for
+    ``torch``); ``sequential`` is the per-object reference loop with
+    per-cell clipping."""
+    dev = build_device(backend, device)
     P = len(dataset)
-    k, side, ox, oy, nx, ny = _fit_grid_multi(dataset.mbrs, max_cells, omega)
+    if backend == "sequential":
+        ks = np.zeros(P, np.int64)
+        origins = np.zeros((P, 2))
+        shapes = np.zeros((P, 2), np.int64)
+        grids: list[np.ndarray] = []
+        for i in range(P):
+            v = dataset.polygon(i)
+            k, side, ox, oy, nx, ny = _fit_grid(dataset.mbrs[i], max_cells,
+                                                omega)
+            # coverage fractions for all cells in the window
+            cxs = np.arange(nx); cys = np.arange(ny)
+            CX, CY = np.meshgrid(cxs, cys, indexing="xy")
+            cells = np.stack([CX.ravel(), CY.ravel()], axis=1)
+            ext = Extent(ox, oy, side)  # one-cell extent trick: order 0/cell
+            frac = rasterize.coverage_fractions(v, len(v), cells, 0, ext)
+            grid = np.full(nx * ny, EMPTY, np.int8)
+            grid[(frac > 0) & (frac <= 0.5)] = WEAK
+            grid[(frac > 0.5) & (frac < 1.0 - 1e-12)] = STRONG
+            grid[frac >= 1.0 - 1e-12] = FULL
+            ks[i] = k
+            origins[i] = (ox, oy)
+            shapes[i] = (nx, ny)
+            grids.append(grid.reshape(ny, nx))
+        return RAStore(omega=omega, k=ks, origin=origins, shape=shapes,
+                       cells=grids)
+
+    stage = geometry.BUILD_STAGES.stage
+    with stage("fit"):
+        k, side, ox, oy, nx, ny = _fit_grid_multi(dataset.mbrs, max_cells,
+                                                  omega)
     ncell = nx * ny
     coff = np.concatenate([[0], np.cumsum(ncell)])
     cls = np.full(coff[-1], EMPTY, np.int8)
@@ -105,43 +152,74 @@ def build_ra(dataset, max_cells: int = 750, omega: float = 1.0 / (1 << 16),
     cells_per_chunk = 1 << 22
     p0 = 0
     while p0 < P:
-        p1 = int(np.searchsorted(coff, coff[p0] + cells_per_chunk, "right"))
-        p1 = max(p1 - 1, p0 + 1)
-        pid = np.repeat(np.arange(p0, p1), ncell[p0:p1])
-        t = np.arange(coff[p1] - coff[p0]) - (coff[p0:p1] - coff[p0])[pid - p0]
-        cx = t % nx[pid]
-        cy = t // nx[pid]
-        sp = side[pid]
-        boxes = np.stack([ox[pid] + cx * sp, oy[pid] + cy * sp,
-                          ox[pid] + (cx + 1) * sp, oy[pid] + (cy + 1) * sp],
-                         axis=1)
-        areas = geometry.box_clip_areas_rows(
-            dataset.verts, dataset.nverts, pid, boxes)
-        frac = np.clip(areas / (sp * sp), 0.0, 1.0)
-        seg = cls[coff[p0]: coff[p1]]
-        seg[(frac > 0) & (frac <= 0.5)] = WEAK
-        seg[(frac > 0.5) & (frac < 1.0 - 1e-12)] = STRONG
-        seg[frac >= 1.0 - 1e-12] = FULL
+        with stage("pack"):
+            p1 = int(np.searchsorted(coff, coff[p0] + cells_per_chunk,
+                                     "right"))
+            p1 = max(p1 - 1, p0 + 1)
+            pid = np.repeat(np.arange(p0, p1), ncell[p0:p1])
+            t = (np.arange(coff[p1] - coff[p0])
+                 - (coff[p0:p1] - coff[p0])[pid - p0])
+            cx = t % nx[pid]
+            cy = t // nx[pid]
+            sp = side[pid]
+            boxes = np.stack([ox[pid] + cx * sp, oy[pid] + cy * sp,
+                              ox[pid] + (cx + 1) * sp,
+                              oy[pid] + (cy + 1) * sp], axis=1)
+        with stage("clip"):
+            areas = geometry.box_clip_areas_rows(
+                dataset.verts, dataset.nverts, pid, boxes, backend=backend,
+                device=dev)
+        with stage("pack"):
+            frac = np.clip(areas / (sp * sp), 0.0, 1.0)
+            seg = cls[coff[p0]: coff[p1]]
+            seg[(frac > 0) & (frac <= 0.5)] = WEAK
+            seg[(frac > 0.5) & (frac < 1.0 - 1e-12)] = STRONG
+            seg[frac >= 1.0 - 1e-12] = FULL
         p0 = p1
-    return RAStore(omega=omega, k=k, origin=np.stack([ox, oy], axis=1),
-                   shape=np.stack([nx, ny], axis=1),
-                   cells=_grids_from_classes(cls, coff, nx, ny))
+    with stage("pack"):
+        return RAStore(omega=omega, k=k, origin=np.stack([ox, oy], axis=1),
+                       shape=np.stack([nx, ny], axis=1),
+                       cells=_grids_from_classes(cls, coff, nx, ny))
 
 
 def build_ra_lines(dataset, max_cells: int = 750,
                    omega: float = 1.0 / (1 << 16),
-                   backend: str = "numpy") -> RAStore:
+                   backend: str = "numpy", device=None) -> RAStore:
     """RA store for open linestrings: the cells a chain crosses are Weak (a
     line has no area, so never Strong or Full), the rest Empty; Table 1
     still applies (Weak x Full certifies a hit, Weak x Weak or Strong stays
     INDECISIVE). One clipped traversal over every chain's edges, each in
     its own object's grid frame (the grid bound G = 2^n of the power-of-two
-    grid that covers the object's window). Only the batched numpy build is
-    ported."""
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"RA build_backend={backend!r} is not ported yet (only the "
-            "batched numpy build): ROADMAP A7 (device construction)")
+    grid that covers the object's window), for ``numpy`` and ``torch``
+    (no device pass: a chain has no coverage to clip); ``sequential``
+    rasterizes chain by chain."""
+    build_device(backend, device)
+    P = len(dataset)
+    if backend == "sequential":
+        ks = np.zeros(P, np.int64)
+        origins = np.zeros((P, 2))
+        shapes = np.zeros((P, 2), np.int64)
+        grids: list[np.ndarray] = []
+        for i in range(P):
+            v = dataset.polygon(i)
+            k, side, ox, oy, nx, ny = _fit_grid(dataset.mbrs[i], max_cells,
+                                                omega)
+            # rasterize the chain on a power-of-two grid covering the window
+            n_ord = max(1, int(np.ceil(np.log2(max(nx, ny)))))
+            ext = Extent(ox, oy, side * (1 << n_ord))
+            cells = rasterize.dda_partial_cells(v, len(v), n_ord, ext,
+                                                closed=False)
+            grid = np.full((ny, nx), EMPTY, np.int8)
+            if len(cells):
+                keep = (cells[:, 0] < nx) & (cells[:, 1] < ny)
+                grid[cells[keep, 1], cells[keep, 0]] = WEAK
+            ks[i] = k
+            origins[i] = (ox, oy)
+            shapes[i] = (nx, ny)
+            grids.append(grid)
+        return RAStore(omega=omega, k=ks, origin=origins, shape=shapes,
+                       cells=grids)
+
     k, side, ox, oy, nx, ny = _fit_grid_multi(dataset.mbrs, max_cells, omega)
     n_ord = np.maximum(
         1, np.ceil(np.log2(np.maximum(nx, ny).astype(np.float64)))

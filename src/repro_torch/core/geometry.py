@@ -5,18 +5,58 @@ oracle of refinement. Polygons are stored padded: ``verts`` has shape
 [P, V, 2] and ``nverts`` [P]; vertices at index >= nverts[p] are ignored.
 Rings are implicitly closed (edge from vertex nverts-1 back to vertex 0).
 Vertex order may be CW or CCW.
+
+Construction has three backends (``BUILD_BACKENDS``): ``numpy`` (the
+batched host build), ``torch`` (its two per-cell passes, the gap-head PiP
+and the box clip, on a device: the reference's ``jnp``) and
+``sequential`` (the per-object reference loop). The device twins
+(:func:`points_in_polygon_rows_torch`, :func:`box_clip_areas_torch`) write
+every product and sum as separate float64 operations, so they round as
+numpy does; the clip's shoelace stays on the host.
 """
 from __future__ import annotations
 
 import numpy as np
+import torch
+
+from ..device import StageClock, resolve_device
 
 __all__ = [
+    "BUILD_BACKENDS", "BUILD_STAGES", "check_build_backend", "build_device",
     "size_buckets", "polygon_edges", "polygon_mbrs", "points_in_polygon",
     "points_on_polygon_boundary", "points_in_polygon_closed",
     "points_in_polygons_batch", "points_in_polygon_rows",
+    "points_in_polygon_rows_torch",
     "representative_points", "segments_intersect", "polygons_intersect",
-    "polygon_within", "polygon_area", "clip_polygon_to_box", "box_clip_areas_rows",
+    "polygon_within", "polygon_area", "clip_polygon_to_box", "box_clip_areas",
+    "box_clip_areas_torch", "box_clip_areas_rows",
 ]
+
+#: construction backends: the batched host build, its device passes, and
+#: the per-object reference loop every batched build is store-identical to
+BUILD_BACKENDS = ("numpy", "torch", "sequential")
+#: host seconds of the batched builds' stages (``dda``, ``scanline``,
+#: ``pip`` or ``clip``, ``pack``; RA ``fit``, 5C+CH ``pentagon`` and
+#: ``hull``), summed inside a ``BUILD_STAGES.record()`` block
+BUILD_STAGES = StageClock()
+
+
+def check_build_backend(backend: str) -> None:
+    if backend == "jnp":
+        raise ValueError("build_backend 'jnp' is the reference's name; the "
+                         "port's device construction is build_backend="
+                         "'torch'")
+    if backend not in BUILD_BACKENDS:
+        raise ValueError(f"unknown build_backend {backend!r}; "
+                         f"expected one of {BUILD_BACKENDS}")
+
+
+def build_device(backend: str, device=None) -> torch.device | None:
+    """Check ``backend``; the device the ``torch`` build runs on (``None``
+    -> ``"cuda"``, which raises without a GPU), ``None`` for the host
+    builds."""
+    check_build_backend(backend)
+    return resolve_device(device) if backend == "torch" else None
 
 
 def size_buckets(sizes: np.ndarray, chunk_elems: int = 1 << 22):
@@ -209,6 +249,53 @@ def points_in_polygon_rows(
         xint = x0 + t * (x1 - x0)
         cross = cond & (xint > x) & mask[p]
         out[sl] = (np.sum(cross, axis=1) % 2) == 1
+    return out
+
+
+def _pip_rows_torch(points, starts, ends, mask, poly_of_point):
+    """The crossing test of :func:`points_in_polygon_rows` on tensors, each
+    row against its own polygon's gathered edges."""
+    x = points[:, 0, None]
+    y = points[:, 1, None]
+    x0, y0 = starts[poly_of_point, :, 0], starts[poly_of_point, :, 1]
+    x1, y1 = ends[poly_of_point, :, 0], ends[poly_of_point, :, 1]
+    cond = (y0 <= y) != (y1 <= y)
+    t = (y - y0) / torch.where(y1 == y0, 1.0, y1 - y0)
+    # a separate multiply and add, as numpy rounds them (no fused FMA)
+    step = t * (x1 - x0)
+    xint = x0 + step
+    cross = cond & (xint > x) & mask[poly_of_point]
+    return (cross.sum(dim=1) % 2) == 1
+
+
+def points_in_polygon_rows_torch(points, poly_of_point, verts, nverts,
+                                 device=None,
+                                 chunk_elems: int = 1 << 22) -> np.ndarray:
+    """Device twin of :func:`points_in_polygon_rows` (float64; the crossing
+    test is exact comparisons, so the rows are identical). ``points`` is
+    [M,2] on the host or already on ``device``; ``poly_of_point`` [M] host
+    indices. Rows are chunked by :func:`size_buckets` over their polygon's
+    vertex count, so each chunk gathers only that many edges. Returns [M]
+    bool on the host."""
+    dev = resolve_device(device)
+    poly_of_point = np.asarray(poly_of_point, np.int64)
+    nverts = np.asarray(nverts, np.int64)
+    M = len(poly_of_point)
+    out = np.zeros(M, dtype=bool)
+    if M == 0:
+        return out
+    starts, ends, mask = polygon_edges(verts, nverts)
+    starts = torch.as_tensor(starts, device=dev)
+    ends = torch.as_tensor(ends, device=dev)
+    mask = torch.as_tensor(mask, device=dev)
+    points = torch.as_tensor(points, dtype=torch.float64, device=dev)
+    poly = torch.as_tensor(poly_of_point, device=dev)
+    for sel in size_buckets(nverts[poly_of_point], chunk_elems):
+        Vb = int(nverts[poly_of_point[sel]].max())
+        rows = torch.as_tensor(sel, device=dev)
+        got = _pip_rows_torch(points[rows], starts[:, :Vb], ends[:, :Vb],
+                              mask[:, :Vb], poly[rows])
+        out[sel] = got.cpu().numpy()
     return out
 
 
@@ -409,17 +496,104 @@ def _ring_areas(pts, cnt):
     return np.abs(np.where(valid, terms, 0.0).sum(axis=1)) / 2.0
 
 
+def box_clip_areas(verts, nverts, boxes) -> np.ndarray:
+    """Area of (ring ∩ axis-aligned box) for K independent rows at once.
+
+    verts [K,V,2] padded rings, nverts [K], boxes [K,4] (xmin,ymin,xmax,ymax).
+    Returns [K] float64 absolute areas; rows whose clipped ring degenerates
+    (< 3 vertices) report 0, as the per-cell clip does.
+    """
+    pts = np.asarray(verts, np.float64)
+    cnt = np.asarray(nverts, np.int64)
+    boxes = np.asarray(boxes, np.float64)
+    for axis, col, keep_ge in _CLIP_PASSES:
+        pts, cnt = _clip_halfplane_batch(pts, cnt, axis, boxes[:, col], keep_ge)
+    return np.where(cnt >= 3, _ring_areas(pts, cnt), 0.0)
+
+
+def _clip_halfplane_torch(pts, cnt, axis, bound, keep_ge):
+    """One half-plane pass of :func:`_clip_halfplane_batch` on tensors, at
+    the static output width 2V: each input vertex emits at most itself and
+    one intersection. Masked writes land in a dump column (2V) that is cut
+    off, so the pass reads nothing back to size its output."""
+    K, V = pts.shape[0], pts.shape[1]
+    dev = pts.device
+    idx = torch.arange(V, device=dev)[None, :]
+    valid = idx < cnt[:, None]
+    rows = torch.arange(K, device=dev)[:, None].expand(K, V)
+    nxt = torch.where(valid, (idx + 1) % cnt[:, None].clamp(min=1), 0)
+    nxt_pts = torch.gather(pts, 1, nxt[..., None].expand(K, V, 2))
+    c = pts[..., axis]
+    n_ = nxt_pts[..., axis]
+    b = bound[:, None]
+    cin = (c >= b) if keep_ge else (c <= b)
+    nin = (n_ >= b) if keep_ge else (n_ <= b)
+    emit_cur = cin & valid
+    emit_ix = (cin != nin) & valid
+    n_emit = emit_cur.to(torch.int64) + emit_ix.to(torch.int64)
+    pos = torch.cumsum(n_emit, dim=1) - n_emit          # exclusive prefix
+    dump = 2 * V
+    out = pts.new_zeros((K, 2 * V + 1, 2))
+    out[rows, torch.where(emit_cur, pos, dump)] = pts
+    t = (b - c) / torch.where(n_ == c, 1.0, n_ - c)
+    o = 1 - axis
+    # a separate multiply and add, as numpy rounds them (no fused FMA)
+    step = t * (nxt_pts[..., o] - pts[..., o])
+    other = pts[..., o] + step
+    bb = b.expand(K, V)
+    ix = (torch.stack([bb, other], -1) if axis == 0
+          else torch.stack([other, bb], -1))
+    out[rows, torch.where(emit_ix, pos + emit_cur.to(torch.int64), dump)] = ix
+    return out[:, : 2 * V], n_emit.sum(dim=1)
+
+
+def _box_clip_torch(pts, cnt, boxes):
+    """The four half-plane passes of :func:`box_clip_areas` on tensors:
+    (clipped rings [K,16V,2], vertex counts [K])."""
+    for axis, col, keep_ge in _CLIP_PASSES:
+        pts, cnt = _clip_halfplane_torch(pts, cnt, axis, boxes[:, col],
+                                         keep_ge)
+    return pts, cnt
+
+
+def box_clip_areas_torch(verts, nverts, boxes, device=None) -> np.ndarray:
+    """Device twin of :func:`box_clip_areas` (float64): the four half-plane
+    passes run on ``device`` (inputs on the host or already there); the
+    shoelace runs on the host through :func:`_ring_areas` over the rings
+    trimmed to their widest, the reduction order of the reference's device
+    twin. Vertices round as numpy's, so areas can differ from the banded
+    numpy driver's only in the summation order of the shoelace; a class
+    flip needs a fraction within ulps of a threshold."""
+    dev = resolve_device(device)
+    pts = torch.as_tensor(verts, dtype=torch.float64, device=dev)
+    cnt = torch.as_tensor(nverts, dtype=torch.int64, device=dev)
+    boxes = torch.as_tensor(boxes, dtype=torch.float64, device=dev)
+    pts, cnt = _box_clip_torch(pts, cnt, boxes)
+    cnt = cnt.cpu().numpy()
+    W = max(1, int(cnt.max()) if len(cnt) else 1)
+    pts = pts[:, :W].cpu().numpy()
+    return np.where(cnt >= 3, _ring_areas(pts, cnt), 0.0)
+
+
 def box_clip_areas_rows(verts, nverts, poly_of_row, boxes,
+                        backend: str = "numpy", device=None,
                         chunk_elems: int = 1 << 22) -> np.ndarray:
     """Row-bucketed driver over the batched clip: row k clips polygon
     ``poly_of_row[k]`` (padded [P,V,2]/[P]) to ``boxes[k]``.
 
-    All cells of one grid row of one polygon share (ymin, ymax), so the
-    two y-plane passes run once per unique band and only the two x-plane
-    passes run per cell, in the pass order of :func:`clip_polygon_to_box`.
-    Buckets by power-of-two vertex-count class bound padding waste; chunks
-    bound the padded working set below ``chunk_elems``.
+    ``numpy``: all cells of one grid row of one polygon share (ymin,
+    ymax), so the two y-plane passes run once per unique band and only the
+    two x-plane passes run per cell, in the pass order of
+    :func:`clip_polygon_to_box`. ``torch``: the generic per-row pass of
+    :func:`box_clip_areas_torch` on ``device`` (the same pass order, so
+    the same vertices), in chunks of at most ``1 << 18`` padded elements
+    for its static doubling widths. Buckets by power-of-two vertex-count
+    class bound padding waste; chunks bound the padded working set below
+    ``chunk_elems``.
     """
+    if backend not in ("numpy", "torch"):
+        raise ValueError(f"unknown clip backend {backend!r}; expected "
+                         "'numpy' or 'torch'")
     verts = np.asarray(verts, np.float64)
     nverts = np.asarray(nverts, np.int64)
     poly_of_row = np.asarray(poly_of_row, np.int64)
@@ -427,6 +601,21 @@ def box_clip_areas_rows(verts, nverts, poly_of_row, boxes,
     K = len(poly_of_row)
     out = np.zeros(K, np.float64)
     if K == 0:
+        return out
+
+    if backend == "torch":
+        dev = resolve_device(device)
+        verts_d = torch.as_tensor(verts, device=dev)
+        poly_d = torch.as_tensor(poly_of_row, device=dev)
+        boxes_d = torch.as_tensor(boxes, device=dev)
+        nv = nverts[poly_of_row]
+        nv_d = torch.as_tensor(nv, device=dev)
+        for sel in size_buckets(nv, min(chunk_elems, 1 << 18)):
+            Vb = int(nv[sel].max())
+            rows = torch.as_tensor(sel, device=dev)
+            out[sel] = box_clip_areas_torch(verts_d[:, :Vb][poly_d[rows]],
+                                            nv_d[rows], boxes_d[rows],
+                                            device=dev)
         return out
 
     # unique (polygon, ymin, ymax) bands

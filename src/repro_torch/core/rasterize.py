@@ -5,21 +5,31 @@ needs: every cell crossed by a polygon boundary (the Partial cells) of a
 whole dataset in one vectorized pass, or every cell an open chain crosses
 (the line stores). RI construction adds the scanline
 parity fill of the Full cells and the exact coverage fraction of every
-Partial cell, both dataset-batched. A raster ``extent`` is the square
-(x0, y0, side) covered by the grid.
+Partial cell, both dataset-batched (the clip pass also on a device,
+``backend="torch"``). The per-polygon paths of the sequential builds and
+of APRIL's other construction methods sit beside them:
+:func:`dda_partial_cells`, :func:`scanline_full_cells`, the flood fill
+:func:`floodfill_classify`, the per-cell clip :func:`coverage_fractions`,
+and the brute-force oracle :func:`classify_window_oracle`. A raster
+``extent`` is the square (x0, y0, side) covered by the grid.
 """
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
 
 from . import geometry
+from .hilbert import xy2d
 
 __all__ = [
     "Extent", "GLOBAL_EXTENT", "cells_of_points", "cell_centers",
-    "clip_segments_to_grid", "dda_traverse", "dda_partial_cells_multi",
-    "coverage_fractions_multi", "scanline_full_cells_multi", "size_buckets",
+    "clip_segments_to_grid", "dda_traverse", "dda_partial_cells",
+    "dda_partial_cells_multi", "scanline_full_cells",
+    "scanline_full_cells_multi", "floodfill_classify", "coverage_fractions",
+    "coverage_fractions_multi", "classify_window_oracle", "cells_to_hilbert",
+    "size_buckets",
 ]
 
 
@@ -160,6 +170,34 @@ def dda_traverse(a: np.ndarray, b: np.ndarray, G,
     return eid, cells.astype(np.int64)
 
 
+def dda_partial_cells(
+    verts: np.ndarray, n: int, n_order: int, extent: Extent = GLOBAL_EXTENT,
+    closed: bool = True,
+) -> np.ndarray:
+    """All boundary (Partial) cells of one polygon, vectorized over edges.
+
+    Returns unique cell coordinates [K, 2] int64 (cx, cy), sorted lexico-
+    graphically. ``closed=False`` treats the vertices as an open chain
+    (linestrings §4.3.3). Edges are clipped to the extent before traversal
+    (dropped when fully outside — NOT clamped into the border row/column),
+    so geometry crossing the raster-area boundary yields exactly the cells
+    its in-extent boundary touches.
+    """
+    v = np.asarray(verts, np.float64)[: int(n)]
+    G = 1 << n_order
+    if closed:
+        a = _grid_coords(v, n_order, extent)                 # [E,2]
+        b = np.roll(a, -1, axis=0)
+    else:
+        g = _grid_coords(v, n_order, extent)
+        a, b = g[:-1], g[1:]
+    a_c, b_c, keep = clip_segments_to_grid(a, b, float(G))
+    _, cells = dda_traverse(a_c[keep], b_c[keep], G)
+    if len(cells) == 0:
+        return np.zeros((0, 2), dtype=np.int64)
+    return np.unique(cells, axis=0)
+
+
 def dda_partial_cells_multi(
     verts: np.ndarray, nverts: np.ndarray, n_order: int,
     extent: Extent = GLOBAL_EXTENT, closed: bool = True,
@@ -219,14 +257,146 @@ def _all_grid_cells(n_order: int) -> np.ndarray:
     return np.stack([CX.ravel(), CY.ravel()], axis=1).astype(np.int64)
 
 
+def _grid_covered(verts: np.ndarray, n_order: int, extent: Extent) -> bool:
+    """With no Partial cells the grid is entirely inside or entirely outside
+    the polygon; one PiP at the (0,0) cell center decides (§5.2 partitions
+    fully covered by a large polygon)."""
+    v = np.asarray(verts, np.float64)
+    if len(v) < 3:
+        return False
+    c = cell_centers(np.array([0]), np.array([0]), n_order, extent)
+    return bool(geometry.points_in_polygon(c, v)[0])
+
+
+def _window(verts: np.ndarray, n_order: int, extent: Extent) -> tuple:
+    """MBR window clipped into the grid: (x_lo, y_lo, x_hi, y_hi) cells.
+    For in-extent polygons this equals the Partial-cell bounding box; for
+    geometry crossing the extent it covers the whole in-grid part (whose
+    Full cells may lie outside the Partial bbox)."""
+    v = np.asarray(verts, np.float64)
+    lo = cells_of_points(v.min(axis=0)[None, :], n_order, extent)[0]
+    hi = cells_of_points(v.max(axis=0)[None, :], n_order, extent)[0]
+    return int(lo[0]), int(lo[1]), int(hi[0]), int(hi[1])
+
+
+def scanline_full_cells(
+    verts: np.ndarray, n: int, partial: np.ndarray,
+    n_order: int, extent: Extent = GLOBAL_EXTENT,
+) -> np.ndarray:
+    """Full cells via per-row parity fill at cell-center height (§6.1).
+
+    ``partial``: [K,2] boundary cells from :func:`dda_partial_cells`.
+    Returns [F,2] int64 Full cells. Vectorized over (rows x edges).
+    """
+    v = np.asarray(verts, np.float64)[: int(n)]
+    if len(partial) == 0:
+        if _grid_covered(v, n_order, extent):
+            return _all_grid_cells(n_order)
+        return np.zeros((0, 2), dtype=np.int64)
+    h = extent.cell_size(n_order)
+    x_lo, y_lo, x_hi, y_hi = _window(v, n_order, extent)
+    rows = np.arange(y_lo, y_hi + 1)
+    ycent = extent.y0 + (rows + 0.5) * h                     # [R]
+
+    x0, y0 = v[:, 0][None, :], v[:, 1][None, :]              # [1,E]
+    x1 = np.roll(v[:, 0], -1)[None, :]
+    y1 = np.roll(v[:, 1], -1)[None, :]
+    yc = ycent[:, None]                                       # [R,1]
+    cond = (y0 <= yc) != (y1 <= yc)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        t = (yc - y0) / np.where(y1 == y0, 1.0, y1 - y0)
+    xint = np.where(cond, x0 + t * (x1 - x0), np.inf)        # [R,E]
+    xint_sorted = np.sort(xint, axis=1)
+
+    # Parity of crossings left of each cell center => inside/outside.
+    cols = np.arange(x_lo, x_hi + 1)
+    xcent = extent.x0 + (cols + 0.5) * h                     # [C]
+    # counts[r, c] = # crossings with xint < xcent[c]  (broadcast [R,C,E])
+    counts = np.sum(xint_sorted[:, None, :] < xcent[None, :, None], axis=2)
+    inside = (counts % 2) == 1                               # [R,C]
+
+    pmask = np.zeros((y_hi - y_lo + 1, x_hi - x_lo + 1), dtype=bool)
+    pmask[partial[:, 1] - y_lo, partial[:, 0] - x_lo] = True
+    fullmask = inside & ~pmask
+    ry, cx = np.nonzero(fullmask)
+    return np.stack([cx + x_lo, ry + y_lo], axis=1).astype(np.int64)
+
+
+def floodfill_classify(
+    verts: np.ndarray, n: int, partial: np.ndarray,
+    n_order: int, extent: Extent = GLOBAL_EXTENT,
+) -> np.ndarray:
+    """Flood-fill Full-cell detection (§6.1, host BFS; oracle/benchmark path).
+
+    Iterates the MBR window; each unlabeled region costs ONE PiP test, then a
+    BFS labels the region Full or Empty, stopping at Partial cells.
+    """
+    v = np.asarray(verts, np.float64)[: int(n)]
+    if len(partial) == 0:
+        if _grid_covered(v, n_order, extent):
+            return _all_grid_cells(n_order)
+        return np.zeros((0, 2), dtype=np.int64)
+    x_lo, y_lo, x_hi, y_hi = _window(v, n_order, extent)
+    H, W = y_hi - y_lo + 1, x_hi - x_lo + 1
+    # 0 unknown, 1 partial, 2 full, 3 empty
+    lab = np.zeros((H, W), dtype=np.int8)
+    lab[partial[:, 1] - y_lo, partial[:, 0] - x_lo] = 1
+
+    def pip(cx, cy) -> bool:
+        c = cell_centers(np.array([cx]), np.array([cy]), n_order, extent)
+        return bool(geometry.points_in_polygon(c, v)[0])
+
+    for yy in range(H):
+        for xx in range(W):
+            if lab[yy, xx] != 0:
+                continue
+            mark = 2 if pip(xx + x_lo, yy + y_lo) else 3
+            q = deque([(yy, xx)])
+            lab[yy, xx] = mark
+            while q:
+                cy_, cx_ = q.popleft()
+                for ny_, nx_ in ((cy_ + 1, cx_), (cy_ - 1, cx_), (cy_, cx_ + 1), (cy_, cx_ - 1)):
+                    if 0 <= ny_ < H and 0 <= nx_ < W and lab[ny_, nx_] == 0:
+                        lab[ny_, nx_] = mark
+                        q.append((ny_, nx_))
+    ry, cx = np.nonzero(lab == 2)
+    return np.stack([cx + x_lo, ry + y_lo], axis=1).astype(np.int64)
+
+
+def coverage_fractions(
+    verts: np.ndarray, n: int, cells: np.ndarray,
+    n_order: int, extent: Extent = GLOBAL_EXTENT,
+) -> np.ndarray:
+    """Exact coverage fraction of each cell by the polygon (RA/RI labeling).
+
+    cells: [K,2]. Returns [K] float64 in [0,1]. Host-side, per-cell clipping —
+    deliberately the expensive path the paper attributes to RA/RI.
+    """
+    v = np.asarray(verts, np.float64)[: int(n)]
+    h = extent.cell_size(n_order)
+    out = np.zeros(len(cells), dtype=np.float64)
+    cell_area = h * h
+    for i, (cx, cy) in enumerate(np.asarray(cells, np.int64)):
+        box = (extent.x0 + cx * h, extent.y0 + cy * h,
+               extent.x0 + (cx + 1) * h, extent.y0 + (cy + 1) * h)
+        clipped = geometry.clip_polygon_to_box(v, box)
+        if len(clipped) >= 3:
+            out[i] = geometry.polygon_area(clipped) / cell_area
+    return np.clip(out, 0.0, 1.0)
+
+
 def coverage_fractions_multi(
     verts: np.ndarray, nverts: np.ndarray, poly_of_cell: np.ndarray,
     cells: np.ndarray, n_order: int, extent: Extent = GLOBAL_EXTENT,
+    backend: str = "numpy", device=None,
 ) -> np.ndarray:
     """Exact coverage fraction of each (cell, own-polygon) row, in [0, 1],
-    by one padded Sutherland–Hodgman pass.
+    by one padded Sutherland–Hodgman pass; row-identical to
+    :func:`coverage_fractions` over the same polygon.
 
     verts [P,V,2] padded, nverts [P]; poly_of_cell [K]; cells [K,2].
+    ``backend``: ``"numpy"`` (host) or ``"torch"`` (the clip pass on
+    ``device``).
     """
     cells = np.asarray(cells, np.int64)
     h = extent.cell_size(n_order)
@@ -234,7 +404,8 @@ def coverage_fractions_multi(
         extent.x0 + cells[:, 0] * h, extent.y0 + cells[:, 1] * h,
         extent.x0 + (cells[:, 0] + 1) * h, extent.y0 + (cells[:, 1] + 1) * h,
     ], axis=1)
-    areas = geometry.box_clip_areas_rows(verts, nverts, poly_of_cell, boxes)
+    areas = geometry.box_clip_areas_rows(verts, nverts, poly_of_cell, boxes,
+                                         backend=backend, device=device)
     return np.clip(areas / (h * h), 0.0, 1.0)
 
 
@@ -354,3 +525,63 @@ def scanline_full_cells_multi(
     off = np.zeros(P + 1, np.int64)
     off[1:] = np.cumsum(np.bincount(pid, minlength=P))
     return off, cells
+
+
+def classify_window_oracle(
+    verts: np.ndarray, n: int, n_order: int, extent: Extent = GLOBAL_EXTENT,
+) -> dict[str, np.ndarray]:
+    """Brute-force oracle: classify every MBR-window cell as partial/full.
+
+    partial := boundary crosses the cell (any edge intersects the cell box or
+    a polygon vertex lies inside it); full := not partial and center inside.
+    Returns {'partial': [Kp,2], 'full': [Kf,2]} int64 cell coords.
+    """
+    v = np.asarray(verts, np.float64)[: int(n)]
+    G = 1 << n_order
+    h = extent.cell_size(n_order)
+    mbr_lo = cells_of_points(v.min(axis=0)[None, :], n_order, extent)[0]
+    mbr_hi = cells_of_points(v.max(axis=0)[None, :], n_order, extent)[0]
+    xs = np.arange(mbr_lo[0], mbr_hi[0] + 1)
+    ys = np.arange(mbr_lo[1], mbr_hi[1] + 1)
+    CX, CY = np.meshgrid(xs, ys, indexing="ij")
+    cx, cy = CX.ravel(), CY.ravel()
+    # cell boxes
+    bx0 = extent.x0 + cx * h; by0 = extent.y0 + cy * h
+    bx1 = bx0 + h; by1 = by0 + h
+    # vertex-in-cell
+    vin = np.zeros(len(cx), dtype=bool)
+    for p in v:
+        vin |= (bx0 <= p[0]) & (p[0] < bx1) & (by0 <= p[1]) & (p[1] < by1)
+    # edge-box intersection: any of the 4 box sides intersects the edge, or
+    # edge endpoint inside box (covered by vin since endpoints are vertices).
+    a0 = v; a1 = np.roll(v, -1, axis=0)
+    partial = vin.copy()
+    corners = np.stack([
+        np.stack([bx0, by0], axis=1), np.stack([bx1, by0], axis=1),
+        np.stack([bx1, by1], axis=1), np.stack([bx0, by1], axis=1),
+    ], axis=1)  # [K,4,2]
+    sides = np.stack([
+        np.stack([corners[:, 0], corners[:, 1]], axis=1),
+        np.stack([corners[:, 1], corners[:, 2]], axis=1),
+        np.stack([corners[:, 2], corners[:, 3]], axis=1),
+        np.stack([corners[:, 3], corners[:, 0]], axis=1),
+    ], axis=1)  # [K,4,2,2]
+    for e in range(len(v)):
+        hit = geometry.segments_intersect(
+            a0[e][None, None, :], a1[e][None, None, :],
+            sides[:, :, 0, :], sides[:, :, 1, :])
+        partial |= hit.any(axis=1)
+    centers = cell_centers(cx, cy, n_order, extent)
+    inside = geometry.points_in_polygon(centers, v)
+    full = inside & ~partial
+    sel_p = np.stack([cx[partial], cy[partial]], axis=1).astype(np.int64)
+    sel_f = np.stack([cx[full], cy[full]], axis=1).astype(np.int64)
+    return {"partial": sel_p, "full": sel_f}
+
+
+def cells_to_hilbert(cells: np.ndarray, n_order: int) -> np.ndarray:
+    """Sorted unique Hilbert ids (uint64) of cell coords [K,2]."""
+    if len(cells) == 0:
+        return np.zeros((0,), dtype=np.uint64)
+    d = xy2d(n_order, cells[:, 0], cells[:, 1])
+    return np.unique(d)

@@ -14,7 +14,9 @@ code of the same class, so one store can take either side of a join.
 
 Host representation: per-dataset flat *bit* arrays (np.uint8 0/1) plus
 per-interval bit offsets (:class:`RIStore`). Construction labels the
-Partial cells Weak or Strong by exact coverage fractions.
+Partial cells Weak or Strong by exact coverage fractions: dataset-batched
+on the host (``numpy``), with the coverage clip on a device (``torch``),
+or polygon by polygon (``sequential``, the reference loop).
 
 The within filter (§3.4) runs on the host, as in the reference:
 :func:`ri_within_batch` batched, :func:`ri_within_verdict_pair` per pair.
@@ -40,8 +42,9 @@ from ..kernels.ri_and import (RIStoreTensors, pack_stream_words,
                               ri_trichotomy, ri_trichotomy_plain)
 from . import rasterize
 from .april import build_line_cells
+from .geometry import BUILD_STAGES, build_device
 from .hilbert import u32_to_biased_i32, xy2d
-from .intervalize import runs_from_sorted
+from .intervalize import intervals_from_ids, runs_from_sorted
 from .join import (INDECISIVE, TRUE_HIT, TRUE_NEG, _check_frame,
                    check_filter_backend)
 from .rasterize import Extent, GLOBAL_EXTENT
@@ -95,6 +98,56 @@ _CODE_LUT = {
 }
 
 
+def _classify_cells(verts, n, n_order, extent):
+    """Cell ids + classes for one polygon: DDA partials get Weak/Strong via
+    coverage fraction; interior cells are Full."""
+    partial = rasterize.dda_partial_cells(verts, n, n_order, extent)
+    full = rasterize.scanline_full_cells(verts, n, partial, n_order, extent)
+    p_ids = rasterize.cells_to_hilbert(partial, n_order)
+    f_ids = rasterize.cells_to_hilbert(full, n_order)
+    # coverage only for partial cells (full are 1.0 by construction)
+    # recover cell coords in id order for fraction computation
+    if len(partial):
+        order = np.argsort(xy2d(n_order, partial[:, 0], partial[:, 1]))
+        pcells = partial[order]
+        frac = rasterize.coverage_fractions(verts, n, pcells, n_order, extent)
+        p_cls = np.where(frac > 0.5, STRONG, WEAK).astype(np.int8)
+    else:
+        p_cls = np.zeros((0,), np.int8)
+    ids = np.concatenate([p_ids, f_ids])
+    cls = np.concatenate([p_cls, np.full(len(f_ids), FULL, np.int8)])
+    order = np.argsort(ids)
+    return ids[order], cls[order]
+
+
+def _pack_store(objects, n_order: int, extent: Extent, encoding: str) -> RIStore:
+    """Assemble an RIStore from per-object (sorted ids, classes) pairs."""
+    lut = _CODE_LUT[encoding]
+    off = [0]
+    bit_off_chunks = [np.zeros(1, np.int64)]
+    int_chunks = []; bit_chunks = []
+    base = 0
+    for ids, cls in objects:
+        ints = intervals_from_ids(ids)
+        int_chunks.append(ints)
+        off.append(off[-1] + len(ints))
+        # concatenated 3-bit codes in Hilbert order; per-interval offsets are
+        # the running 3x cell counts (cells tile the intervals consecutively)
+        lens = 3 * (ints[:, 1] - ints[:, 0]).astype(np.int64)
+        bit_off_chunks.append(base + np.cumsum(lens))
+        base += int(lens.sum())
+        bit_chunks.append(lut[cls].reshape(-1))
+    ints = (np.concatenate(int_chunks, axis=0)
+            if int_chunks else np.zeros((0, 2), np.uint64))
+    bits = (np.concatenate(bit_chunks) if bit_chunks
+            else np.zeros((0,), np.uint8))
+    return RIStore(
+        n_order=n_order, extent=extent, encoding=encoding,
+        off=np.asarray(off, np.int64), ints=ints,
+        bit_off=np.concatenate(bit_off_chunks), bits=bits,
+    )
+
+
 def _sort_ids_by_poly(pid, ids, cls, n_order, P):
     """Sort flat (polygon, id) cell rows into per-polygon Hilbert order;
     returns (off [P+1], ids, cls)."""
@@ -105,27 +158,34 @@ def _sort_ids_by_poly(pid, ids, cls, n_order, P):
     return off, ids[order], cls[order]
 
 
-def _classify_cells_multi(verts, nverts, n_order, extent):
+def _classify_cells_multi(verts, nverts, n_order, extent, backend="numpy",
+                          device=None):
     """Every polygon's cells with their classes: one multi-polygon DDA for
     the Partial cells, one scanline pass for the Full cells and one padded
     coverage pass that labels each Partial cell Strong (> 50 %) or Weak.
     Returns (off [P+1], ids, cls), flat and per-polygon Hilbert-sorted."""
     P = len(nverts)
-    p_off, p_cells = rasterize.dda_partial_cells_multi(
-        verts, nverts, n_order, extent)
-    f_off, f_cells = rasterize.scanline_full_cells_multi(
-        verts, nverts, p_off, p_cells, n_order, extent)
+    stage = BUILD_STAGES.stage
+    with stage("dda"):
+        p_off, p_cells = rasterize.dda_partial_cells_multi(
+            verts, nverts, n_order, extent)
+    with stage("scanline"):
+        f_off, f_cells = rasterize.scanline_full_cells_multi(
+            verts, nverts, p_off, p_cells, n_order, extent)
     pid_p = np.repeat(np.arange(P), np.diff(p_off))
     pid_f = np.repeat(np.arange(P), np.diff(f_off))
-    frac = rasterize.coverage_fractions_multi(
-        verts, nverts, pid_p, p_cells, n_order, extent)
-    p_cls = np.where(frac > 0.5, STRONG, WEAK).astype(np.int8)
-    ids = np.concatenate([
-        xy2d(n_order, p_cells[:, 0], p_cells[:, 1]),
-        xy2d(n_order, f_cells[:, 0], f_cells[:, 1])])
-    cls = np.concatenate([p_cls, np.full(len(pid_f), FULL, np.int8)])
-    pid = np.concatenate([pid_p, pid_f])
-    return _sort_ids_by_poly(pid, ids, cls, n_order, P)
+    with stage("clip"):
+        frac = rasterize.coverage_fractions_multi(
+            verts, nverts, pid_p, p_cells, n_order, extent, backend=backend,
+            device=device)
+    with stage("pack"):
+        p_cls = np.where(frac > 0.5, STRONG, WEAK).astype(np.int8)
+        ids = np.concatenate([
+            xy2d(n_order, p_cells[:, 0], p_cells[:, 1]),
+            xy2d(n_order, f_cells[:, 0], f_cells[:, 1])])
+        cls = np.concatenate([p_cls, np.full(len(pid_f), FULL, np.int8)])
+        pid = np.concatenate([pid_p, pid_f])
+        return _sort_ids_by_poly(pid, ids, cls, n_order, P)
 
 
 def _pack_store_flat(off, ids, cls, n_order, extent, encoding) -> RIStore:
@@ -147,28 +207,43 @@ def _pack_store_flat(off, ids, cls, n_order, extent, encoding) -> RIStore:
 
 
 def build_ri(dataset, n_order: int, extent: Extent = GLOBAL_EXTENT,
-             encoding: str = "R", backend: str = "numpy") -> RIStore:
-    """Build the RI store with the batched dataset-level construction
-    (``backend="numpy"``, the only one ported)."""
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"RI build_backend={backend!r} is not ported yet (only the "
-            "batched numpy build): ROADMAP A7 (device construction)")
+             encoding: str = "R", backend: str = "numpy",
+             device=None) -> RIStore:
+    """Build the RI store. ``backend``: ``numpy`` and ``torch`` run the
+    batched dataset-level construction (``torch`` clips the Partial cells
+    for their coverage fractions on ``device``); ``sequential`` is the
+    per-polygon reference the batched builds are store-identical to."""
+    dev = build_device(backend, device)
+    if backend == "sequential":
+        return _pack_store(
+            (_classify_cells(dataset.verts[i], int(dataset.nverts[i]),
+                             n_order, extent)
+             for i in range(len(dataset))),
+            n_order, extent, encoding)
     off, ids, cls = _classify_cells_multi(dataset.verts, dataset.nverts,
-                                          n_order, extent)
-    return _pack_store_flat(off, ids, cls, n_order, extent, encoding)
+                                          n_order, extent, backend=backend,
+                                          device=dev)
+    with BUILD_STAGES.stage("pack"):
+        return _pack_store_flat(off, ids, cls, n_order, extent, encoding)
 
 
 def build_ri_lines(dataset, n_order: int, extent: Extent = GLOBAL_EXTENT,
-                   encoding: str = "R", backend: str = "numpy") -> RIStore:
+                   encoding: str = "R", backend: str = "numpy",
+                   device=None) -> RIStore:
     """RI store for open linestrings: every cell a chain crosses is Weak (a
     line has no interior, so its own side never certifies a hit, but Weak
-    against a Full polygon cell still ANDs non-zero, §3.3). The batched
-    numpy construction (``backend="numpy"``) only."""
-    if backend != "numpy":
-        raise NotImplementedError(
-            f"RI build_backend={backend!r} is not ported yet (only the "
-            "batched numpy build): ROADMAP A7 (device construction)")
+    against a Full polygon cell still ANDs non-zero, §3.3). ``numpy`` and
+    ``torch`` (no device pass: a chain has no coverage to clip) run the
+    batched traversal; ``sequential`` traverses and packs chain by
+    chain."""
+    build_device(backend, device)
+    if backend == "sequential":
+        lines = build_line_cells(dataset, n_order, extent,
+                                 backend="sequential")
+        return _pack_store(
+            ((lines.cell_ids(i), np.full(len(lines.cell_ids(i)), WEAK,
+                                         np.int8))
+             for i in range(len(lines))), n_order, extent, encoding)
     lines = build_line_cells(dataset, n_order, extent)
     return _pack_store_flat(lines.off, lines.ids,
                             np.full(len(lines.ids), WEAK, np.int8), n_order,

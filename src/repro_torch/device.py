@@ -9,11 +9,13 @@ whatever device they are given.
 from __future__ import annotations
 
 import contextlib
+import time
 
 import numpy as np
 import torch
 
-__all__ = ["resolve_device", "check_backend_device", "upload", "InputLog"]
+__all__ = ["resolve_device", "check_backend_device", "upload", "InputLog",
+           "StageClock"]
 
 
 def resolve_device(device=None) -> torch.device:
@@ -66,3 +68,34 @@ class InputLog:
             yield self._items
         finally:
             self._items = prev
+
+
+class StageClock:
+    """Where a module adds up the host seconds of its named stages, so that
+    a caller can see where a build's time goes. ``stage`` does nothing
+    unless a ``record()`` block is open; inside one, each ``stage(name)``
+    block adds its wall seconds to ``name`` in the dict the block yields.
+    A device pass that reads its result back is timed to its end."""
+
+    def __init__(self) -> None:
+        self._secs: dict | None = None
+
+    @contextlib.contextmanager
+    def stage(self, name: str):
+        secs = self._secs
+        if secs is None:
+            yield
+            return
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+
+    @contextlib.contextmanager
+    def record(self):
+        prev, self._secs = self._secs, {}
+        try:
+            yield self._secs
+        finally:
+            self._secs = prev

@@ -1,6 +1,7 @@
 from .filters import (  # noqa: F401
-    Approximation, FILTER_BACKENDS, IntermediateFilter, available_filters,
-    get_filter, register_filter,
+    Approximation, BACKENDS, BUILD_BACKENDS, FILTER_BACKENDS,
+    IntermediateFilter, available_filters, get_filter, register_filter,
+    unregister_filter,
 )
 from .fused import PIPELINE_MODES  # noqa: F401
 from .mbr_join import MBR_BACKENDS, mbr_join  # noqa: F401

@@ -2,8 +2,9 @@
 port's filters (``none``, ``april``, ``april-c``, ``ri``, ``ra``,
 ``5cch``) in its own registry."""
 from .base import (  # noqa: F401
-    FILTER_BACKENDS, PREDICATES, Approximation, IntermediateFilter,
-    available_filters, get_filter, register_filter,
+    BACKENDS, BUILD_BACKENDS, FILTER_BACKENDS, PREDICATES, Approximation,
+    IntermediateFilter, available_filters, get_filter, register_filter,
+    unregister_filter,
 )
 from .april_filter import AprilCompressedFilter, AprilFilter  # noqa: F401
 from .fivecch_filter import FiveCCHFilter  # noqa: F401

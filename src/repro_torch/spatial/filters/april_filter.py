@@ -41,17 +41,18 @@ class AprilFilter(IntermediateFilter):
     def build(self, dataset, *, n_order: int = 10,
               extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
               side: str = "r", method: str = "batched",
-              build_backend: str = "numpy", **opts) -> Approximation:
+              build_backend: str = "numpy", device=None,
+              **opts) -> Approximation:
         self._check_kind(kind)
         self._check_build_backend(build_backend)
-        if method != "batched":
-            raise NotImplementedError(
-                f"APRIL construction method={method!r} is not ported yet "
-                "(only the batched build): ROADMAP A7 (device construction)")
         if opts:
             raise TypeError(f"unexpected build options {sorted(opts)}")
-        store = (build_line_cells(dataset, n_order, extent) if kind == "line"
-                 else build_april(dataset, n_order, extent))
+        if kind == "line":
+            store = build_line_cells(dataset, n_order, extent,
+                                     backend=build_backend, device=device)
+        else:
+            store = build_april(dataset, n_order, extent, method,
+                                backend=build_backend, device=device)
         return Approximation(filter=self.name, store=store, n_order=n_order,
                              extent=extent, kind=kind,
                              meta={"build_opts": {"method": method}})
@@ -157,10 +158,12 @@ class AprilCompressedFilter(AprilFilter):
     def build(self, dataset, *, n_order: int = 10,
               extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
               side: str = "r", method: str = "batched",
-              build_backend: str = "numpy", **opts) -> Approximation:
+              build_backend: str = "numpy", device=None,
+              **opts) -> Approximation:
         approx = super().build(dataset, n_order=n_order, extent=extent,
                                kind=kind, side=side, method=method,
-                               build_backend=build_backend, **opts)
+                               build_backend=build_backend, device=device,
+                               **opts)
         # a line side has no interval lists to compress: it keeps the
         # uncompressed cell-id store
         if kind != "line":

@@ -19,15 +19,18 @@ from dataclasses import dataclass, field
 import numpy as np
 import torch
 
+from ...core.geometry import BUILD_BACKENDS, check_build_backend
 from ...core.join import FILTER_BACKENDS, INDECISIVE, check_filter_backend
 from ...core.rasterize import Extent, GLOBAL_EXTENT
 from ...device import resolve_device, upload
 
-__all__ = ["PREDICATES", "KINDS", "FILTER_BACKENDS", "Approximation",
-           "IntermediateFilter", "register_filter", "get_filter",
+__all__ = ["PREDICATES", "KINDS", "BACKENDS", "FILTER_BACKENDS",
+           "BUILD_BACKENDS", "Approximation", "IntermediateFilter",
+           "register_filter", "unregister_filter", "get_filter",
            "available_filters", "check_predicate"]
 
 PREDICATES = ("intersects", "within", "linestring", "selection")
+BACKENDS = FILTER_BACKENDS   # historical alias
 #: what a dataset side holds: closed rings, or open chains (linestrings)
 KINDS = ("polygon", "line")
 
@@ -69,7 +72,11 @@ class IntermediateFilter(abc.ABC):
     def build(self, dataset, *, n_order: int = 10,
               extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
               side: str = "r", **opts) -> Approximation:
-        """Build the approximation store for ``dataset``."""
+        """Build the approximation store for ``dataset``. Every built-in
+        filter but ``none`` takes ``build_backend`` (one of
+        ``BUILD_BACKENDS``: the batched ``numpy`` build, its device passes
+        with ``torch`` on ``device``, or the ``sequential`` per-object
+        reference) and ``device`` (``None`` -> ``"cuda"``)."""
 
     @abc.abstractmethod
     def verdicts(self, approx_r: Approximation, approx_s: Approximation,
@@ -95,14 +102,7 @@ class IntermediateFilter(abc.ABC):
     # -- helpers ------------------------------------------------------------
     @staticmethod
     def _check_build_backend(build_backend: str) -> None:
-        """Only the batched numpy construction is ported."""
-        if build_backend in ("jnp", "sequential"):
-            raise NotImplementedError(
-                f"build_backend={build_backend!r} is not ported yet (only "
-                "the batched numpy build): ROADMAP A7 (device construction)")
-        if build_backend != "numpy":
-            raise ValueError(f"unknown build_backend {build_backend!r}; "
-                             "expected 'numpy'")
+        check_build_backend(build_backend)
 
     @staticmethod
     def _check_kind(kind: str) -> None:
@@ -161,13 +161,18 @@ class IntermediateFilter(abc.ABC):
 _REGISTRY: dict[str, type[IntermediateFilter]] = {}
 
 
-def register_filter(name: str):
-    """Class decorator registering a filter under ``name``."""
+def register_filter(name: str, cls: type[IntermediateFilter] | None = None):
+    """Register a filter class under ``name``: ``register_filter(name,
+    cls)``, or as a class decorator ``@register_filter(name)``."""
     def _do(c):
         c.name = name
         _REGISTRY[name] = c
         return c
-    return _do
+    return _do(cls) if cls is not None else _do
+
+
+def unregister_filter(name: str) -> None:
+    _REGISTRY.pop(name, None)
 
 
 def get_filter(name: str | IntermediateFilter) -> IntermediateFilter:

@@ -23,8 +23,8 @@ class FiveCCHFilter(IntermediateFilter):
 
     def build(self, dataset, *, n_order: int = 10,
               extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
-              side: str = "r", build_backend: str = "numpy", **opts
-              ) -> Approximation:
+              side: str = "r", build_backend: str = "numpy", device=None,
+              **opts) -> Approximation:
         self._check_build_backend(build_backend)
         self._check_kind(kind)
         if opts:
@@ -32,7 +32,8 @@ class FiveCCHFilter(IntermediateFilter):
         # n_order is unused: 5C+CH is raster-free
         build = (fivec_ch.build_5cch_lines if kind == "line"
                  else fivec_ch.build_5cch)
-        return Approximation(filter=self.name, store=build(dataset),
+        store = build(dataset, backend=build_backend, device=device)
+        return Approximation(filter=self.name, store=store,
                              n_order=None, extent=extent, kind=kind)
 
     def verdicts(self, approx_r, approx_s, pairs, *,

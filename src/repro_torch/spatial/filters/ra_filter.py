@@ -24,15 +24,17 @@ class RAFilter(IntermediateFilter):
     def build(self, dataset, *, n_order: int = 10,
               extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
               side: str = "r", max_cells: int = 750,
-              build_backend: str = "numpy", **opts) -> Approximation:
+              build_backend: str = "numpy", device=None,
+              **opts) -> Approximation:
         self._check_build_backend(build_backend)
         self._check_kind(kind)
         if opts:
             raise TypeError(f"unexpected build options {sorted(opts)}")
         # n_order is unused: RA grids are per object, sized by max_cells
         build = ra.build_ra_lines if kind == "line" else ra.build_ra
-        return Approximation(filter=self.name,
-                             store=build(dataset, max_cells=max_cells),
+        store = build(dataset, max_cells=max_cells, backend=build_backend,
+                      device=device)
+        return Approximation(filter=self.name, store=store,
                              n_order=None, extent=extent, kind=kind,
                              meta={"build_opts": {"max_cells": max_cells}})
 

@@ -33,14 +33,16 @@ class RIFilter(IntermediateFilter):
     def build(self, dataset, *, n_order: int = 10,
               extent: Extent = GLOBAL_EXTENT, kind: str = "polygon",
               side: str = "r", encoding: str | None = None,
-              build_backend: str = "numpy", **opts) -> Approximation:
+              build_backend: str = "numpy", device=None,
+              **opts) -> Approximation:
         self._check_build_backend(build_backend)
         self._check_kind(kind)
         if opts:
             raise TypeError(f"unexpected build options {sorted(opts)}")
         enc = encoding or ("R" if side == "r" else "S")
         build = ri.build_ri_lines if kind == "line" else ri.build_ri
-        store = build(dataset, n_order, extent, enc)
+        store = build(dataset, n_order, extent, enc, backend=build_backend,
+                      device=device)
         return Approximation(filter=self.name, store=store, n_order=n_order,
                              extent=extent, kind=kind,
                              meta={"build_opts": {"encoding": enc}})

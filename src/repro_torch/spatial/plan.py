@@ -24,6 +24,7 @@ execution, never results.
 from __future__ import annotations
 
 import time
+import warnings
 from dataclasses import dataclass, field, fields
 
 import numpy as np
@@ -85,6 +86,19 @@ class JoinStats:
         return (self.n_true_hits / n, self.n_true_negs / n,
                 self.n_indecisive / n)
 
+    def row(self) -> str:
+        """One printable line: verdict shares, stage times and backends."""
+        h, g, i = self.rates()
+        sync = (f"sync={self.t_sync:.3f}s "
+                if self.pipeline_mode == "fused" else "")
+        if self.tiles:
+            sync += f"tiles={self.tiles} part={self.t_partition:.3f}s "
+        return (f"{self.method:8s} hits={h:6.2%} negs={g:6.2%} indec={i:6.2%} "
+                f"mbr={self.t_mbr:.3f}s[{self.mbr_backend}] "
+                f"filter={self.t_filter:.3f}s[{self.filter_backend}] "
+                f"refine={self.t_refine:.3f}s[{self.refine_backend}] "
+                f"{sync}total={self.t_total:.3f}s results={self.n_results}")
+
     def to_dict(self) -> dict:
         """JSON-safe dict of every field plus ``t_total``."""
         out = {}
@@ -112,14 +126,18 @@ class JoinPlan:
     ``mbr_backend`` is ``"numpy" | "torch" | "sequential"``
     (``"torch"`` tests the candidate rows on the device, the reference's
     ``"jnp"``); ``pipeline_mode`` is ``"staged" | "fused"``;
-    ``build_opts`` go to ``filter.build`` and ``filter_opts`` (e.g.
-    ``order``) to every ``filter.verdicts`` call. Knobs of the reference
-    that this port does not cover yet raise ``NotImplementedError`` naming
-    their ROADMAP item.
+    ``build_opts`` go to ``filter.build`` (e.g. ``build_backend``:
+    ``"numpy" | "torch" | "sequential"``, where ``"torch"`` runs the
+    build's device passes on the plan's ``device``; ``max_cells`` for RA;
+    ``method`` for APRIL) and ``filter_opts`` (e.g. ``order``) to every
+    ``filter.verdicts`` call. ``backend`` is the deprecated alias of
+    ``filter_backend``. Knobs of the reference that this port does not
+    cover yet raise ``NotImplementedError`` naming their ROADMAP item.
     """
 
     def __init__(self, R, S, *, filter: str | IntermediateFilter = "april",
                  filter_backend: str | None = None,
+                 backend: str | None = None,
                  refine_backend: str | None = None,
                  mbr_backend: str = "numpy", n_order: int = 10,
                  extent: Extent = GLOBAL_EXTENT, r_kind: str = "polygon",
@@ -128,6 +146,16 @@ class JoinPlan:
                  plan_mode: str = "static",
                  build_opts: dict | None = None,
                  filter_opts: dict | None = None, device=None):
+        if (filter_backend is not None and backend is not None
+                and filter_backend != backend):
+            raise ValueError("pass filter_backend or its alias backend, "
+                             f"not both ({filter_backend!r} vs {backend!r})")
+        if backend is not None:
+            warnings.warn(
+                "JoinPlan(backend=...) is a deprecated alias; "
+                "pass filter_backend=... instead (alias removed after "
+                "2026-12-01)",
+                DeprecationWarning, stacklevel=2)
         check_pipeline_mode(pipeline_mode)
         if plan_mode == "adaptive":
             raise NotImplementedError(
@@ -144,7 +172,7 @@ class JoinPlan:
                              "'polygon'")
         self.device = resolve_device(device)
         default = "cuda" if self.device.type == "cuda" else "torch"
-        filter_backend = filter_backend or default
+        filter_backend = filter_backend or backend or default
         refine_backend = refine_backend or default
         check_filter_backend(filter_backend)
         refine.check_refine_backend(refine_backend)
@@ -155,6 +183,7 @@ class JoinPlan:
         self.S = S
         self.filter = get_filter(filter)
         self.filter_backend = filter_backend
+        self.backend = filter_backend      # historical alias
         self.refine_backend = refine_backend
         self.mbr_backend = mbr_backend
         self.n_order = n_order
@@ -171,22 +200,39 @@ class JoinPlan:
         self._t_build = 0.0
         self.last_stats: JoinStats | None = None
 
+    def _wrap(self, store, kind: str) -> Approximation:
+        """An adopted side: an Approximation as it is, a raw store wrapped
+        with this plan's filter, order, extent and ``kind``."""
+        if isinstance(store, Approximation):
+            return store
+        return Approximation(filter=self.filter.name, store=store,
+                             n_order=self.n_order, extent=self.extent,
+                             kind=kind)
+
     def build(self, prebuilt: tuple | None = None) -> "JoinPlan":
         """Build (or adopt) both approximations; idempotent. ``prebuilt``
-        may supply an (approx_r, approx_s) tuple, ``None`` entries meaning
-        "build this side"."""
+        may supply an (approx_r, approx_s) tuple (raw stores are wrapped),
+        ``None`` entries meaning "build this side". The ``torch`` build
+        runs on the plan's device unless ``build_opts`` name another."""
         pre_r = pre_s = None
         if prebuilt is not None:
             pre_r, pre_s = prebuilt
+        opts = dict(self.build_opts)
+        if opts.get("build_backend") == "torch":
+            opts.setdefault("device", self.device)
         t0 = time.perf_counter()
         if self.approx_r is None:
-            self.approx_r = pre_r if pre_r is not None else self.filter.build(
-                self.R, n_order=self.n_order, extent=self.extent,
-                kind=self.r_kind, side="r", **self.build_opts)
+            self.approx_r = (self._wrap(pre_r, self.r_kind)
+                             if pre_r is not None else self.filter.build(
+                                 self.R, n_order=self.n_order,
+                                 extent=self.extent, kind=self.r_kind,
+                                 side="r", **opts))
         if self.approx_s is None:
-            self.approx_s = pre_s if pre_s is not None else self.filter.build(
-                self.S, n_order=self.n_order, extent=self.extent,
-                kind=self.s_kind, side="s", **self.build_opts)
+            self.approx_s = (self._wrap(pre_s, self.s_kind)
+                             if pre_s is not None else self.filter.build(
+                                 self.S, n_order=self.n_order,
+                                 extent=self.extent, kind=self.s_kind,
+                                 side="s", **opts))
         self._t_build += time.perf_counter() - t0
         return self
 

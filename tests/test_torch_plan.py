@@ -150,8 +150,23 @@ def test_uncovered_knobs_raise(datasets, kw, match):
     """Knobs still to port raise, naming their ROADMAP item. The line
     knobs (``r_kind="line"``, ROADMAP A1-A3) are ported: those cases run
     the linestring join of T1's rings as open chains against T2 and
-    return the reference's pairs, order and counts."""
+    return the reference's pairs, order and counts. The sequential RI
+    build (ROADMAP A7) is ported: its stores equal the reference's, bit
+    for bit, and so do the join's pairs."""
     R0, S0, R, S = datasets
+    if "build_opts" in kw:
+        ref = RJoinPlan(R0, S0, n_order=7, **kw).build()
+        plan = JoinPlan(R, S, device="cpu", n_order=7, **kw).build()
+        for got, want in ((plan.approx_r, ref.approx_r),
+                          (plan.approx_s, ref.approx_s)):
+            for k in ("off", "ints", "bit_off", "bits"):
+                a, b = getattr(got.store, k), getattr(want.store, k)
+                assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+        want, _ = ref.execute("intersects")
+        got, _ = plan.execute("intersects")
+        assert len(want) > 0
+        np.testing.assert_array_equal(got, want)
+        return
     if kw.get("r_kind") == "line":
         want, wst = RJoinPlan(R0, S0, n_order=7, **kw).build().execute(
             "linestring")

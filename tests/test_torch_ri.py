@@ -319,8 +319,14 @@ def test_build_ri_device_store(t1t2):
                                   r_pack_bits_u32(store.bits,
                                                   x.words.numel()))
     assert x.words[-1] == 0 and x.words.numel() == len(store.bits) // 32 + 2
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        ri.build_ri(R, 8, backend="sequential")
+    # the sequential build (ROADMAP A7, ported) equals the reference's
+    R0 = t1t2[0]
+    seq = ri.build_ri(R, 8, backend="sequential")
+    want = rri.build_ri(R0, 8, backend="sequential")
+    for k in ("off", "ints", "bit_off", "bits"):
+        a, b = getattr(seq, k), getattr(want, k)
+        assert a.dtype == b.dtype and a.tobytes() == b.tobytes(), k
+        np.testing.assert_array_equal(a, getattr(store, k))
     # ends as biased int32 inclusive lasts, APRIL's device layout
     np.testing.assert_array_equal(
         x.starts.numpy().view(np.uint32) ^ np.uint32(1 << 31),
