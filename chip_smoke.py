@@ -175,6 +175,31 @@ reference package. Phases, any failure exits non-zero:
    identical to the numpy build of the same prefix.
    No kernel runs in the builds: they hold nothing against a plain
    version;
+13. (run after phase 12, before phase 9) the online join service
+   (``JoinService``) with water bodies T2 (phase 4's S) registered at the
+   main path's order and queries drawn from the landmarks T1 (phase 4's
+   R) by ``launch.serve_join.make_trace`` (the reference's predicate mix:
+   selection, window, intersects, within), drained every 16 requests
+   (``SERVICE_GROUP``), with an insert and a delete every 25
+   (``SERVICE_MUTATE``). APRIL staged (``cuda`` backends, its first drain
+   profiled) and fused services take the same 512 requests; every ticket
+   must equal a one-request run (filter ``none``, numpy backends) over the
+   dataset as it stood at its drain, and the fused tickets the staged
+   ones, pairs and order. RI staged and fused services (seeded with
+   copies of phase 5's T2 store) take the first 128. Then the patched
+   stores must equal fresh torch builds over the mutated dataset, every
+   array in dtype, shape and bytes, and so must the device copies the
+   last drain used (the interval lists and their row keys, RI's device
+   store), and the MBR index a fresh index. An adaptive service
+   (``plan_mode="adaptive"``, replanning after 4 mutations) takes the
+   first 192 requests and must replan on drift, with the static pair
+   sets; a checkpoint of the staged service restores into a new one,
+   which must answer 64 requests alike; under a budget of one store,
+   warming a second dataset's store must evict and lower
+   ``torch.cuda.memory_allocated``; ``run_serve`` drives 2000 requests
+   through the background worker (figures, not gates). Launch counts are
+   reset before and read after each trace, and every recorded B1, B4, B2,
+   B3 and B5 input is replayed against its plain version, exactly;
 9. (in a child process of this script, after phases 10, 11 and 12: late in
    a long process the card machine's profiler records no device events) the
    APRIL block-sparse attention kernels (``april_attention``, the LM
@@ -271,9 +296,24 @@ WITHIN_HOST_SCALE = 3 * HOST_SCALE
 #: phase 12's prefix (T1 polygons, T8 chains) for the sequential builds and
 #: APRIL's per-polygon methods, which are Python loops; APRIL's
 #: ``neighbors`` (a neighbour walk a gap, about 0.2 s a T1 polygon at
-#: order 12 on the card machine's host) runs on the first of them only
-CONSTRUCTION_PREFIX = (60, 400)
-NEIGHBORS_PREFIX = 20
+#: order 12 on the card machine's host) runs on the first of them only.
+#: Cut from (60, 400) and 20 to make room for phase 13
+CONSTRUCTION_PREFIX = (30, 200)
+NEIGHBORS_PREFIX = 10
+#: phase 13, the join service: requests of the APRIL trace (staged and
+#: fused services), of the RI trace, of the adaptive trace (a prefix of
+#: the APRIL trace) and of the checkpoint round trip; requests a drain
+#: takes; an insert and a delete every SERVICE_MUTATE requests; the
+#: requests run_serve drives through the background worker
+SERVICE_REQUESTS = 512
+SERVICE_RI_REQUESTS = 128
+SERVICE_ADAPTIVE_REQUESTS = 192
+SERVICE_CKPT_REQUESTS = 64
+SERVICE_GROUP = 16
+SERVICE_MUTATE = 25
+SERVICE_REPLAN_AFTER = 4
+SERVE_REQUESTS = 2000
+SERVICE_SEED = 29
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 #: logit std of each head of the full-width draws (q is drawn at these
@@ -1434,6 +1474,376 @@ def _construction_phase(args, dev, R, S, plan, ri_r, ri_s, want_default,
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
 
+def _copied(approx):
+    """A copy of a built store's approximation, synced to the start of a
+    service's mutation log: each service patches its own stores."""
+    import copy
+    from repro_torch.spatial.filters import Approximation
+    return Approximation(filter=approx.filter,
+                         store=copy.deepcopy(approx.store),
+                         n_order=approx.n_order, extent=approx.extent,
+                         kind=approx.kind,
+                         meta={"build_opts": dict(approx.meta["build_opts"]),
+                               "mutation_seq": 0})
+
+
+def _drive_service(svc, did, trace, Q, mutate_seed, first=None):
+    """The trace through ``svc``, drained every ``SERVICE_GROUP`` requests,
+    with an insert (a polygon of ``Q``) and a delete every
+    ``SERVICE_MUTATE`` requests. Returns (tickets, the dataset each
+    ticket's drain ran on). ``first`` runs the first drain in its place
+    (the profiled drain)."""
+    rng = np.random.default_rng(mutate_seed)
+    tickets, drained_on, pending = [], [], 0
+    for i, (pred, payload) in enumerate(trace):
+        tickets.append(svc.submit(did, pred, payload))
+        pending += 1
+        if (i + 1) % SERVICE_MUTATE == 0:
+            qi = int(rng.integers(len(Q)))
+            svc.insert(did, Q.verts[qi, : Q.nverts[qi]])
+            svc.delete(did, int(rng.integers(len(svc.dataset(did)))))
+        if pending == SERVICE_GROUP or i == len(trace) - 1:
+            drained_on += [svc.dataset(did)] * pending
+            if first is not None and len(drained_on) == pending:
+                first(svc.drain)
+            else:
+                svc.drain()
+            pending = 0
+    return [t.wait(0) for t in tickets], drained_on
+
+
+def _per_request(trace, drained_on, dev) -> list:
+    """Each request alone: a one-request ``JoinPlan`` (filter ``none``,
+    numpy backends: every candidate refined on the host) over the dataset
+    as it stood at the request's drain; its pair set."""
+    from repro_torch import JoinPlan, PolygonDataset
+    out = []
+    for (pred, payload), D in zip(trace, drained_on):
+        if pred == "window":
+            x0, y0, x1, y1 = payload
+            payload = np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]])
+            pred = "selection"
+        q = np.asarray(payload, np.float64)
+        one = PolygonDataset("one", q[None], np.array([len(q)]))
+        res, _ = JoinPlan(D, one, filter="none", filter_backend="numpy",
+                          refine_backend="numpy", device=dev).execute(pred)
+        out.append(_pair_set(res))
+    return out
+
+
+def _service_phase(args, dev, R, S, plan, ri_s, wrappers) -> dict:
+    """Phase 13: the online join service on the card. Returns, by kernel,
+    the keys its row of the ``kernels`` line gains: the launches of each
+    service trace."""
+    import torch
+    from repro_torch.core.join import IntervalLists
+    from repro_torch.core import join as join_mod
+    from repro_torch.core import ri as ri_mod
+    from repro_torch.core.ri import RIDeviceStore
+    from repro_torch.launch.serve_join import make_trace, run_serve
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.spatial import JoinService, MBRIndex, fused, get_filter
+    from repro_torch.spatial import refine as refine_mod
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"phase 13 card: {smi}", flush=True)
+    did = "water"
+    trace = make_trace(np.random.default_rng(SERVICE_SEED), R,
+                       SERVICE_REQUESTS)
+    counter = {"april_trichotomy": "april_trichotomy",
+               "interval_overlap": "interval_overlap",
+               "edges_intersect": "edges_intersect_csr",
+               "exclusive_scan": "compact_mask",
+               "ri_trichotomy": "ri_trichotomy"}
+    launches, tickets, extra = {}, {}, {}
+
+    def service(method, **opts):
+        svc = JoinService(method=method, n_order=args.n_order, device=dev,
+                          **opts)
+        svc.register_dataset(did, S)
+        return svc
+
+    def run(label, svc, trace_, need, first=None):
+        """One service trace: counts reset before and read after, every
+        kernel input recorded and replayed, every ticket held to its
+        one-request run (or, fused, to the staged tickets)."""
+        _reset(wrappers)
+        t0 = time.perf_counter()
+        with refine_mod.record_sweeps() as sweeps, \
+                fused.record_chains() as chains, \
+                join_mod.record_joins() as joins, \
+                ri_mod.record_frames() as frames:
+            got, drained_on = _drive_service(svc, did, trace_, R,
+                                             SERVICE_SEED, first)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        for name in need:
+            if launches[label][name] <= 0:
+                raise AssertionError(f"[{label}] {name} never launched")
+        lat = svc.latency_stats()
+        # a group's tickets share its stats: t_build is the group's
+        # query-side build (the data side is the warm store)
+        groups = {id(t.stats): t.stats for t in got}.values()
+        t_build = sum(st["t_build"] for st in groups)
+        print(f"[{label}] {len(got)} requests in {wall:.2f} s "
+              f"({len(got) / wall:.1f} queries/s), p50 "
+              f"{lat['p50_s'] * 1e3:.2f} ms, p99 {lat['p99_s'] * 1e3:.2f} "
+              f"ms; query-side builds {t_build:.2f} s; stage seconds "
+              f"{json.dumps(lat['stage_times'])}; "
+              f"service {json.dumps(svc.stats)}; cache "
+              f"{json.dumps(svc.cache.stats)}; launches "
+              f"{json.dumps(launches[label])} (card {smi})", flush=True)
+        print(f"[{label}] {_replayed(label, joins, sweeps, chains, frames)}",
+              flush=True)
+        del joins, sweeps, chains, frames
+        tickets[label] = got
+        return got, drained_on
+
+    def same_as(label, got, want, exact):
+        for i, (a, b) in enumerate(zip(got, want, strict=True)):
+            if exact and not np.array_equal(a.pairs, b.pairs):
+                raise AssertionError(f"[{label}] ticket {i}: pairs or their "
+                                     "order differ from the staged ticket")
+            if not exact and _pair_set(a.pairs) != b:
+                raise AssertionError(f"[{label}] ticket {i} != its "
+                                     "one-request run")
+
+    # 1. APRIL micro-batched: staged (the first drain profiled) and fused,
+    # each against the one-request runs and the fused against the staged
+    busy = {}
+
+    def profiled(drain):
+        prof = _profile(drain)
+        busy["drain"] = (
+            f"{prof['device_busy_us'] / 1e3:.2f} ms of "
+            f"{prof['wall_us'] / 1e3:.2f} ms "
+            f"({100 * prof['device_busy_share']:.2f} %); top "
+            f"{json.dumps(prof['top_device_us'])}"
+            if prof["device_busy_us"] > 0 else
+            "not measured: the trace holds no device event")
+
+    staged = service("april", filter_backend="cuda", refine_backend="cuda")
+    staged.cache.put((did, "april", args.n_order), _copied(plan.approx_s))
+    got, drained_on = run("service-april-staged", staged, trace,
+                          ("april_trichotomy", "interval_overlap",
+                           "edges_intersect_csr"), first=profiled)
+    print(f"profile [service, one staged drain of {SERVICE_GROUP} "
+          f"requests] (card {smi}): device busy {busy['drain']}",
+          flush=True)
+    t0 = time.perf_counter()
+    want = _per_request(trace, drained_on, dev)
+    same_as("service-april-staged", got, want, exact=False)
+    n_pairs = sum(len(t.pairs) for t in got)
+    print(f"[service-april-staged] every ticket == its one-request run "
+          f"over the dataset at its drain ({len(want)} runs, "
+          f"{time.perf_counter() - t0:.1f} s; {n_pairs} pairs; card {smi})",
+          flush=True)
+    fused_svc = service("april", pipeline_mode="fused")
+    fused_svc.cache.put((did, "april", args.n_order), _copied(plan.approx_s))
+    got_f, _ = run("service-april-fused", fused_svc, trace,
+                   ("april_trichotomy", "interval_overlap", "compact_mask"))
+    same_as("service-april-fused", got_f, got, exact=True)
+    print("[service-april-fused] every ticket == the staged ticket: pairs "
+          "and order", flush=True)
+
+    # 2. the patched stores against fresh builds, host and device copies
+    D = staged.dataset(did)
+    t0 = time.perf_counter()
+    fresh = get_filter("april").build(D, n_order=args.n_order,
+                                      build_backend="torch", device=dev)
+    t_fresh = time.perf_counter() - t0
+    for label, svc in (("staged", staged), ("fused", fused_svc)):
+        approx = svc.cache.get((did, "april", args.n_order))
+        if approx.meta["mutation_seq"] != svc.datasets[did].seq:
+            raise AssertionError(f"[{label}] the store is not synced")
+        _same_store(f"service {label} APRIL", approx.store, fresh.store)
+        for kind in ("A", "F"):
+            lists = approx.meta["interval_lists"][kind]
+            want_l = IntervalLists.from_intervals(
+                *((fresh.store.a_off, fresh.store.a_ints) if kind == "A"
+                  else (fresh.store.f_off, fresh.store.f_ints)))
+            pairs_ = list(zip(lists.to(dev), want_l.to(dev))) + [
+                (lists.last_keys(dev), want_l.last_keys(dev))]
+            for a, b in pairs_:
+                if a.dtype != b.dtype or not torch.equal(a, b):
+                    raise AssertionError(f"[service {label}] the device "
+                                         f"copy of the {kind} lists != a "
+                                         "fresh build's")
+        idx = svc.datasets[did].index
+        again = MBRIndex(D.mbrs, grid=idx.k, extent=idx.extent)
+        for k in ("mbrs", "lo", "_obj", "_buck"):
+            if not np.array_equal(getattr(idx, k), getattr(again, k)):
+                raise AssertionError(f"[service {label}] the MBR index's "
+                                     f"{k} != a fresh index's")
+    print(f"[service-april] after {staged.stats['inserts']} inserts and "
+          f"{staged.stats['deletes']} deletes both services' stores == a "
+          f"fresh build of the {len(D)} polygons (torch build "
+          f"{t_fresh:.1f} s): every array's dtype, shape and bytes, the "
+          f"lists' device copies and row keys; MBR index == a fresh index "
+          f"(grid {staged.datasets[did].index.k}); tolerance: exact "
+          f"(card {smi})", flush=True)
+
+    # 1 and 2 for RI, the services seeded with copies of phase 5's RI store
+    # of T2 (encoding S), as a restore would seed them
+    ri_trace = trace[:SERVICE_RI_REQUESTS]
+    ri_staged = service("ri", filter_backend="cuda", refine_backend="cuda")
+    ri_fused = service("ri", pipeline_mode="fused")
+    for svc in (ri_staged, ri_fused):
+        svc.cache.put((did, "ri", args.n_order), _copied(ri_s))
+    got_r, drained_r = run("service-ri-staged", ri_staged, ri_trace,
+                           ("ri_trichotomy", "edges_intersect_csr"))
+    same_as("service-ri-staged", got_r,
+            want[:SERVICE_RI_REQUESTS], exact=False)
+    got_rf, _ = run("service-ri-fused", ri_fused, ri_trace,
+                    ("ri_trichotomy", "compact_mask"))
+    same_as("service-ri-fused", got_rf, got_r, exact=True)
+    D_r = ri_staged.dataset(did)
+    t0 = time.perf_counter()
+    fresh_r = get_filter("ri").build(D_r, n_order=args.n_order,
+                                     encoding=ri_s.store.encoding,
+                                     build_backend="torch", device=dev)
+    t_fresh = time.perf_counter() - t0
+    want_dev = RIDeviceStore(fresh_r.store).to(dev)
+    for label, svc in (("staged", ri_staged), ("fused", ri_fused)):
+        approx = svc.cache.get((did, "ri", args.n_order))
+        _same_store(f"service {label} RI", approx.store, fresh_r.store)
+        for a, b in zip(approx.meta["device_store"].to(dev), want_dev):
+            if a.dtype != b.dtype or not torch.equal(a, b):
+                raise AssertionError(f"[service {label}] the RI device "
+                                     "store != a fresh build's")
+    print(f"[service-ri] tickets == the one-request runs (staged) and the "
+          f"staged tickets (fused); after {ri_staged.stats['inserts']} "
+          f"inserts and deletes both stores == a fresh RI build (torch "
+          f"{t_fresh:.1f} s), host arrays and RIDeviceStore tensors; "
+          f"tolerance: exact (card {smi})", flush=True)
+    del ri_staged, ri_fused, fresh_r, want_dev
+
+    # 4. adaptive: the planner picks each group's filter, order and mode,
+    # replanning once the drift reaches SERVICE_REPLAN_AFTER mutations
+    ad_trace = trace[:SERVICE_ADAPTIVE_REQUESTS]
+    adaptive = service("april", plan_mode="adaptive",
+                       replan_after=SERVICE_REPLAN_AFTER)
+    got_a, _ = run("service-adaptive", adaptive, ad_trace, ())
+    same_as("service-adaptive", got_a, want[:SERVICE_ADAPTIVE_REQUESTS],
+            exact=False)
+    picks = {}
+    for t in got_a:
+        c = t.stats["extra"]["plan"]
+        key = (f"{t.predicate}: {c['method']}/n{c['n_order']}/"
+               f"{'-'.join(c['order'])} {c['pipeline_mode']}")
+        picks[key] = picks.get(key, 0) + 1
+    n_keys = len(adaptive._plans)
+    if adaptive.stats["replans"] < 2 or adaptive.stats["replans"] <= n_keys:
+        raise AssertionError(f"[service-adaptive] {adaptive.stats['replans']}"
+                             f" replans over {n_keys} group keys: no replan "
+                             "on drift")
+    print(f"[service-adaptive] {adaptive.stats['replans']} replans over "
+          f"{n_keys} group keys (replan_after {SERVICE_REPLAN_AFTER}); "
+          f"tickets == the static runs' pair sets; choices by request "
+          f"{json.dumps(picks)} (card {smi})", flush=True)
+    del adaptive
+
+    # 5. checkpoint round trip, then 6. eviction under a small budget
+    ck_trace = make_trace(np.random.default_rng(SERVICE_SEED + 1), R,
+                          SERVICE_CKPT_REQUESTS)
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(tmp, async_save=False)
+        t0 = time.perf_counter()
+        staged.save_checkpoint(mgr, step=1)
+        t_save = time.perf_counter() - t0
+        size = staged.cache.get((did, "april", args.n_order)).size_bytes()
+        restored = JoinService.restore_checkpoint(
+            mgr, device=dev, filter_backend="cuda", refine_backend="cuda",
+            cache_bytes=size + 1)
+    answers = []
+    for svc in (staged, restored):
+        ts = [svc.submit(did, p, q) for p, q in ck_trace]
+        svc.drain()
+        answers.append([t.wait(0).pairs for t in ts])
+    for i, (a, b) in enumerate(zip(*answers)):
+        if _pair_set(a) != _pair_set(b):
+            raise AssertionError(f"[service-checkpoint] request {i}: the "
+                                 "restored service answers otherwise")
+    print(f"[service-checkpoint] saved in {t_save:.2f} s, restored; "
+          f"{len(ck_trace)} requests give the same pairs on both services "
+          f"({sum(len(a) for a in answers[0])} pairs; card {smi})",
+          flush=True)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    restored.register_dataset("landmarks", R)
+    restored.warm_store("landmarks")
+    after = torch.cuda.memory_allocated()
+    if restored.cache.stats["evictions"] != 1 or not after < before:
+        raise AssertionError(f"[service-eviction] evictions "
+                             f"{restored.cache.stats['evictions']}, device "
+                             f"memory {before} -> {after} bytes")
+    print(f"[service-eviction] budget {size + 1} bytes (the water store's "
+          f"size + 1): warming the landmarks' store evicted it; "
+          f"torch.cuda.memory_allocated {before} -> {after} bytes "
+          f"(card {smi})", flush=True)
+    del restored
+
+    # 7. the background worker: the staged service, whose device copies
+    # this thread's drains uploaded, answers the checkpoint requests again
+    # from the worker's thread; the record blocks opened here must hold
+    # the worker's kernel inputs, which are replayed
+    _reset(wrappers)
+    with refine_mod.record_sweeps() as sweeps, \
+            fused.record_chains() as chains, \
+            join_mod.record_joins() as joins, \
+            ri_mod.record_frames() as frames:
+        staged.start()
+        ts = [staged.submit(did, p, q) for p, q in ck_trace]
+        staged.stop()
+    torch.cuda.synchronize()
+    launches["service-worker"] = {fn.__name__: fn.launches
+                                  for fn in wrappers}
+    if not (joins and sweeps) or \
+            launches["service-worker"]["april_trichotomy"] <= 0:
+        raise AssertionError("[service-worker] the worker's kernel inputs "
+                             "were not recorded here, or B1 never ran")
+    for i, (t, a) in enumerate(zip(ts, answers[0], strict=True)):
+        if _pair_set(t.wait(0).pairs) != _pair_set(a):
+            raise AssertionError(f"[service-worker] request {i} != the "
+                                 "synchronous drain's answer")
+    print(f"[service-worker] {len(ts)} requests drained by the worker "
+          f"thread ({staged.stats['batches']} batches so far) == the "
+          f"synchronous drains' answers; launches "
+          f"{json.dumps(launches['service-worker'])}; "
+          f"{_replayed('service-worker', joins, sweeps, chains, frames)} "
+          f"(card {smi})", flush=True)
+    del staged, fused_svc, joins, sweeps, chains, frames
+
+    # 8. run_serve with the background worker
+    t0 = time.perf_counter()
+    report = run_serve(dataset="T2", count=len(S), query_layer="T1",
+                       n_queries=len(R), n_requests=SERVE_REQUESTS,
+                       method="april", n_order=args.n_order,
+                       mutate_every=SERVICE_MUTATE, seed=1, device=dev)
+    lat = report["latency"]
+    print(f"[run_serve] {report['n_requests']} requests through the "
+          f"background worker in {report['elapsed_s']:.2f} s (with its cold "
+          f"build {time.perf_counter() - t0:.1f} s): "
+          f"{report['queries_per_s']:.1f} queries/s, p50 "
+          f"{lat['p50_s'] * 1e3:.2f} ms, p99 {lat['p99_s'] * 1e3:.2f} ms; "
+          f"stage seconds {json.dumps(lat['stage_times'])}; cache "
+          f"{json.dumps(report['cache'])}; service "
+          f"{json.dumps(report['service'])}; {report['results_total']} "
+          f"pairs (card {smi})", flush=True)
+    if report["service"]["batched_requests"] != SERVE_REQUESTS:
+        raise AssertionError("[run_serve] not every request was served")
+
+    for name, wrapper in counter.items():
+        extra[name] = {"launches_service": {
+            label: n[wrapper] for label, n in launches.items()}}
+    print(f"phase 13 ok: the join service "
+          f"({time.perf_counter() - t_phase:.1f} s; card {smi})", flush=True)
+    return extra
+
+
 def _attention_child(out: str) -> None:
     """Phase 9 in this process, its rows of the ``kernels`` line written to
     the JSON file ``out``: the body of :func:`_attention_in_fresh_process`'s
@@ -2313,6 +2723,11 @@ def main() -> int:
     _construction_phase(args, dev, R, S, plan, ri_r, ri_s,
                         results["default"], stats["default"], builds,
                         wrappers)
+
+    # 13. the online join service
+    service = _service_phase(args, dev, R, S, plan, ri_s, wrappers)
+    for k in kernels:
+        k.update(service.get(k["name"], {}))
 
     # 9. the attention kernel, which no join runs, in a fresh process
     kernels.extend(_attention_in_fresh_process())

@@ -51,6 +51,7 @@ __all__ = [
     "linestring_verdict_pair", "overlap_rows_np", "contain_rows_np",
     "contain_rows", "april_trichotomy_rows", "within_trichotomy_rows",
     "linestring_trichotomy_rows", "fused_status_rows", "record_joins",
+    "csr_delete_row", "csr_append_row", "adaptive_order",
 ]
 
 I32_MAX = np.int32(np.iinfo(np.int32).max)
@@ -62,6 +63,33 @@ def check_filter_backend(backend: str) -> None:
     if backend not in FILTER_BACKENDS:
         raise ValueError(f"unknown filter backend {backend!r}; "
                          f"expected one of {FILTER_BACKENDS}")
+
+
+# ---------------------------------------------------------------------------
+# CSR row splices (incremental store maintenance)
+# ---------------------------------------------------------------------------
+
+def csr_delete_row(off: np.ndarray, data: np.ndarray, i: int
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Splice row ``i`` out of a CSR (offsets [P+1], flat data) pair: the
+    flat segment ``data[off[i]:off[i+1]]`` goes and later offsets shift
+    down; no other row is recomputed. Any flat axis-0 layout works
+    (interval tables [T, 2], cell ids [T], ...)."""
+    off = np.asarray(off, np.int64)
+    lo, hi = int(off[i]), int(off[i + 1])
+    new_off = np.concatenate([off[:i + 1], off[i + 2:] - (hi - lo)])
+    new_data = np.concatenate([data[:lo], data[hi:]], axis=0)
+    return new_off, new_data
+
+
+def csr_append_row(off: np.ndarray, data: np.ndarray, row: np.ndarray
+                   ) -> tuple[np.ndarray, np.ndarray]:
+    """Append one row (flat payload ``row``) to a CSR pair; existing rows
+    are untouched."""
+    off = np.asarray(off, np.int64)
+    new_off = np.append(off, off[-1] + len(row))
+    new_data = np.concatenate([data, row], axis=0)
+    return new_off, new_data
 
 
 # ---------------------------------------------------------------------------
@@ -121,6 +149,23 @@ def april_verdict_pair(
     if aa_overlap is None:
         raise ValueError("order must include 'AA'")
     return INDECISIVE
+
+
+def adaptive_order(mbr_r, mbr_s, nf_r: int, nf_s: int) -> tuple[str, ...]:
+    """A per-pair join order from statistics known before any interval
+    work (the paper's §9 future-work item): where the common MBR covers
+    most of the smaller object the pair is likely a TRUE_HIT, so a hit join
+    runs first (AF or FA, the side with the longer F list); otherwise AA
+    stays first, the paper's default."""
+    ix = max(0.0, min(mbr_r[2], mbr_s[2]) - max(mbr_r[0], mbr_s[0]))
+    iy = max(0.0, min(mbr_r[3], mbr_s[3]) - max(mbr_r[1], mbr_s[1]))
+    inter = ix * iy
+    area_r = max(1e-30, (mbr_r[2] - mbr_r[0]) * (mbr_r[3] - mbr_r[1]))
+    area_s = max(1e-30, (mbr_s[2] - mbr_s[0]) * (mbr_s[3] - mbr_s[1]))
+    cover = inter / min(area_r, area_s)
+    if cover > 0.6 and (nf_r or nf_s):
+        return ("AF", "FA", "AA") if nf_s >= nf_r else ("FA", "AF", "AA")
+    return ("AA", "AF", "FA")
 
 
 def within_verdict_pair(Ar, Fr, As, Fs) -> int:
@@ -232,6 +277,38 @@ class IntervalLists:
             self._keys[key] = torch.from_numpy(
                 self.host_keys().astype(np.int64)).to(dev)
         return self._keys[key]
+
+    def drop_device(self) -> None:
+        """Forget the device copies (:meth:`to`, :meth:`last_keys`); they
+        are uploaded again on next use."""
+        self._device = {}
+        self._keys = {}
+
+    # -- incremental maintenance (row splices) ------------------------------
+
+    def delete_row(self, i: int) -> None:
+        """Splice row ``i`` out in place; only this row's endpoints move.
+        Every derived copy goes with it: the device lists and row keys of
+        each device and the host row keys, rebuilt from the patched arrays
+        on next use."""
+        old_off = self.off
+        _, self.lasts = csr_delete_row(old_off, self.lasts, i)
+        self.off, self.starts = csr_delete_row(old_off, self.starts, i)
+        self._drop_derived()
+
+    def append_row(self, starts: np.ndarray, lasts: np.ndarray) -> None:
+        """Append one row's biased-int32 endpoints in place, dropping the
+        derived copies as :meth:`delete_row` does."""
+        old_off = self.off
+        _, self.lasts = csr_append_row(old_off, self.lasts,
+                                       np.asarray(lasts, np.int32))
+        self.off, self.starts = csr_append_row(old_off, self.starts,
+                                               np.asarray(starts, np.int32))
+        self._drop_derived()
+
+    def _drop_derived(self) -> None:
+        self.drop_device()
+        self._host_keys = None
 
 
 # ---------------------------------------------------------------------------

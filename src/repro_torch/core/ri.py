@@ -602,6 +602,10 @@ class RIDeviceStore:
                     self.words)))
         return self._device[key]
 
+    def drop_device(self) -> None:
+        """Forget the device copies; :meth:`to` uploads them again."""
+        self._device = {}
+
 
 def _device_store(s) -> RIDeviceStore:
     return s if isinstance(s, RIDeviceStore) else RIDeviceStore(s)

@@ -9,6 +9,7 @@ whatever device they are given.
 from __future__ import annotations
 
 import contextlib
+import threading
 import time
 
 import numpy as np
@@ -52,22 +53,28 @@ class InputLog:
     """Where a module notes the inputs it gave a kernel, so that the kernel
     can be replayed on exactly what a join gave it. ``add`` does nothing
     unless a ``record()`` block is open; inside one, each ``add`` appends
-    its item to the list the block yields."""
+    its item to the list the block yields, from whichever thread it comes
+    (a service's worker thread included)."""
 
     def __init__(self) -> None:
         self._items: list | None = None
+        self._lock = threading.Lock()
 
     def add(self, item) -> None:
-        if self._items is not None:
-            self._items.append(item)
+        with self._lock:
+            if self._items is not None:
+                self._items.append(item)
 
     @contextlib.contextmanager
     def record(self):
-        prev, self._items = self._items, []
+        with self._lock:
+            prev, self._items = self._items, []
+            items = self._items
         try:
-            yield self._items
+            yield items
         finally:
-            self._items = prev
+            with self._lock:
+                self._items = prev
 
 
 class StageClock:

@@ -4,6 +4,15 @@ from .filters import (  # noqa: F401
     unregister_filter,
 )
 from .fused import PIPELINE_MODES  # noqa: F401
-from .mbr_join import MBR_BACKENDS, mbr_join  # noqa: F401
+from .mbr_join import MBR_BACKENDS, MBRIndex, adaptive_grid, mbr_join  # noqa: F401,E501
 from .plan import JoinPlan, JoinStats  # noqa: F401
+from .planner import (  # noqa: F401
+    PLAN_MODES, PlanChoice, ProfileCache, check_plan_mode, choose_plan,
+)
 from .refine import REFINE_BACKENDS  # noqa: F401
+from .pipeline import (  # noqa: F401
+    spatial_intersection_join, spatial_within_join,
+    polygon_linestring_join, selection_queries,
+)
+from .store_cache import StoreCache  # noqa: F401
+from .service import JoinService, JoinTicket, SERVICE_PREDICATES  # noqa: F401

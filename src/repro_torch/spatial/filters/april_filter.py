@@ -57,6 +57,48 @@ class AprilFilter(IntermediateFilter):
                              extent=extent, kind=kind,
                              meta={"build_opts": {"method": method}})
 
+    # -- incremental maintenance: row splices of the CSR interval lists ----
+    def _store_append(self, approx, one) -> None:
+        store, o = approx.store, one.store
+        cache = approx.meta.get("interval_lists", {})
+        if isinstance(store, LineCellStore):
+            store.off, store.ids = join.csr_append_row(store.off, store.ids,
+                                                       o.ids)
+            if "line" in cache:
+                row = join.IntervalLists.from_unit_cells(o.off, o.ids)
+                cache["line"].append_row(row.starts, row.lasts)
+            return
+        store.a_off, store.a_ints = join.csr_append_row(
+            store.a_off, store.a_ints, o.a_ints)
+        store.f_off, store.f_ints = join.csr_append_row(
+            store.f_off, store.f_ints, o.f_ints)
+        # the cached lists are spliced in place, not rebuilt: the biased
+        # int32 conversion is elementwise, so a patched list equals one
+        # wrapped afresh from the patched store; the splice drops the
+        # list's device copies and row keys, uploaded again on next use
+        for kind, off, ints in (("A", o.a_off, o.a_ints),
+                                ("F", o.f_off, o.f_ints)):
+            if kind in cache:
+                row = join.IntervalLists.from_intervals(off, ints)
+                cache[kind].append_row(row.starts, row.lasts)
+
+    def _store_delete(self, approx, idx: int) -> None:
+        store = approx.store
+        cache = approx.meta.get("interval_lists", {})
+        if isinstance(store, LineCellStore):
+            store.off, store.ids = join.csr_delete_row(store.off, store.ids,
+                                                       idx)
+            kinds = ("line",)
+        else:
+            store.a_off, store.a_ints = join.csr_delete_row(
+                store.a_off, store.a_ints, idx)
+            store.f_off, store.f_ints = join.csr_delete_row(
+                store.f_off, store.f_ints, idx)
+            kinds = ("A", "F")
+        for kind in kinds:
+            if kind in cache:
+                cache[kind].delete_row(idx)
+
     @staticmethod
     def _lists(approx, kind: str) -> join.IntervalLists:
         """The device-ready lists of one kind: ``"A"``, ``"F"``, or
@@ -169,6 +211,26 @@ class AprilCompressedFilter(AprilFilter):
         if kind != "line":
             approx.store = compress.compress_april(approx.store)
         return approx
+
+    # VByte buffers are per-object lists, so a splice is a list operation;
+    # a line side is APRIL's uncompressed cell store and takes its path
+    def _store_append(self, approx, one) -> None:
+        store = approx.store
+        if isinstance(store, compress.CompressedAprilStore):
+            store.a_bufs.append(one.store.a_bufs[0])
+            store.f_bufs.append(one.store.f_bufs[0])
+            self._drop_derived(approx)
+        else:
+            super()._store_append(approx, one)
+
+    def _store_delete(self, approx, idx: int) -> None:
+        store = approx.store
+        if isinstance(store, compress.CompressedAprilStore):
+            del store.a_bufs[idx]
+            del store.f_bufs[idx]
+            self._drop_derived(approx)
+        else:
+            super()._store_delete(approx, idx)
 
     @staticmethod
     def _decode(approx, col: np.ndarray, kind: str):

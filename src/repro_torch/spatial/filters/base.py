@@ -7,6 +7,10 @@
   (TRUE_NEG / TRUE_HIT / INDECISIVE); ``verdicts_seq`` is the per-pair
   reference the batched path must equal; ``status_lane`` is the fused
   chain's device int8 lane of the same verdicts.
+* ``patch_insert`` / ``patch_delete`` — incremental maintenance: one
+  object's row spliced into or out of a built store in place, which then
+  equals a fresh rebuild over the patched dataset, host arrays and the
+  device copies made from them alike.
 * a name-based registry backing ``none / april / april-c / ri / ra /
   5cch``. It is separate from the reference package's, so registering a
   filter here changes nothing there.
@@ -27,7 +31,7 @@ from ...device import resolve_device, upload
 __all__ = ["PREDICATES", "KINDS", "BACKENDS", "FILTER_BACKENDS",
            "BUILD_BACKENDS", "Approximation", "IntermediateFilter",
            "register_filter", "unregister_filter", "get_filter",
-           "available_filters", "check_predicate"]
+           "available_filters", "check_predicate", "release_device"]
 
 PREDICATES = ("intersects", "within", "linestring", "selection")
 BACKENDS = FILTER_BACKENDS   # historical alias
@@ -128,6 +132,52 @@ class IntermediateFilter(abc.ABC):
         n = len(np.asarray(pairs).reshape(-1, 2))
         return np.full(n, INDECISIVE, np.int8)
 
+    # -- incremental maintenance ---------------------------------------------
+
+    def patch_insert(self, approx: Approximation, dataset_one) -> None:
+        """Append the approximation of ``dataset_one``'s single object to
+        ``approx`` in place (the new object gets id ``len(approx)``). The
+        one-object store comes from this filter's own :meth:`build` under
+        the ``build_opts`` recorded in ``approx.meta`` at build time;
+        construction is independent per object, so the patched store
+        equals a fresh rebuild over the extended dataset."""
+        if len(dataset_one) != 1:
+            raise ValueError(f"patch_insert expects a 1-object dataset, "
+                             f"got {len(dataset_one)}")
+        opts = dict(approx.meta.get("build_opts", {}))
+        one = self.build(
+            dataset_one,
+            n_order=approx.n_order if approx.n_order is not None else 10,
+            extent=approx.extent if approx.extent is not None
+            else GLOBAL_EXTENT, kind=approx.kind, **opts)
+        self._store_append(approx, one)
+
+    def patch_delete(self, approx: Approximation, idx: int) -> None:
+        """Splice object ``idx`` out of ``approx`` in place; later ids
+        shift down by one (the numbering a fresh rebuild would use)."""
+        if not 0 <= int(idx) < len(approx):
+            raise IndexError(f"patch_delete: id {idx} out of range "
+                             f"[0, {len(approx)})")
+        self._store_delete(approx, int(idx))
+
+    def _store_append(self, approx: Approximation,
+                      one: Approximation) -> None:
+        raise NotImplementedError(
+            f"filter {self.name!r} has no incremental maintenance path")
+
+    def _store_delete(self, approx: Approximation, idx: int) -> None:
+        raise NotImplementedError(
+            f"filter {self.name!r} has no incremental maintenance path")
+
+    @staticmethod
+    def _drop_derived(approx: Approximation) -> None:
+        """Drop the per-object caches a row splice invalidates: the
+        device-ready interval lists, RA's pyramids and RI's device store
+        (whose device copies would otherwise keep joining the store as it
+        was before the patch)."""
+        for key in ("interval_lists", "pyramid", "device_store"):
+            approx.meta.pop(key, None)
+
     def to_device(self, approx_r: Approximation, approx_s: Approximation,
                   device) -> None:
         """Upload whatever :meth:`status_lane` reads on ``device`` and cache
@@ -156,6 +206,17 @@ class IntermediateFilter(abc.ABC):
                              predicate=predicate, backend=backend,
                              device=dev, **opts)
         return upload(np.asarray(verd, np.int8), dev)
+
+
+def release_device(approx: Approximation) -> None:
+    """Free the device copies ``approx`` caches (the interval lists' and
+    RI's device store's) and keep every host array; a later join uploads
+    them again. What an evicted store cache entry goes through."""
+    for lists in approx.meta.get("interval_lists", {}).values():
+        lists.drop_device()
+    store = approx.meta.get("device_store")
+    if store is not None:
+        store.drop_device()
 
 
 _REGISTRY: dict[str, type[IntermediateFilter]] = {}

@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 
 from ...baselines import fivec_ch
+from ...core.join import csr_append_row, csr_delete_row
 from ...core.rasterize import Extent, GLOBAL_EXTENT
 from .base import Approximation, IntermediateFilter, register_filter
 
@@ -35,6 +36,19 @@ class FiveCCHFilter(IntermediateFilter):
         store = build(dataset, backend=build_backend, device=device)
         return Approximation(filter=self.name, store=store,
                              n_order=None, extent=extent, kind=kind)
+
+    # -- incremental maintenance: pentagon row and hull CSR splice ---------
+    def _store_append(self, approx, one) -> None:
+        store, o = approx.store, one.store
+        store.pent = np.concatenate([store.pent, o.pent])
+        store.hull_off, store.hull_pts = csr_append_row(
+            store.hull_off, store.hull_pts, o.hull_pts)
+
+    def _store_delete(self, approx, idx: int) -> None:
+        store = approx.store
+        store.pent = np.delete(store.pent, idx, axis=0)
+        store.hull_off, store.hull_pts = csr_delete_row(
+            store.hull_off, store.hull_pts, idx)
 
     def verdicts(self, approx_r, approx_s, pairs, *,
                  predicate: str = "intersects", backend: str = "numpy",

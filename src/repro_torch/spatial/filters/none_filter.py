@@ -40,3 +40,13 @@ class NoneFilter(IntermediateFilter):
 
     def _verdict_one(self, approx_r, approx_s, i, j, *, predicate, **opts):
         return INDECISIVE
+
+    # nothing is stored, so maintenance is a no-op (ids are tracked by the
+    # dataset, not the store)
+    def patch_insert(self, approx, dataset_one) -> None:
+        if len(dataset_one) != 1:
+            raise ValueError(f"patch_insert expects a 1-object dataset, "
+                             f"got {len(dataset_one)}")
+
+    def patch_delete(self, approx, idx: int) -> None:
+        pass

@@ -38,6 +38,26 @@ class RAFilter(IntermediateFilter):
                              n_order=None, extent=extent, kind=kind,
                              meta={"build_opts": {"max_cells": max_cells}})
 
+    # -- incremental maintenance: per-object grid rows ----------------------
+    # RA grids are fit per object from its own MBR, so one object's (k,
+    # origin, shape, cells) rows splice independently; the index-keyed
+    # pyramid memo goes with _drop_derived.
+    def _store_append(self, approx, one) -> None:
+        store, o = approx.store, one.store
+        store.k = np.concatenate([store.k, o.k])
+        store.origin = np.concatenate([store.origin, o.origin])
+        store.shape = np.concatenate([store.shape, o.shape])
+        store.cells.append(o.cells[0])
+        self._drop_derived(approx)
+
+    def _store_delete(self, approx, idx: int) -> None:
+        store = approx.store
+        store.k = np.delete(store.k, idx)
+        store.origin = np.delete(store.origin, idx, axis=0)
+        store.shape = np.delete(store.shape, idx, axis=0)
+        del store.cells[idx]
+        self._drop_derived(approx)
+
     def verdicts(self, approx_r, approx_s, pairs, *,
                  predicate: str = "intersects", backend: str = "numpy",
                  device=None, **opts) -> np.ndarray:

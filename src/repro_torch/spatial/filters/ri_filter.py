@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from ...core import ri
+from ...core.join import csr_append_row, csr_delete_row
 from ...core.rasterize import Extent, GLOBAL_EXTENT
 from .base import Approximation, IntermediateFilter, register_filter
 
@@ -46,6 +47,30 @@ class RIFilter(IntermediateFilter):
         return Approximation(filter=self.name, store=store, n_order=n_order,
                              extent=extent, kind=kind,
                              meta={"build_opts": {"encoding": enc}})
+
+    # -- incremental maintenance: interval-row splice, bit-segment rebase --
+    # Unlike the reference, whose RI filter keeps no device form, a splice
+    # drops the cached RIDeviceStore: its packed words and device copies
+    # would keep joining the store as it was before the patch.
+    def _store_append(self, approx, one) -> None:
+        store, o = approx.store, one.store
+        # the bit offsets are absolute: the appended object's segment is
+        # rebased past the existing code stream
+        store.bit_off = np.concatenate(
+            [store.bit_off, o.bit_off[1:] + store.bit_off[-1]])
+        store.bits = np.concatenate([store.bits, o.bits])
+        store.off, store.ints = csr_append_row(store.off, store.ints, o.ints)
+        self._drop_derived(approx)
+
+    def _store_delete(self, approx, idx: int) -> None:
+        store = approx.store
+        lo, hi = int(store.off[idx]), int(store.off[idx + 1])
+        b_lo, b_hi = int(store.bit_off[lo]), int(store.bit_off[hi])
+        store.bits = np.concatenate([store.bits[:b_lo], store.bits[b_hi:]])
+        store.bit_off = np.concatenate(
+            [store.bit_off[:lo], store.bit_off[hi:] - (b_hi - b_lo)])
+        store.off, store.ints = csr_delete_row(store.off, store.ints, idx)
+        self._drop_derived(approx)
 
     @staticmethod
     def _device(approx) -> ri.RIDeviceStore:

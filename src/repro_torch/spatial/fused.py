@@ -138,11 +138,12 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
     """The three-stage fused chain of one ``JoinPlan`` execution.
 
     * ``mbr`` — host grid-hash preprocessing producing the pair frame,
-      uploaded once; with ``mbr_backend="torch"`` the intersection and
-      ownership test stays a device ``valid`` lane (for ``within`` with
-      the MBR containment test of ``JoinPlan.candidates``, made on the
-      host MBR tables and uploaded, folded in), otherwise the frame is
-      pre-filtered on the host.
+      uploaded once; a warm ``mbr_index`` or a host backend gives a frame
+      pre-filtered on the host (``JoinPlan.candidates``); otherwise, with
+      ``mbr_backend="torch"``, the intersection and ownership test stays a
+      device ``valid`` lane (for ``within`` with the MBR containment test
+      of ``JoinPlan.candidates``, made on the host MBR tables and
+      uploaded, folded in).
     * ``filter`` — the filter's ``status_lane`` over the frame, with
       invalid rows set to TRUE_NEG.
     * ``refine`` — on-device compaction of the INDECISIVE lane
@@ -164,7 +165,7 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
                             si_dev=upload(si, dev))
 
     def mbr_stage(_):
-        if plan.mbr_backend != "torch":
+        if plan.mbr_index is not None or plan.mbr_backend != "torch":
             pairs = plan.candidates(predicate)
             if len(pairs) == 0:
                 return _empty_cs()

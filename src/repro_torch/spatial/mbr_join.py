@@ -15,6 +15,10 @@ runs per backend:
   back;
 * ``sequential`` — the per-object / per-bucket reference walk with the
   identical pair set.
+
+:class:`MBRIndex` keeps one side's sorted bucket table warm across
+probes (the join service's registered datasets), patched in place by
+``insert`` and ``delete``.
 """
 from __future__ import annotations
 
@@ -25,7 +29,7 @@ from ..device import resolve_device, upload
 
 __all__ = ["MBR_BACKENDS", "mbr_join", "mbr_intersect_mask",
            "adaptive_grid", "joint_extent", "check_mbr_backend",
-           "candidate_rows", "pair_mask_lane", "mbr_inside"]
+           "candidate_rows", "pair_mask_lane", "mbr_inside", "MBRIndex"]
 
 MBR_BACKENDS = ("numpy", "torch", "sequential")
 
@@ -300,3 +304,99 @@ def mbr_join(mbrs_r: np.ndarray, mbrs_s: np.ndarray,
     else:
         keep = _pair_mask(mbrs_r, mbrs_s, lo_r, lo_s, ri, si, own_x, own_y)
     return np.stack([ri[keep], si[keep]], axis=1)
+
+
+class MBRIndex:
+    """Grid-hash bucket table over one dataset's MBRs, built once and
+    probed by many query batches (the join service's registered datasets).
+
+    A probe reuses the sorted (object, bucket) table instead of expanding
+    and sorting the indexed side per join. The pair set is grid and extent
+    invariant (``floor`` and ``clip`` are monotone, so the reference-point
+    ownership cell lies in both objects' clipped cell ranges even where a
+    query MBR leaves the index extent), so ``probe(q)`` equals
+    ``mbr_join(self.mbrs, q)`` as a set for any grid. ``insert`` and
+    ``delete`` splice only the affected buckets' entries
+    (``stats["entries_touched"]``); with the grid and extent pinned at
+    construction, a patched index is array for array the one built afresh
+    over the patched MBRs with the same ``grid`` and ``extent``.
+    """
+
+    def __init__(self, mbrs: np.ndarray, grid: int | None = None,
+                 extent: tuple[float, float, float] | None = None):
+        self.mbrs = np.asarray(mbrs, np.float64).reshape(-1, 4).copy()
+        self.extent = extent or joint_extent(self.mbrs, self.mbrs)
+        self.k = _resolve_grid(grid, self.mbrs, self.mbrs, self.extent)
+        self.lo, hi = bucket_ranges(self.mbrs, self.k, self.extent)
+        obj, buck = expand_buckets(self.lo, hi, self.k)
+        order = np.argsort(buck, kind="stable")
+        self._obj, self._buck = obj[order], buck[order]
+        self.stats = {"inserts": 0, "deletes": 0, "probes": 0,
+                      "entries_touched": 0}
+
+    @property
+    def n_entries(self) -> int:
+        return len(self._buck)
+
+    def probe(self, mbrs_q: np.ndarray, backend: str = "numpy",
+              device=None) -> np.ndarray:
+        """All (indexed, query) pairs with intersecting MBRs, [N, 2] int64,
+        the pair set of ``mbr_join(self.mbrs, mbrs_q, backend=backend)``;
+        ``numpy`` and ``torch`` (the pair test as a lane on ``device``,
+        ``None`` -> ``"cuda"``, read back) in the same order."""
+        check_mbr_backend(backend)
+        dev = resolve_device(device) if backend == "torch" else None
+        self.stats["probes"] += 1
+        mbrs_q = np.asarray(mbrs_q, np.float64).reshape(-1, 4)
+        if len(self.mbrs) == 0 or len(mbrs_q) == 0:
+            return np.zeros((0, 2), np.int64)
+        if backend == "sequential":
+            return _mbr_join_sequential(self.mbrs, mbrs_q, self.k,
+                                        self.extent)
+        lo_q, hi_q = bucket_ranges(mbrs_q, self.k, self.extent)
+        obj_q, buck_q = expand_buckets(lo_q, hi_q, self.k)
+        order = np.argsort(buck_q, kind="stable")
+        ri, si, own = _cross_rows(self._obj, self._buck, obj_q[order],
+                                  buck_q[order])
+        if len(ri) == 0:
+            return np.zeros((0, 2), np.int64)
+        own_x, own_y = own // self.k, own % self.k
+        if backend == "torch":
+            keep = pair_mask_lane(self.mbrs, mbrs_q, self.lo, lo_q,
+                                  upload(ri, dev), upload(si, dev), own_x,
+                                  own_y, dev).cpu().numpy()
+        else:
+            keep = _pair_mask(self.mbrs, mbrs_q, self.lo, lo_q, ri, si,
+                              own_x, own_y)
+        return np.stack([ri[keep], si[keep]], axis=1)
+
+    def insert(self, mbr: np.ndarray) -> int:
+        """Add one MBR; returns its id. Only the new object's buckets gain
+        entries, each at the end of its bucket's run (the object-ascending
+        order of a fresh build)."""
+        mbr = np.asarray(mbr, np.float64).reshape(1, 4)
+        new_id = len(self.mbrs)
+        self.mbrs = np.concatenate([self.mbrs, mbr])
+        lo, hi = bucket_ranges(mbr, self.k, self.extent)
+        self.lo = np.concatenate([self.lo, lo])
+        _, buck = expand_buckets(lo, hi, self.k)
+        pos = np.searchsorted(self._buck, buck, side="right")
+        self._obj = np.insert(self._obj, pos, new_id)
+        self._buck = np.insert(self._buck, pos, buck)
+        self.stats["inserts"] += 1
+        self.stats["entries_touched"] += len(buck)
+        return new_id
+
+    def delete(self, idx: int) -> None:
+        """Remove the MBR at ``idx``; later ids shift down by one (the
+        numbering a fresh build over the remaining MBRs would use)."""
+        if not 0 <= idx < len(self.mbrs):
+            raise IndexError(f"MBRIndex.delete: id {idx} out of range "
+                             f"[0, {len(self.mbrs)})")
+        keep = self._obj != idx
+        self.stats["entries_touched"] += int((~keep).sum())
+        self._obj = self._obj[keep] - (self._obj[keep] > idx)
+        self._buck = self._buck[keep]
+        self.mbrs = np.delete(self.mbrs, idx, axis=0)
+        self.lo = np.delete(self.lo, idx, axis=0)
+        self.stats["deletes"] += 1

@@ -19,7 +19,10 @@ the end (``spatial/fused.py``). Results are ``concat(pairs[TRUE_HIT],
 indecisive[refined])``, in the reference package's order. On a CUDA device
 both backends default to ``"cuda"`` (the hand-written kernels); on the CPU
 to ``"torch"`` (their plain PyTorch versions). Backends and modes change
-execution, never results.
+execution, never results. ``plan_mode="adaptive"`` lets the sample-based
+planner (``spatial/planner.py``) pick the filter, order, join order and
+pipeline mode; a warm ``mbr_index`` replaces the per-call MBR join of the
+R side with a probe of its bucket table.
 """
 from __future__ import annotations
 
@@ -37,8 +40,9 @@ from .filters import Approximation, IntermediateFilter, get_filter
 from .filters.base import check_predicate
 from .fused import check_pipeline_mode, execute_fused
 from .mbr_join import check_mbr_backend, mbr_inside, mbr_join
+from .planner import PLAN_MODES, PlanChoice, check_plan_mode, choose_plan
 
-__all__ = ["JoinStats", "JoinPlan"]
+__all__ = ["JoinStats", "JoinPlan", "PLAN_MODES"]
 
 
 @dataclass
@@ -131,8 +135,14 @@ class JoinPlan:
     build's device passes on the plan's ``device``; ``max_cells`` for RA;
     ``method`` for APRIL) and ``filter_opts`` (e.g. ``order``) to every
     ``filter.verdicts`` call. ``backend`` is the deprecated alias of
-    ``filter_backend``. Knobs of the reference that this port does not
-    cover yet raise ``NotImplementedError`` naming their ROADMAP item.
+    ``filter_backend``. ``mbr_index`` (an :class:`~repro_torch.spatial.
+    mbr_join.MBRIndex` over R) is probed instead of the MBR join, in both
+    modes, with the same pair set. ``plan_mode`` is ``"static"`` (the knobs
+    above, verbatim) or ``"adaptive"``: the planner runs on the first
+    :meth:`execute` (or an explicit :meth:`plan`) and its choice of filter,
+    ``n_order``, join order and pipeline mode is adopted; ``plan_opts``
+    tune it (``planner.PLAN_DEFAULTS``) and ``plan_choice`` injects a
+    choice made elsewhere instead of sampling.
     """
 
     def __init__(self, R, S, *, filter: str | IntermediateFilter = "april",
@@ -143,7 +153,8 @@ class JoinPlan:
                  extent: Extent = GLOBAL_EXTENT, r_kind: str = "polygon",
                  s_kind: str = "polygon", mbr_grid: int | None = None,
                  mbr_index=None, pipeline_mode: str = "staged",
-                 plan_mode: str = "static",
+                 plan_mode: str = "static", plan_opts: dict | None = None,
+                 plan_choice: PlanChoice | None = None,
                  build_opts: dict | None = None,
                  filter_opts: dict | None = None, device=None):
         if (filter_backend is not None and backend is not None
@@ -157,15 +168,10 @@ class JoinPlan:
                 "2026-12-01)",
                 DeprecationWarning, stacklevel=2)
         check_pipeline_mode(pipeline_mode)
-        if plan_mode == "adaptive":
-            raise NotImplementedError(
-                "plan_mode='adaptive' is not ported yet: ROADMAP A8 "
-                "(orchestration)")
-        if plan_mode != "static":
-            raise ValueError(f"unknown plan mode {plan_mode!r}")
-        if mbr_index is not None:
-            raise NotImplementedError(
-                "mbr_index is not ported yet: ROADMAP A8 (orchestration)")
+        check_plan_mode(plan_mode)
+        if plan_choice is not None and plan_mode != "adaptive":
+            raise ValueError("plan_choice requires plan_mode='adaptive' "
+                             f"(got plan_mode={plan_mode!r})")
         if s_kind != "polygon":
             raise ValueError("the chains of a linestring join are the R "
                              "side (r_kind='line'); s_kind must be "
@@ -191,14 +197,20 @@ class JoinPlan:
         self.r_kind = r_kind
         self.s_kind = s_kind
         self.mbr_grid = mbr_grid
+        self.mbr_index = mbr_index
         self.pipeline_mode = pipeline_mode
         self.plan_mode = plan_mode
+        self.plan_opts = dict(plan_opts or {})
+        self.plan_choice: PlanChoice | None = None
         self.build_opts = dict(build_opts or {})
         self.filter_opts = dict(filter_opts or {})
         self.approx_r: Approximation | None = None
         self.approx_s: Approximation | None = None
         self._t_build = 0.0
+        self._t_plan = 0.0
         self.last_stats: JoinStats | None = None
+        if plan_choice is not None:
+            self._apply_choice(plan_choice)
 
     def _wrap(self, store, kind: str) -> Approximation:
         """An adopted side: an Approximation as it is, a raw store wrapped
@@ -236,14 +248,61 @@ class JoinPlan:
         self._t_build += time.perf_counter() - t0
         return self
 
+    # -- adaptive planning ---------------------------------------------------
+
+    def _apply_choice(self, choice: PlanChoice) -> None:
+        """Adopt a planner choice: its filter, order, join order and
+        pipeline mode. Built approximations are dropped when the store
+        shape changes (a store of the chosen config can still be adopted
+        through :meth:`build`'s ``prebuilt``)."""
+        if (choice.method != self.filter.name
+                or int(choice.n_order) != self.n_order):
+            self.approx_r = self.approx_s = None
+        self.filter = get_filter(choice.method)
+        self.n_order = int(choice.n_order)
+        self.pipeline_mode = choice.pipeline_mode
+        if (choice.method in ("april", "april-c")
+                and choice.predicate in ("intersects", "selection")):
+            self.filter_opts["order"] = tuple(choice.order)
+        else:
+            self.filter_opts.pop("order", None)
+        self.plan_choice = choice
+
+    def plan(self, predicate: str = "intersects",
+             pairs: np.ndarray | None = None) -> PlanChoice:
+        """Run the sample-based planner for ``predicate`` and adopt its
+        choice (``plan_mode="adaptive"`` only). The first :meth:`execute`
+        calls it; call it again to replan. ``pairs`` may supply the
+        candidates when the caller has them (they must equal
+        :meth:`candidates`). Deterministic for fixed inputs and
+        ``plan_opts["seed"]``."""
+        if self.plan_mode != "adaptive":
+            raise ValueError("plan() requires JoinPlan(plan_mode="
+                             f"'adaptive'), got {self.plan_mode!r}")
+        t0 = time.perf_counter()
+        if pairs is None:
+            pairs = self.candidates(predicate)
+        choice = choose_plan(self.R, self.S, pairs, predicate=predicate,
+                             n_order=self.n_order, extent=self.extent,
+                             r_kind=self.r_kind, **self.plan_opts)
+        self._t_plan = time.perf_counter() - t0
+        self._apply_choice(choice)
+        return choice
+
     def candidates(self, predicate: str = "intersects") -> np.ndarray:
-        """Candidate pairs of the grid-hash MBR join, [N, 2] int64. For
+        """Candidate pairs of the grid-hash MBR join, [N, 2] int64, or of a
+        probe of the warm ``mbr_index`` over R (the same pair set). For
         ``within`` only the pairs whose r MBR lies inside the s MBR:
         containment implies intersection, so the stricter test runs on the
         hash join's rows."""
         check_predicate(predicate)
-        pairs = mbr_join(self.R.mbrs, self.S.mbrs, grid=self.mbr_grid,
-                         backend=self.mbr_backend, device=self.device)
+        if self.mbr_index is not None:
+            pairs = self.mbr_index.probe(self.S.mbrs,
+                                         backend=self.mbr_backend,
+                                         device=self.device)
+        else:
+            pairs = mbr_join(self.R.mbrs, self.S.mbrs, grid=self.mbr_grid,
+                             backend=self.mbr_backend, device=self.device)
         if predicate == "within":
             pairs = pairs[mbr_inside(self.R.mbrs[pairs[:, 0]],
                                      self.S.mbrs[pairs[:, 1]])]
@@ -262,6 +321,8 @@ class JoinPlan:
             raise ValueError(
                 f"predicate {predicate!r} needs polygon approximations, but "
                 "this plan was built with r_kind='line'")
+        if self.plan_mode == "adaptive" and self.plan_choice is None:
+            self.plan(predicate)
         if self.approx_r is None or self.approx_s is None:
             self.build()
         stats = JoinStats(method=self.filter.name, predicate=predicate,
@@ -271,6 +332,9 @@ class JoinPlan:
                           mbr_backend=self.mbr_backend,
                           pipeline_mode=self.pipeline_mode,
                           plan_mode=self.plan_mode)
+        if self.plan_choice is not None:
+            stats.extra["plan"] = self.plan_choice.to_dict()
+            stats.extra["t_plan"] = self._t_plan
         stats.t_build = self._t_build
         stats.approx_bytes = (self.approx_r.size_bytes()
                               + self.approx_s.size_bytes())

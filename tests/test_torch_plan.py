@@ -18,6 +18,7 @@ from repro.core.april import build_april as r_build_april  # noqa: E402
 from repro.datagen import make_dataset as r_make_dataset  # noqa: E402
 from repro.spatial import JoinPlan as RJoinPlan  # noqa: E402
 from repro.spatial.filters import get_filter as r_get_filter  # noqa: E402
+from repro.spatial.mbr_join import MBRIndex as RMBRIndex  # noqa: E402
 from repro.spatial.mbr_join import mbr_join as r_mbr_join  # noqa: E402
 
 import repro_torch  # noqa: E402
@@ -25,7 +26,7 @@ from repro_torch import JoinPlan, JoinStats, make_dataset  # noqa: E402
 from repro_torch.spatial import get_filter  # noqa: E402
 from repro_torch.core import hilbert  # noqa: E402
 from repro_torch.core.april import build_april  # noqa: E402
-from repro_torch.spatial.mbr_join import mbr_join  # noqa: E402
+from repro_torch.spatial.mbr_join import MBRIndex, mbr_join  # noqa: E402
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 COUNTS = {"intersects": ("n_candidates", "n_true_hits", "n_true_negs",
@@ -142,7 +143,7 @@ def test_cuda_backends_need_a_cuda_device(datasets):
      "ROADMAP A7"),
     ({"plan_mode": "adaptive"}, "ROADMAP A8"),
     ({"r_kind": "line"}, "ROADMAP A1"),
-    ({"mbr_index": object()}, "ROADMAP A8"),
+    ({"mbr_index": "the warm index of R"}, "ROADMAP A8"),
     ({"filter": "ri", "r_kind": "line"}, "ROADMAP A1"),
     ({"filter": "5cch", "plan_mode": "adaptive"}, "ROADMAP A8"),
 ])
@@ -152,8 +153,25 @@ def test_uncovered_knobs_raise(datasets, kw, match):
     the linestring join of T1's rings as open chains against T2 and
     return the reference's pairs, order and counts. The sequential RI
     build (ROADMAP A7) is ported: its stores equal the reference's, bit
-    for bit, and so do the join's pairs."""
+    for bit, and so do the join's pairs. ``plan_mode="adaptive"`` and
+    ``mbr_index`` (ROADMAP A8, the service half) are ported: the adaptive
+    plans return the reference's pairs and ``stats.extra["plan"]``, and a
+    plan probing the warm ``MBRIndex`` of R the reference's pairs, order
+    and counts."""
     R0, S0, R, S = datasets
+    if "plan_mode" in kw or "mbr_index" in kw:
+        if "mbr_index" in kw:
+            kw, rkw = ({"mbr_index": MBRIndex(R.mbrs)},
+                       {"mbr_index": RMBRIndex(R0.mbrs)})
+        else:
+            rkw = kw
+        want, wst = RJoinPlan(R0, S0, n_order=7, **rkw).execute("intersects")
+        got, st = JoinPlan(R, S, device="cpu", n_order=7, **kw).execute(
+            "intersects")
+        assert len(want) > 0 and st.n_indecisive == wst.n_indecisive
+        np.testing.assert_array_equal(got, want)
+        assert st.extra.get("plan") == wst.extra.get("plan")
+        return
     if "build_opts" in kw:
         ref = RJoinPlan(R0, S0, n_order=7, **kw).build()
         plan = JoinPlan(R, S, device="cpu", n_order=7, **kw).build()
