@@ -186,7 +186,7 @@ reference package. Phases, any failure exits non-zero:
    must equal a one-request run (filter ``none``, numpy backends) over the
    dataset as it stood at its drain, and the fused tickets the staged
    ones, pairs and order. RI staged and fused services (seeded with
-   copies of phase 5's T2 store) take the first 128. Then the patched
+   copies of phase 5's T2 store) take the first 64. Then the patched
    stores must equal fresh torch builds over the mutated dataset, every
    array in dtype, shape and bytes, and so must the device copies the
    last drain used (the interval lists and their row keys, RI's device
@@ -196,10 +196,30 @@ reference package. Phases, any failure exits non-zero:
    sets; a checkpoint of the staged service restores into a new one,
    which must answer 64 requests alike; under a budget of one store,
    warming a second dataset's store must evict and lower
-   ``torch.cuda.memory_allocated``; ``run_serve`` drives 2000 requests
+   ``torch.cuda.memory_allocated``; ``run_serve`` drives 1000 requests
    through the background worker (figures, not gates). Launch counts are
    reset before and read after each trace, and every recorded B1, B4, B2,
    B3 and B5 input is replayed against its plain version, exactly;
+14. (run after phase 13, before phase 9) the scale-out path: the
+   partitioned launcher (``launch.spatial_join.run_join``, 2 x 2
+   partitions) on phase 4's datasets, fused (profiled first), with the
+   sharded stages (``cuda`` filter, ``torch`` MBR lane, ``device64``
+   refine) and a checkpoint, rerun to resume every partition, staged
+   ``cuda`` and adaptive, each with phase 4's pair set, and RI at phase
+   6's counts with the torch build, with phase 6's set; the sharded fused
+   chain of partition 0 once more under ``set_sync_debug_mode("error")``;
+   two gloo ranks on the one card (child processes of this script, a
+   ``FileStore``) run the four sharded stages on partition 0, each rank's
+   outputs equal to its world-of-one outputs; the out-of-core tiled join
+   (``scaleout.tiled_join``) over chunk streams of 1200 (T1 3600, T2
+   12000; a budget a sixth of the plan's estimated bytes, so at least 4
+   tiles and a skew split), staged and fused, each with the pair set of
+   the in-memory staged ``cuda`` ``JoinPlan`` over
+   ``make_chunked_dataset``, then at phase 6's counts static balance, and
+   a run stopped after 2 tiles and resumed, arrays equal to a clean run.
+   Launch counts are reset before and read after each run and every
+   recorded B1, B4, B2, B3 and B5 input is replayed against its plain
+   version, exactly;
 9. (in a child process of this script, after phases 10, 11 and 12: late in
    a long process the card machine's profiler records no device events) the
    APRIL block-sparse attention kernels (``april_attention``, the LM
@@ -304,16 +324,27 @@ NEIGHBORS_PREFIX = 10
 #: fused services), of the RI trace, of the adaptive trace (a prefix of
 #: the APRIL trace) and of the checkpoint round trip; requests a drain
 #: takes; an insert and a delete every SERVICE_MUTATE requests; the
-#: requests run_serve drives through the background worker
+#: requests run_serve drives through the background worker. The RI trace
+#: (128) and run_serve (2000) were cut to make room for phase 14
 SERVICE_REQUESTS = 512
-SERVICE_RI_REQUESTS = 128
+SERVICE_RI_REQUESTS = 64
 SERVICE_ADAPTIVE_REQUESTS = 192
 SERVICE_CKPT_REQUESTS = 64
 SERVICE_GROUP = 16
 SERVICE_MUTATE = 25
 SERVICE_REPLAN_AFTER = 4
-SERVE_REQUESTS = 2000
+SERVE_REQUESTS = 1000
 SERVICE_SEED = 29
+#: phase 14, the scale-out path: the launcher's partitions a side; the
+#: tiled join's chunk size, its budget a share of the plan's estimated
+#: bytes, the tiles it must give and its split settings; the seconds the
+#: two rank processes may take
+SCALEOUT_PARTS = 2
+SCALEOUT_CHUNK = 1200
+SCALEOUT_BUDGET_SHARE = 6
+SCALEOUT_MIN_TILES = 4
+SCALEOUT_SPLIT = {"split_factor": 1.0, "min_split_objs": 32}
+SCALEOUT_RANK_TIMEOUT = 300
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 #: logit std of each head of the full-width draws (q is drawn at these
@@ -1844,6 +1875,377 @@ def _service_phase(args, dev, R, S, plan, ri_s, wrappers) -> dict:
     return extra
 
 
+def _scaleout_rank_child(rank: int, tmp: str) -> None:
+    """One rank of phase 14's two-rank check, in a child process on
+    ``cuda:0``: the four sharded stages on the partition the parent saved
+    in ``tmp``, first in a world of one, then as rank ``rank`` of two gloo
+    ranks over a ``FileStore``; writes whether each output equals the
+    world-of-one output, with its seconds, to ``rank_<rank>.json``."""
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.core.join import INDECISIVE
+    from repro_torch.spatial import Approximation
+    from repro_torch.spatial import distributed as D
+    from repro_torch.state import april_store_from_arrays, dataset_from_arrays
+    z = np.load(Path(tmp) / "partition.npz")
+    Rp = dataset_from_arrays("r", z["r_verts"], z["r_nverts"])
+    Sp = dataset_from_arrays("s", z["s_verts"], z["s_nverts"])
+    ar, as_ = (Approximation(filter="april", store=april_store_from_arrays(
+        int(z["n_order"]), tuple(z[f"{k}_extent"]), z[f"{k}_a_off"],
+        z[f"{k}_a_ints"], z[f"{k}_f_off"], z[f"{k}_f_ints"]),
+        n_order=int(z["n_order"])) for k in "rs")
+    dev = torch.device("cuda")
+
+    def stages(mesh):
+        """The four stages' outputs and seconds."""
+        out, secs = {}, {}
+
+        def timed(name, fn):
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+            return out[name][0]
+
+        pairs = timed("mbr", lambda: D.distributed_mbr_join(
+            Rp.mbrs, Sp.mbrs, mesh=mesh))
+        verd = timed("filter", lambda: D.distributed_filter(
+            "april", ar, as_, pairs, mesh=mesh, backend="cuda"))
+        timed("refine", lambda: D.distributed_refine(
+            Rp, Sp, pairs[verd == INDECISIVE], mesh=mesh))
+        timed("fused", lambda: D.distributed_fused_join(Rp, Sp, ar, as_,
+                                                        mesh=mesh))
+        return out, secs
+
+    one, t_one = stages(D.make_join_mesh(device=dev))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / "store"), 2), rank=rank, world_size=2)
+    mesh = D.make_join_mesh(2, device=dev)
+    two, t_two = stages(mesh)
+    dist.barrier()          # no rank tears the group down under another
+    dist.destroy_process_group()
+    same = {k: bool(np.array_equal(one[k][0], two[k][0])
+                    and one[k][1] == two[k][1]) for k in one}
+    Path(tmp, f"rank_{rank}.json").write_text(json.dumps({
+        "rank": mesh.rank, "size": mesh.size, "same": same,
+        "seconds_one": t_one, "seconds_two": t_two,
+        "counts": {k: v[1] for k, v in two.items()},
+        "pairs": len(two["fused"][0])}))
+
+
+def _two_ranks(Rp, Sp, ar, as_, smi) -> list:
+    """Phase 14's two ranks on the one card: the partition and its APRIL
+    stores saved, two child processes of this script run as gloo ranks
+    (``_scaleout_rank_child``); each rank's four sharded stages must equal
+    its world-of-one outputs. Returns the ranks' reports."""
+    with tempfile.TemporaryDirectory() as tmp:
+        arrays = {"n_order": ar.n_order}
+        for k, D_, a in (("r", Rp, ar), ("s", Sp, as_)):
+            st = a.store
+            arrays.update({f"{k}_verts": D_.verts, f"{k}_nverts": D_.nverts,
+                           f"{k}_a_off": st.a_off, f"{k}_a_ints": st.a_ints,
+                           f"{k}_f_off": st.f_off, f"{k}_f_ints": st.f_ints,
+                           f"{k}_extent": np.asarray(
+                               [st.extent.x0, st.extent.y0,
+                                st.extent.side])})
+        np.savez(Path(tmp) / "partition.npz", **arrays)
+        code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+                "import chip_smoke; "
+                "chip_smoke._scaleout_rank_child(int(sys.argv[2]), "
+                "sys.argv[3])")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(
+            [sys.executable, "-c", code,
+             str(Path(__file__).resolve().parent), str(r), tmp])
+            for r in range(2)]
+        try:
+            rcs = [p.wait(timeout=SCALEOUT_RANK_TIMEOUT) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if rcs != [0, 0]:
+            raise AssertionError(f"[two ranks] the rank processes exited "
+                                 f"with {rcs}")
+        reports = [json.loads((Path(tmp) / f"rank_{r}.json").read_text())
+                   for r in range(2)]
+    for rep in reports:
+        if rep["size"] != 2 or not all(rep["same"].values()):
+            raise AssertionError(f"[two ranks] rank {rep['rank']} != the "
+                                 f"world of one: {rep['same']}")
+    print(f"[two ranks] two gloo ranks on cuda:0 (a FileStore), "
+          f"{len(Rp)} x {len(Sp)} objects of partition 0: each rank's "
+          f"sharded MBR join, filter, refine and fused join == its world-of-"
+          f"one outputs, pairs and counts ({reports[0]['pairs']} fused "
+          f"pairs; counts {json.dumps(reports[0]['counts'])}); seconds a "
+          f"stage of each rank, world of one then two ranks: "
+          f"{json.dumps([[r['seconds_one'], r['seconds_two']] for r in reports])}; "
+          f"{time.perf_counter() - t0:.1f} s with the processes' start "
+          f"(card {smi})", flush=True)
+    return reports
+
+
+def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
+    """Phase 14: the scale-out path on the card (the partitioned launcher,
+    the sharded stages on two ranks, the out-of-core tiled join). Returns,
+    by kernel, the keys its row of the ``kernels`` line gains: the launches
+    of each run."""
+    import torch
+    from repro_torch.core import join as join_mod
+    from repro_torch.core import partition as part_mod
+    from repro_torch.core import ri as ri_mod
+    from repro_torch.datagen import (PolygonDataset, iter_dataset_chunks,
+                                     make_chunked_dataset, make_dataset)
+    from repro_torch import JoinPlan
+    from repro_torch.launch.spatial_join import run_join
+    from repro_torch.runtime.checkpoint import CheckpointManager
+    from repro_torch.spatial import distributed as D
+    from repro_torch.spatial import fused, get_filter
+    from repro_torch.spatial import refine as refine_mod
+    from repro_torch.spatial.scaleout import plan_scaleout, tiled_join
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"phase 14 card: {smi}", flush=True)
+    counter = {"april_trichotomy": "april_trichotomy",
+               "interval_overlap": "interval_overlap",
+               "edges_intersect": "edges_intersect_csr",
+               "exclusive_scan": "compact_mask",
+               "ri_trichotomy": "ri_trichotomy"}
+    launches, recorded = {}, {}
+    mesh = D.make_join_mesh(device=dev)
+
+    def run(label, fn, need=(), replay=True):
+        """One run: launch counts reset before and read after, every kernel
+        input recorded (and, with ``replay``, replayed)."""
+        _reset(wrappers)
+        t0 = time.perf_counter()
+        with refine_mod.record_sweeps() as sweeps, \
+                fused.record_chains() as chains, \
+                join_mod.record_joins() as joins, \
+                ri_mod.record_frames() as frames:
+            out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches[label] = {f.__name__: f.launches for f in wrappers}
+        for name in need:
+            if launches[label][name] <= 0:
+                raise AssertionError(f"[{label}] {name} never launched")
+        recorded[label] = (joins, sweeps, chains, frames)
+        print(f"[{label}] {wall:.2f} s; launches "
+              f"{json.dumps(launches[label])} (card {smi})", flush=True)
+        if replay:
+            print(f"[{label}] {_replayed(label, joins, sweeps, chains, frames)}",
+                  flush=True)
+        return out
+
+    def same_set(label, res, want_set):
+        if _pair_set(res) != want_set:
+            raise AssertionError(f"[{label}] pair set != the reference's "
+                                 f"({len(_pair_set(res))} != "
+                                 f"{len(want_set)})")
+
+    size = dict(r_name="T1", s_name="T2", n_order=args.n_order,
+                parts=SCALEOUT_PARTS, seed=0, count_r=args.r_count,
+                count_s=args.s_count, mesh=mesh)
+    # 1. the partitioned launcher at full size; the fused run is profiled
+    # first (a process some minutes old records no device events)
+    box = []
+    prof = _profile_showing("launcher-fused", lambda: box.append(run(
+        "launcher-fused", lambda: run_join(pipeline_mode="fused", **size),
+        need=("april_trichotomy", "compact_mask"), replay=False)),
+        "compact_mask_kernel")
+    print(f"profile [launcher-fused] (card {smi}): device busy "
+          f"{prof['device_busy_us'] / 1e3:.2f} ms of "
+          f"{prof['wall_us'] / 1e6:.2f} s "
+          f"({100 * prof['device_busy_share']:.2f} %)", flush=True)
+    print(f"[launcher-fused] {_replayed('launcher-fused', *recorded['launcher-fused'])}",
+          flush=True)
+    same_set("launcher-fused", box[-1][0], want)
+    del box
+    with tempfile.TemporaryDirectory() as ck:
+        res, totals = run("launcher-sharded", lambda: run_join(
+            backend="cuda", mbr_backend="torch", refine_backend="device64",
+            ckpt_dir=ck, **size), need=("april_trichotomy",))
+        same_set("launcher-sharded", res, want)
+        step, flat, _ = CheckpointManager(ck).restore()
+        if sorted(flat) != [f"part_{p}" for p in range(SCALEOUT_PARTS ** 2)]:
+            raise AssertionError(f"[launcher-sharded] checkpoint holds "
+                                 f"{sorted(flat)}")
+        res2, _ = run("launcher-resumed", lambda: run_join(
+            backend="cuda", mbr_backend="torch", refine_backend="device64",
+            ckpt_dir=ck, **size))
+        if any(launches["launcher-resumed"].values()):
+            raise AssertionError("[launcher-resumed] a partition ran again")
+        same_set("launcher-resumed", res2, want)
+    res, _ = run("launcher-staged", lambda: run_join(
+        backend="cuda", refine_backend="cuda", **size),
+        need=("april_trichotomy", "edges_intersect_csr"))
+    same_set("launcher-staged", res, want)
+    res, totals = run("launcher-adaptive", lambda: run_join(
+        plan_mode="adaptive", **size))
+    same_set("launcher-adaptive", res, want)
+    small = dict(size, count_r=args.r_count // HOST_SCALE,
+                 count_s=args.s_count // HOST_SCALE)
+    res, _ = run("launcher-ri", lambda: run_join(
+        method="ri", backend="cuda", refine_backend="cuda",
+        build_backend="torch", **small),
+        need=("ri_trichotomy", "edges_intersect_csr"))
+    same_set("launcher-ri", res, want_small)
+    print(f"[launcher] fused, sharded (and resumed), staged, adaptive: "
+          f"{len(want)} pairs == phase 4's set; RI at "
+          f"{small['count_r']} x {small['count_s']}: {len(want_small)} "
+          f"pairs == phase 6's set (card {smi})", flush=True)
+
+    # 2. the sharded stages of partition 0 of the launcher's run: its fused
+    # chain under set_sync_debug_mode("error"), then two ranks on the card
+    R = make_dataset("T1", seed=0, count=args.r_count)
+    S = make_dataset("T2", seed=1, count=args.s_count)
+    parting = part_mod.partition_space([R, S], SCALEOUT_PARTS)
+    p0 = parting.partitions[0]
+    Rp = PolygonDataset("r", R.verts[p0.obj_idx["T1"]],
+                        R.nverts[p0.obj_idx["T1"]])
+    Sp = PolygonDataset("s", S.verts[p0.obj_idx["T2"]],
+                        S.nverts[p0.obj_idx["T2"]])
+    april = get_filter("april")
+    ar = april.build(Rp, n_order=args.n_order, extent=p0.extent, side="r")
+    as_ = april.build(Sp, n_order=args.n_order, extent=p0.extent, side="s")
+    with fused.record_chains() as chains:
+        D.distributed_fused_join(Rp, Sp, ar, as_, mesh=mesh)
+    frame = D.shard_frame(Rp, Sp, None, mesh)
+    prev = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        cs = D.fused_shard_lanes(Rp, Sp, ar, as_, frame, mesh)
+    finally:
+        torch.cuda.set_sync_debug_mode(prev)
+    torch.cuda.synchronize()
+    (want_cs,) = chains
+    if not (torch.equal(cs.status, want_cs.status)
+            and torch.equal(cs.hit, want_cs.hit)):
+        raise AssertionError("[sync-checked] the sharded chain wrote other "
+                             "lanes")
+    print(f"[sync-checked] partition 0 ({len(Rp)} x {len(Sp)}, "
+          f"{len(frame.ri)} frame rows): the sharded fused chain's device "
+          f"stages passed set_sync_debug_mode('error'), status and hit "
+          f"lanes == the unchecked run's", flush=True)
+    del chains, want_cs, cs
+    _two_ranks(Rp, Sp, ar, as_, smi)
+
+    # 3. the out-of-core tiled join over the chunk streams
+    def chunks(n_r, n_s):
+        return (iter_dataset_chunks("T1", seed=0, count=n_r,
+                                    chunk_size=SCALEOUT_CHUNK),
+                iter_dataset_chunks("T2", seed=1, count=n_s,
+                                    chunk_size=SCALEOUT_CHUNK))
+
+    def budget(n_r, n_s, **opts):
+        """A tile budget a sixth of the plan's estimated bytes."""
+        with tempfile.TemporaryDirectory() as tmp:
+            t0 = time.perf_counter()
+            plan, _, _ = plan_scaleout(*chunks(n_r, n_s), spill_dir=tmp,
+                                       n_order=args.n_order, **opts)
+            t_plan = time.perf_counter() - t0
+        b = int(plan.est["total_bytes"] // SCALEOUT_BUDGET_SHARE)
+        print(f"[tiled-plan] {n_r} x {n_s}: estimated "
+              f"{plan.est['total_bytes']} bytes over {len(plan.parts)} "
+              f"partitions, {plan.est['n_splits']} splits; budget {b} "
+              f"bytes ({t_plan:.1f} s)", flush=True)
+        return b
+
+    def in_memory(n_r, n_s):
+        t0 = time.perf_counter()
+        Rm = make_chunked_dataset("T1", seed=0, count=n_r,
+                                  chunk_size=SCALEOUT_CHUNK)
+        Sm = make_chunked_dataset("T2", seed=1, count=n_s,
+                                  chunk_size=SCALEOUT_CHUNK)
+        res, st = JoinPlan(Rm, Sm, filter="april", n_order=args.n_order,
+                           device=dev).build().execute("intersects")
+        print(f"[tiled-reference] in-memory staged cuda JoinPlan over "
+              f"make_chunked_dataset {n_r} x {n_s}: {len(res)} pairs, "
+              f"{st.n_candidates} candidates ({time.perf_counter() - t0:.1f}"
+              f" s)", flush=True)
+        return _pair_set(res), st
+
+    def tiled(label, n_r, n_s, need=(), **kw):
+        res, st = run(label, lambda: tiled_join(
+            *chunks(n_r, n_s), n_order=args.n_order, device=dev, **kw),
+            need=need)
+        tp = st.extra["tile_plan"]
+        print(f"[{label}] tiles {st.tiles} ({st.extra['resumed_tiles']} "
+              f"resumed), n_splits {tp['n_splits']}, t_partition "
+              f"{st.t_partition:.2f} s, t_build {st.t_build:.2f} s; "
+              f"{json.dumps(st.stage_times())}; candidates "
+              f"{st.n_candidates}, TRUE_HIT/TRUE_NEG/INDECISIVE "
+              f"{st.n_true_hits}/{st.n_true_negs}/{st.n_indecisive}, "
+              f"{st.n_results} result pairs (card {smi})", flush=True)
+        return res, st
+
+    n_r, n_s = args.r_count, args.s_count
+    b = budget(n_r, n_s, **SCALEOUT_SPLIT)
+    want_t, _ = in_memory(n_r, n_s)
+    runs = {}
+    for mode in ("staged", "fused"):
+        label = f"tiled-{mode}"
+        res, st = tiled(label, n_r, n_s, need=(
+            ("april_trichotomy", "edges_intersect_csr") if mode == "staged"
+            else ("april_trichotomy", "compact_mask")),
+            pipeline_mode=mode, tile_budget=b, **SCALEOUT_SPLIT)
+        tp = st.extra["tile_plan"]
+        if st.tiles < SCALEOUT_MIN_TILES or tp["n_splits"] < 1 \
+                or tp["total_bytes"] < 4 * b:
+            raise AssertionError(f"[{label}] {st.tiles} tiles, "
+                                 f"{tp['n_splits']} splits, "
+                                 f"{tp['total_bytes']} bytes for a budget "
+                                 f"of {b}")
+        same_set(label, res, want_t)
+        # the tiled counts add up each partition's candidates, replicated
+        # objects' pairs included, so only the results match the
+        # in-memory plan's; staged and fused must agree on all of them
+        if st.n_results != len(want_t):
+            raise AssertionError(f"[{label}] {st.n_results} results, not "
+                                 f"{len(want_t)}")
+        runs[mode] = st
+    for k in COUNTS:
+        if getattr(runs["staged"], k) != getattr(runs["fused"], k):
+            raise AssertionError(f"[tiled] staged and fused {k} differ")
+    # static balance, then a static run stopped after 2 tiles and resumed
+    n_r, n_s = args.r_count // HOST_SCALE, args.s_count // HOST_SCALE
+    b = budget(n_r, n_s, balance="static")
+    want_s, _ = in_memory(n_r, n_s)
+    clean, st = tiled("tiled-static", n_r, n_s, balance="static",
+                      tile_budget=b)
+    same_set("tiled-static", clean, want_s)
+    if st.extra["tile_plan"]["n_splits"] != 0:
+        raise AssertionError("[tiled-static] a static plan split")
+    with tempfile.TemporaryDirectory() as ck:
+        part, st = tiled("tiled-stopped", n_r, n_s, balance="static",
+                         tile_budget=b, ckpt_dir=ck, stop_after_tiles=2)
+        if not st.extra.get("interrupted") or st.tiles <= 2:
+            raise AssertionError("[tiled-stopped] the run did not stop "
+                                 "after 2 of more tiles")
+        res, st = tiled("tiled-resumed", n_r, n_s, balance="static",
+                        tile_budget=b, ckpt_dir=ck)
+    if st.extra["resumed_tiles"] != 2 or not np.array_equal(res, clean):
+        raise AssertionError(f"[tiled-resumed] {st.extra['resumed_tiles']} "
+                             "tiles resumed, or arrays != the clean run's")
+    print(f"[tiled] staged and fused == the in-memory set "
+          f"({len(want_t)} pairs) and each other's counts; static, stopped "
+          f"and resumed at {n_r} x {n_s} == its in-memory set "
+          f"({len(want_s)} pairs), resumed arrays == the static run's "
+          f"(card {smi})", flush=True)
+
+    extra = {name: {"launches_scaleout": {
+        label: n[wrapper] for label, n in launches.items()}}
+        for name, wrapper in counter.items()}
+    print(f"phase 14 ok: the scale-out path "
+          f"({time.perf_counter() - t_phase:.1f} s; card {smi})", flush=True)
+    return extra
+
+
 def _attention_child(out: str) -> None:
     """Phase 9 in this process, its rows of the ``kernels`` line written to
     the JSON file ``out``: the body of :func:`_attention_in_fresh_process`'s
@@ -2541,6 +2943,7 @@ def main() -> int:
               f"and counts; set == APRIL's ({len(want_set)} pairs)",
               flush=True)
     builds["R2"], builds["S2"] = R2, S2
+    builds["want_small"] = want_set
     print(f"phase 6 ok: host filters at {len(R2)} x {len(S2)} "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
 
@@ -2728,6 +3131,12 @@ def main() -> int:
     service = _service_phase(args, dev, R, S, plan, ri_s, wrappers)
     for k in kernels:
         k.update(service.get(k["name"], {}))
+
+    # 14. the scale-out path
+    scaleout = _scaleout_phase(args, dev, _pair_set(results["default"]),
+                               builds["want_small"], wrappers)
+    for k in kernels:
+        k.update(scaleout.get(k["name"], {}))
 
     # 9. the attention kernel, which no join runs, in a fresh process
     kernels.extend(_attention_in_fresh_process())

@@ -52,6 +52,7 @@ __all__ = [
     "contain_rows", "april_trichotomy_rows", "within_trichotomy_rows",
     "linestring_trichotomy_rows", "fused_status_rows", "record_joins",
     "csr_delete_row", "csr_append_row", "adaptive_order",
+    "pack_csr_intervals", "pack_lists",
 ]
 
 I32_MAX = np.int32(np.iinfo(np.int32).max)
@@ -59,7 +60,15 @@ I32_MAX = np.int32(np.iinfo(np.int32).max)
 FILTER_BACKENDS = ("numpy", "torch", "cuda", "sequential")
 
 
+#: the reference's device filter backends and the port's names for them
+_REFERENCE_NAMES = {"jnp": "torch", "pallas": "cuda"}
+
+
 def check_filter_backend(backend: str) -> None:
+    if backend in _REFERENCE_NAMES:
+        raise ValueError(f"unknown filter backend {backend!r}, the "
+                         f"reference's name; the port's is filter_backend="
+                         f"{_REFERENCE_NAMES[backend]!r}")
     if backend not in FILTER_BACKENDS:
         raise ValueError(f"unknown filter backend {backend!r}; "
                          f"expected one of {FILTER_BACKENDS}")
@@ -191,6 +200,42 @@ def linestring_verdict_pair(Ap, Fp, cell_ids: np.ndarray) -> int:
     if interval_join_pair(Fp, cells):
         return TRUE_HIT
     return INDECISIVE
+
+
+# ---------------------------------------------------------------------------
+# Padded packing (the partitioned launcher's filter batches)
+# ---------------------------------------------------------------------------
+
+def pack_csr_intervals(off: np.ndarray, ints: np.ndarray, idx: np.ndarray,
+                       pad_to: int | None = None):
+    """Rows ``idx`` of the CSR interval lists ``ints[off[i]:off[i+1]]``
+    packed into padded biased-int32 arrays: (starts [B, I], lasts [B, I],
+    counts [B] int32), I the widest row (at least ``pad_to``), lasts
+    inclusive (end - 1), padding slots I32_MAX. One vectorized gather."""
+    idx = np.asarray(idx, np.int64)
+    lo = off[idx]
+    counts = (off[idx + 1] - lo).astype(np.int32)
+    B = len(idx)
+    width = int(max(1, counts.max() if B else 1))
+    if pad_to is not None:
+        width = max(width, pad_to)
+    starts = np.full((B, width), I32_MAX, np.int32)
+    lasts = np.full((B, width), I32_MAX, np.int32)
+    if len(ints) and B:
+        col = np.arange(width)[None, :]
+        mask = col < counts[:, None]
+        src = (lo[:, None] + col)[mask]
+        starts[mask] = u32_to_biased_i32(ints[src, 0])
+        lasts[mask] = u32_to_biased_i32(ints[src, 1] - np.uint64(1))
+    return starts, lasts, counts
+
+
+def pack_lists(store, idx: np.ndarray, kind: str, pad_to: int | None = None):
+    """The A (``kind="A"``) or F lists of an APRIL store's rows ``idx``,
+    packed by :func:`pack_csr_intervals`."""
+    off = store.a_off if kind == "A" else store.f_off
+    ints = store.a_ints if kind == "A" else store.f_ints
+    return pack_csr_intervals(off, ints, idx, pad_to=pad_to)
 
 
 # ---------------------------------------------------------------------------

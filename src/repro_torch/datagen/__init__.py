@@ -1,2 +1,3 @@
 from .synthetic import (  # noqa: F401
-    DATASET_SPECS, PolygonDataset, make_dataset, make_linestrings)
+    DATASET_SPECS, PolygonDataset, iter_dataset_chunks, make_chunked_dataset,
+    make_dataset, make_linestrings)

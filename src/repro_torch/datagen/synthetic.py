@@ -4,11 +4,14 @@ Seeded star-shaped rings in the unit square whose statistics mirror the
 paper's TIGER/OSM layers (cardinality ratios, vertex counts, MBR areas),
 and seeded random-walk chains (roads or rivers, the linestring joins of
 §4.3.3). For a given ``(name, seed, count)`` the arrays are bit-identical
-to the reference package's generators.
+to the reference package's generators; so are the chunk streams of
+:func:`iter_dataset_chunks` (the out-of-core join's source) for a given
+``(name, seed, count, chunk_size)``.
 """
 from __future__ import annotations
 
 import zlib
+from collections.abc import Iterator
 from dataclasses import dataclass, field
 
 import numpy as np
@@ -16,7 +19,7 @@ import numpy as np
 from ..core import geometry
 
 __all__ = ["PolygonDataset", "make_dataset", "make_linestrings",
-           "DATASET_SPECS"]
+           "iter_dataset_chunks", "make_chunked_dataset", "DATASET_SPECS"]
 
 
 @dataclass
@@ -95,6 +98,85 @@ def make_dataset(
                     r + 1e-4, 1 - r - 1e-4)
         pts = _star_polygon(rng, c, r, int(nvs[i]), jitter)
         verts[i, : nvs[i]] = pts
+    return PolygonDataset(name=name, verts=verts, nverts=nvs)
+
+
+def _star_polygons_chunk(rng: np.random.Generator, centers: np.ndarray,
+                         radii: np.ndarray, nvs: np.ndarray,
+                         jitter: float) -> np.ndarray:
+    """A whole chunk of star polygons in one vectorized pass: sorted
+    jittered angles and jittered radii, padding slots zeroed. The batched
+    twin of :func:`_star_polygon` (same construction, its own draws)."""
+    n, vmax = len(nvs), int(nvs.max())
+    mask = np.arange(vmax)[None, :] < nvs[:, None]
+    angles = rng.uniform(0.0, 2 * np.pi, size=(n, vmax))
+    # padding sorts to the row tail (inf), then the mask drops it
+    angles = np.sort(np.where(mask, angles, np.inf), axis=1)
+    angles = np.where(mask, angles, 0.0)
+    angles += np.linspace(0, 1e-4, vmax)[None, :]   # no degenerate edges
+    rad = radii[:, None] * (1.0 + jitter * rng.uniform(-1.0, 1.0,
+                                                       size=(n, vmax)))
+    rad = np.maximum(rad, 0.15 * radii[:, None])
+    pts = centers[:, None, :] + np.stack(
+        [rad * np.cos(angles), rad * np.sin(angles)], axis=-1)
+    pts = np.clip(pts, 1e-6, 1.0 - 1e-6)
+    return np.where(mask[..., None], pts, 0.0)
+
+
+def iter_dataset_chunks(
+    name: str, seed: int = 0, count: int | None = None,
+    chunk_size: int = 65536, avg_vertices: int | None = None,
+    avg_radius: float | None = None, map_seed: int = 0,
+) -> Iterator[PolygonDataset]:
+    """Stream a dataset as chunks of ``chunk_size`` polygons, the source of
+    the out-of-core tiled join. Chunk ``ci`` comes from one vectorized pass
+    over an rng seeded on ``(name, seed, ci)``: deterministic, independent
+    of the other chunks, and O(chunk) host memory whatever ``count`` is.
+    Its statistics follow :data:`DATASET_SPECS` as :func:`make_dataset`'s
+    do, but the stream is its own seeded draw, not a re-chunking of
+    :func:`make_dataset`."""
+    spec = DATASET_SPECS.get(name, (1000, 30, 0.005, 0.5))
+    cnt = count if count is not None else spec[0]
+    nv_avg = avg_vertices if avg_vertices is not None else spec[1]
+    rad = avg_radius if avg_radius is not None else spec[2]
+    jitter = spec[3]
+    map_rng = np.random.default_rng(map_seed)
+    n_clusters = 16
+    cl_centers = map_rng.uniform(0.1, 0.9, size=(n_clusters, 2))
+
+    for ci, start in enumerate(range(0, cnt, chunk_size)):
+        m = min(chunk_size, cnt - start)
+        rng = np.random.default_rng(
+            zlib.crc32(f"{name}:{seed}:chunk:{ci}".encode()))
+        nvs = np.clip(rng.poisson(nv_avg, size=m), 4, None).astype(np.int64)
+        radii = rad * np.exp(rng.normal(0.0, 0.45, size=m))
+        spread = max(0.008, 2.5 * rad)
+        cl_idx = rng.integers(0, n_clusters, size=m)
+        centers = cl_centers[cl_idx] + rng.normal(0, spread, size=(m, 2))
+        centers = np.clip(centers, radii[:, None] + 1e-4,
+                          1.0 - radii[:, None] - 1e-4)
+        verts = _star_polygons_chunk(rng, centers, radii, nvs, jitter)
+        yield PolygonDataset(name=name, verts=verts, nverts=nvs)
+
+
+def make_chunked_dataset(
+    name: str, seed: int = 0, count: int | None = None,
+    chunk_size: int = 65536, avg_vertices: int | None = None,
+    avg_radius: float | None = None, map_seed: int = 0,
+) -> PolygonDataset:
+    """:func:`iter_dataset_chunks` concatenated into one dataset, padded to
+    the widest chunk. Object ``i`` here has the global id ``i`` the tiled
+    join gives it (chunk start plus index in the chunk), so this is the
+    in-memory reference of a tiled run."""
+    chunks = list(iter_dataset_chunks(
+        name, seed=seed, count=count, chunk_size=chunk_size,
+        avg_vertices=avg_vertices, avg_radius=avg_radius,
+        map_seed=map_seed))
+    vmax = max(int(c.verts.shape[1]) for c in chunks)
+    verts = np.concatenate([
+        np.pad(c.verts, ((0, 0), (0, vmax - c.verts.shape[1]), (0, 0)))
+        for c in chunks], axis=0)
+    nvs = np.concatenate([c.nverts for c in chunks])
     return PolygonDataset(name=name, verts=verts, nverts=nvs)
 
 

@@ -1,2 +1,4 @@
-"""Runtime services of the port: checkpointing."""
+"""Runtime services of the port: checkpointing and straggler
+mitigation."""
 from .checkpoint import CheckpointManager, flat_to_tree, tree_to_flat  # noqa: F401,E501
+from .elastic import StragglerMonitor, WorkQueue  # noqa: F401

@@ -12,7 +12,11 @@ from .planner import (  # noqa: F401
 from .refine import REFINE_BACKENDS  # noqa: F401
 from .pipeline import (  # noqa: F401
     spatial_intersection_join, spatial_within_join,
-    polygon_linestring_join, selection_queries,
+    polygon_linestring_join, selection_queries, tiled_spatial_join,
+)
+from .scaleout import (  # noqa: F401
+    BALANCE_MODES, SCALEOUT_DEFAULTS, TilePartition, TilePlan,
+    plan_scaleout, tiled_join,
 )
 from .store_cache import StoreCache  # noqa: F401
 from .service import JoinService, JoinTicket, SERVICE_PREDICATES  # noqa: F401

@@ -6,7 +6,9 @@
   ``verdicts`` classifies a candidate batch into the paper's trichotomy
   (TRUE_NEG / TRUE_HIT / INDECISIVE); ``verdicts_seq`` is the per-pair
   reference the batched path must equal; ``status_lane`` is the fused
-  chain's device int8 lane of the same verdicts.
+  chain's device int8 lane of the same verdicts; ``verdicts_mesh`` (where
+  ``supports_mesh``) shards the ``intersects`` verdicts over the ranks of
+  a ``JoinMesh``.
 * ``patch_insert`` / ``patch_delete`` — incremental maintenance: one
   object's row spliced into or out of a built store in place, which then
   equals a fresh rebuild over the patched dataset, host arrays and the
@@ -71,6 +73,9 @@ class IntermediateFilter(abc.ABC):
     """One intermediate filter method."""
 
     name: str = "?"
+    #: filters with a rank-sharded path (``verdicts_mesh``, see
+    #: ``spatial/distributed.py``)
+    supports_mesh: bool = False
 
     @abc.abstractmethod
     def build(self, dataset, *, n_order: int = 10,
@@ -206,6 +211,15 @@ class IntermediateFilter(abc.ABC):
                              predicate=predicate, backend=backend,
                              device=dev, **opts)
         return upload(np.asarray(verd, np.int8), dev)
+
+    def verdicts_mesh(self, approx_r: Approximation,
+                      approx_s: Approximation, pairs: np.ndarray, *,
+                      mesh=None, **opts) -> tuple[np.ndarray, dict]:
+        """(verdicts [N] int8, counts) of the ``intersects`` trichotomy,
+        sharded over the ranks of ``mesh``; only filters with
+        ``supports_mesh`` have it."""
+        raise NotImplementedError(
+            f"filter {self.name!r} has no rank-sharded path")
 
 
 def release_device(approx: Approximation) -> None:

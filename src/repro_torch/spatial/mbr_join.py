@@ -158,6 +158,19 @@ def mbr_inside(mr: np.ndarray, ms: np.ndarray) -> np.ndarray:
             & (mr[:, 2] <= ms[:, 2]) & (mr[:, 3] <= ms[:, 3]))
 
 
+def _pad_rows_pow2(xs: list[np.ndarray], multiple: int = 1
+                   ) -> tuple[list[np.ndarray], int]:
+    """Zero-pad equal-length arrays (axis 0) to the next power of two, then
+    up to a multiple of ``multiple`` (the ranks a frame is split over);
+    returns (padded arrays, original length)."""
+    n = len(xs[0])
+    p2 = 1 << int(np.ceil(np.log2(max(n, 1))))
+    pad = max(multiple, ((p2 + multiple - 1) // multiple) * multiple)
+    return [x if len(x) == pad else
+            np.concatenate([x, np.zeros((pad - n,) + x.shape[1:], x.dtype)])
+            for x in xs], n
+
+
 def _prepare(mbrs_r, mbrs_s, grid: int | None):
     """Shared host preamble of the entry points: coerce, resolve the joint
     extent and grid. Returns (mbrs_r, mbrs_s, k, extent), ``k = 0``

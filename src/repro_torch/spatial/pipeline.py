@@ -5,6 +5,7 @@ the reference package's call sites:
     spatial_within_join(R, S)                         # r within s
     polygon_linestring_join(S, L)                     # (line, poly) pairs
     selection_queries(data, queries)                  # per-query hits
+    tiled_spatial_join(r_chunks, s_chunks)            # out-of-core, tiled
 
 New code should use ``JoinPlan(R, S, filter=...).build().execute(p)``.
 Every shim forwards the backend knobs, ``pipeline_mode``, ``plan_mode``
@@ -22,7 +23,8 @@ from ..core.compress import compress_april
 from .plan import JoinPlan, JoinStats
 
 __all__ = ["JoinStats", "spatial_intersection_join", "spatial_within_join",
-           "polygon_linestring_join", "selection_queries"]
+           "polygon_linestring_join", "selection_queries",
+           "tiled_spatial_join"]
 
 
 def _plan(R, S, method, n_order, *, filter_backend=None,
@@ -76,6 +78,34 @@ def spatial_intersection_join(
         pr, ps = prebuilt
         plan.build(prebuilt=(_adopt(method, pr), _adopt(method, ps)))
     return plan.execute("intersects")
+
+
+def tiled_spatial_join(
+    r_chunks, s_chunks, predicate: str = "intersects",
+    method: str = "april", n_order: int = 10,
+    tile_budget: int | None = None, balance: str = "cost",
+    ckpt_dir: str | None = None, resume: bool = True,
+    filter_backend: str | None = None, refine_backend: str | None = None,
+    mbr_backend: str = "numpy", pipeline_mode: str = "staged",
+    plan_mode: str = "static", device=None, **scaleout_opts,
+) -> tuple[np.ndarray, JoinStats]:
+    """The out-of-core tiled join with the knob names of the shims above,
+    plus the partitioner's ``tile_budget`` (resident bytes a tile) and
+    ``balance``, and ``ckpt_dir`` / ``resume`` (a rerun continues at the
+    first unfinished tile). Inputs are chunk iterators or in-memory
+    datasets; result pairs are global ids, the pair set of the in-memory
+    shims. Forwards to :func:`~repro_torch.spatial.scaleout.tiled_join`."""
+    from .scaleout import SCALEOUT_DEFAULTS, tiled_join
+    if tile_budget is not None:
+        scaleout_opts["tile_budget"] = tile_budget
+    scaleout_opts.setdefault("tile_budget", SCALEOUT_DEFAULTS["tile_budget"])
+    return tiled_join(r_chunks, s_chunks, predicate=predicate,
+                      method=method, n_order=n_order,
+                      filter_backend=filter_backend,
+                      refine_backend=refine_backend,
+                      mbr_backend=mbr_backend, pipeline_mode=pipeline_mode,
+                      plan_mode=plan_mode, ckpt_dir=ckpt_dir, resume=resume,
+                      balance=balance, device=device, **scaleout_opts)
 
 
 def spatial_within_join(

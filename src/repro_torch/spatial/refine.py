@@ -52,7 +52,7 @@ __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
            "refine", "refine_pairs", "refine_pairs_seq",
            "refine_within_pairs", "refine_within_pairs_seq",
            "refine_line_poly_pairs", "refine_line_poly_pairs_seq",
-           "device_geometry", "fused_refine_lanes"]
+           "device_geometry", "fused_refine_lanes", "iter_pair_chunks"]
 
 REFINE_BACKENDS = ("numpy", "torch", "cuda", "device64", "sequential")
 
@@ -61,6 +61,11 @@ _CHUNK_ELEMS = 1 << 20
 
 
 def check_refine_backend(backend: str) -> None:
+    if backend in ("jnp", "pallas"):
+        port = "device64" if backend == "jnp" else "cuda"
+        raise ValueError(f"unknown refine backend {backend!r}, the "
+                         f"reference's name; the port's is refine_backend="
+                         f"{port!r}")
     if backend not in REFINE_BACKENDS:
         raise ValueError(f"unknown refine backend {backend!r}; "
                          f"expected one of {REFINE_BACKENDS}")
@@ -469,6 +474,19 @@ def _device_of(backend: str, device):
     dev = resolve_device(device)
     check_backend_device(backend, dev)
     return dev
+
+
+def iter_pair_chunks(R, S, pairs: np.ndarray):
+    """(sel, p, vr, nr, vs, ns) for each chunk of ``pairs`` in the
+    power-of-two buckets of the per-pair Er x Es tile size: the bucketing
+    of the bucketed refines here, shared with ``spatial/distributed.py``."""
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    nvr = R.nverts[pairs[:, 0]]
+    nvs = S.nverts[pairs[:, 1]]
+    for sel, Va, Vb in _buckets(nvr, nvs):
+        p = pairs[sel]
+        yield (sel, p, R.verts[:, :Va][p[:, 0]], nvr[sel],
+               S.verts[:, :Vb][p[:, 1]], nvs[sel])
 
 
 def refine_pairs(R, S, pairs: np.ndarray, use_cmbr: bool = True,
