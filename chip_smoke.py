@@ -186,7 +186,7 @@ reference package. Phases, any failure exits non-zero:
    must equal a one-request run (filter ``none``, numpy backends) over the
    dataset as it stood at its drain, and the fused tickets the staged
    ones, pairs and order. RI staged and fused services (seeded with
-   copies of phase 5's T2 store) take the first 64. Then the patched
+   copies of phase 5's T2 store) take the first 128. Then the patched
    stores must equal fresh torch builds over the mutated dataset, every
    array in dtype, shape and bytes, and so must the device copies the
    last drain used (the interval lists and their row keys, RI's device
@@ -196,7 +196,7 @@ reference package. Phases, any failure exits non-zero:
    sets; a checkpoint of the staged service restores into a new one,
    which must answer 64 requests alike; under a budget of one store,
    warming a second dataset's store must evict and lower
-   ``torch.cuda.memory_allocated``; ``run_serve`` drives 1000 requests
+   ``torch.cuda.memory_allocated``; ``run_serve`` drives 2000 requests
    through the background worker (figures, not gates). Launch counts are
    reset before and read after each trace, and every recorded B1, B4, B2,
    B3 and B5 input is replayed against its plain version, exactly;
@@ -324,16 +324,15 @@ NEIGHBORS_PREFIX = 10
 #: fused services), of the RI trace, of the adaptive trace (a prefix of
 #: the APRIL trace) and of the checkpoint round trip; requests a drain
 #: takes; an insert and a delete every SERVICE_MUTATE requests; the
-#: requests run_serve drives through the background worker. The RI trace
-#: (128) and run_serve (2000) were cut to make room for phase 14
+#: requests run_serve drives through the background worker
 SERVICE_REQUESTS = 512
-SERVICE_RI_REQUESTS = 64
+SERVICE_RI_REQUESTS = 128
 SERVICE_ADAPTIVE_REQUESTS = 192
 SERVICE_CKPT_REQUESTS = 64
 SERVICE_GROUP = 16
 SERVICE_MUTATE = 25
 SERVICE_REPLAN_AFTER = 4
-SERVE_REQUESTS = 1000
+SERVE_REQUESTS = 2000
 SERVICE_SEED = 29
 #: phase 14, the scale-out path: the launcher's partitions a side; the
 #: tiled join's chunk size, its budget a share of the plan's estimated
@@ -2003,7 +2002,9 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
     from repro_torch.runtime.checkpoint import CheckpointManager
     from repro_torch.spatial import distributed as D
     from repro_torch.spatial import fused, get_filter
+    from repro_torch.core.geometry import BUILD_STAGES
     from repro_torch.spatial import refine as refine_mod
+    from repro_torch.spatial.planner import _store_ints
     from repro_torch.spatial.scaleout import plan_scaleout, tiled_join
     t_phase = time.perf_counter()
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2150,10 +2151,15 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
                                        n_order=args.n_order, **opts)
             t_plan = time.perf_counter() - t0
         b = int(plan.est["total_bytes"] // SCALEOUT_BUDGET_SHARE)
+        # the partitions' intervals as the probes estimate them: a
+        # partition rasterises its objects at n_order over its own extent
+        ints = sum(p.est.get("mean_ints_r", 0.0) * p.n_r
+                   + p.est.get("mean_ints_s", 0.0) * p.n_s
+                   for p in plan.parts)
         print(f"[tiled-plan] {n_r} x {n_s}: estimated "
               f"{plan.est['total_bytes']} bytes over {len(plan.parts)} "
-              f"partitions, {plan.est['n_splits']} splits; budget {b} "
-              f"bytes ({t_plan:.1f} s)", flush=True)
+              f"partitions, {plan.est['n_splits']} splits, {ints:.0f} "
+              f"intervals; budget {b} bytes ({t_plan:.1f} s)", flush=True)
         return b
 
     def in_memory(n_r, n_s):
@@ -2162,22 +2168,30 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
                                   chunk_size=SCALEOUT_CHUNK)
         Sm = make_chunked_dataset("T2", seed=1, count=n_s,
                                   chunk_size=SCALEOUT_CHUNK)
-        res, st = JoinPlan(Rm, Sm, filter="april", n_order=args.n_order,
-                           device=dev).build().execute("intersects")
+        jp = JoinPlan(Rm, Sm, filter="april", n_order=args.n_order,
+                      device=dev).build()
+        res, st = jp.execute("intersects")
+        ints = _store_ints(jp.approx_r.store) + _store_ints(jp.approx_s.store)
         print(f"[tiled-reference] in-memory staged cuda JoinPlan over "
               f"make_chunked_dataset {n_r} x {n_s}: {len(res)} pairs, "
-              f"{st.n_candidates} candidates ({time.perf_counter() - t0:.1f}"
-              f" s)", flush=True)
+              f"{st.n_candidates} candidates, {ints} intervals, t_build "
+              f"{st.t_build:.2f} s ({time.perf_counter() - t0:.1f} s)",
+              flush=True)
         return _pair_set(res), st
 
     def tiled(label, n_r, n_s, need=(), **kw):
-        res, st = run(label, lambda: tiled_join(
-            *chunks(n_r, n_s), n_order=args.n_order, device=dev, **kw),
-            need=need)
+        with BUILD_STAGES.record() as stages:
+            res, st = run(label, lambda: tiled_join(
+                *chunks(n_r, n_s), n_order=args.n_order, device=dev, **kw),
+                need=need)
         tp = st.extra["tile_plan"]
+        # t_partition holds the probe builds, t_build the partitions'
         print(f"[{label}] tiles {st.tiles} ({st.extra['resumed_tiles']} "
               f"resumed), n_splits {tp['n_splits']}, t_partition "
-              f"{st.t_partition:.2f} s, t_build {st.t_build:.2f} s; "
+              f"{st.t_partition:.2f} s (probe builds "
+              f"{stages.get('probe', 0.0):.2f} s), t_build "
+              f"{st.t_build:.2f} s (partition builds); build stages of "
+              f"both {json.dumps(stages)}; "
               f"{json.dumps(st.stage_times())}; candidates "
               f"{st.n_candidates}, TRUE_HIT/TRUE_NEG/INDECISIVE "
               f"{st.n_true_hits}/{st.n_true_negs}/{st.n_indecisive}, "

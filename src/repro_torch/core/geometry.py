@@ -37,7 +37,8 @@ __all__ = [
 BUILD_BACKENDS = ("numpy", "torch", "sequential")
 #: host seconds of the batched builds' stages (``dda``, ``scanline``,
 #: ``pip`` or ``clip``, ``pack``; RA ``fit``, 5C+CH ``pentagon`` and
-#: ``hull``), summed inside a ``BUILD_STAGES.record()`` block
+#: ``hull``; ``probe``, the scale-out planner's probe builds, holds the
+#: stages of those builds), summed inside a ``BUILD_STAGES.record()`` block
 BUILD_STAGES = StageClock()
 
 

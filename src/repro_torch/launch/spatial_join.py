@@ -43,6 +43,7 @@ import os
 import time
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 from ..core import partition as partition_mod
@@ -61,7 +62,8 @@ from ..spatial.mbr_join import check_mbr_backend, mbr_join
 from ..spatial.plan import JoinPlan
 from ..spatial.planner import ProfileCache, check_plan_mode
 
-__all__ = ["join_partition", "run_join", "run_tiled_join", "main"]
+__all__ = ["join_partition", "run_join", "run_tiled_join", "rank_device",
+           "main"]
 
 
 def _owned(parting, pidx, R, S, ridx, sidx, local_pairs):
@@ -351,6 +353,15 @@ def run_tiled_join(r_name="T1", s_name="T2", *, tile_budget: int,
     return pairs, stats
 
 
+def rank_device(device: str) -> str:
+    """The device this rank runs on: under ``torchrun`` (``WORLD_SIZE`` >
+    1) a bare ``cuda`` is ``cuda:<LOCAL_RANK>``, so that each rank runs
+    its shard on its own card; any other device as given."""
+    if device == "cuda" and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return f"cuda:{int(os.environ.get('LOCAL_RANK', '0'))}"
+    return device
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--r", default="T1")
@@ -405,7 +416,11 @@ def main():
         dist.init_process_group("gloo")
         own_group = True
     try:
-        mesh = make_join_mesh(device=args.device)
+        device = rank_device(args.device)
+        mesh = make_join_mesh(device=device)
+        if mesh.device.type == "cuda" and mesh.device.index is not None:
+            # the kernels launch on the current device's stream
+            torch.cuda.set_device(mesh.device)
         backend = args.filter_backend or args.backend
         if args.tile_budget is not None:
             run_tiled_join(args.r, args.s, tile_budget=args.tile_budget,
@@ -419,7 +434,7 @@ def main():
                            pipeline_mode=args.pipeline_mode,
                            plan_mode=args.plan_mode,
                            mesh=mesh if mesh.size > 1 else None,
-                           device=args.device)
+                           device=device)
         else:
             run_join(args.r, args.s, n_order=args.n_order,
                      parts=args.parts, ckpt_dir=args.ckpt_dir,

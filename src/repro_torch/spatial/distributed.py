@@ -17,10 +17,13 @@ one rank calls no collective.
   the co-bucket rows, each rank tests its shard's intersection and
   reference-point ownership as a float64 device lane.
 * :func:`distributed_filter` — any registered filter. Filters with
-  ``supports_mesh`` (APRIL) on a device backend pack the candidates into
-  power-of-two width buckets (:func:`bucket_pairs`) and shard each bucket
-  through :func:`distributed_april_filter`, the trichotomy kernel (B1);
-  the others run their batched ``verdicts``.
+  ``supports_mesh`` (APRIL) on a device backend shard the candidate rows
+  (:func:`sharded_trichotomy`): each rank runs one trichotomy launch (B1)
+  over its rows on the cached CSR interval lists. The others run their
+  batched ``verdicts``. :func:`pack_pair_batch`, :func:`bucket_pairs` and
+  :func:`distributed_april_filter` keep the reference's packed batches
+  (power-of-two width buckets, padded lists) and its filter over them;
+  no join path takes them, since B1 reads CSR and needs no padding.
 * :func:`distributed_refine` — the float64 device cores over the
   vertex-count buckets of the INDECISIVE pairs, guard-band rows re-checked
   on the host.
@@ -44,16 +47,17 @@ import torch.distributed as dist
 from ..core import join
 from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG, pack_lists
 from ..device import check_backend_device, resolve_device, upload
-from ..kernels.compact import compact_mask, compact_mask_plain
 from ..kernels.interval_join import CSRLists
 from . import refine as RF
 from .filters import Approximation, get_filter
-from .fused import _CHAINS, CandidateSet, to_host
+from .fused import (_CHAINS, CandidateSet, device_frame, mask_status,
+                    refine_lanes, to_host)
 from .mbr_join import _pad_rows_pow2, _prepare, candidate_rows, pair_mask_lane
 
 __all__ = [
     "JoinMesh", "make_join_mesh", "PackedPairs", "pack_pair_batch",
-    "bucket_pairs", "distributed_april_filter", "distributed_filter",
+    "bucket_pairs", "distributed_april_filter", "sharded_trichotomy",
+    "distributed_filter",
     "distributed_mbr_join", "distributed_refine", "distributed_fused_join",
     "ShardFrame", "shard_frame", "fused_shard_lanes",
 ]
@@ -105,6 +109,18 @@ class JoinMesh:
         t = torch.from_numpy(counts)
         dist.all_reduce(t, group=self.group)
         return t.numpy()
+
+    def shard_pairs(self, pairs: np.ndarray) -> tuple[np.ndarray,
+                                                      np.ndarray]:
+        """This rank's share of ``pairs`` [N, 2] (N > 0) padded to a
+        multiple of the rank count, and which of its rows are real. Pad
+        rows repeat the first pair, so that they stay within its lists and
+        ring widths."""
+        B = max(self.size, -(-len(pairs) // self.size) * self.size)
+        padded = np.concatenate([pairs, np.repeat(pairs[:1], B - len(pairs),
+                                                  axis=0)])
+        sh = self.shard(B)
+        return np.ascontiguousarray(padded[sh]), np.arange(B)[sh] < len(pairs)
 
     def all_gather(self, *lanes: np.ndarray) -> tuple[np.ndarray, ...]:
         """One-byte host lanes (bool or int8) of this rank's shard,
@@ -274,6 +290,35 @@ def distributed_april_filter(packed: PackedPairs,
                   "indecisive": int(counts[2])}
 
 
+_VERDICT_NAMES = ("true_neg", "true_hit", "indecisive")
+
+
+def sharded_trichotomy(approx_r, approx_s, pairs: np.ndarray,
+                       mesh: JoinMesh, backend: str | None = None):
+    """APRIL's ``intersects`` trichotomy of ``pairs`` [N, 2] with the rows
+    sharded over the ranks of ``mesh``: each rank runs one trichotomy
+    launch (``backend="cuda"``) or its plain version (``"torch"``; default
+    the device's own) over its share of the rows, on the CSR interval
+    lists ``approx_r``/``approx_s`` cache (``join.fused_status_rows``),
+    and the verdict lanes are gathered in batch order. Returns (verdicts
+    [N] int8, counts)."""
+    backend = _mesh_backend(mesh, backend)
+    pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
+    N = len(pairs)
+    if N == 0:
+        return np.zeros(0, np.int8), dict.fromkeys(_VERDICT_NAMES, 0)
+    rows, real = mesh.shard_pairs(pairs)
+    lists = get_filter("april")._lists
+    (verd,) = to_host(join.fused_status_rows(
+        lists(approx_r, "A"), lists(approx_r, "F"), lists(approx_s, "A"),
+        lists(approx_s, "F"), rows[:, 0], rows[:, 1], predicate="intersects",
+        backend=backend, device=mesh.device))
+    counts = mesh.all_sum([np.sum(real & (verd == c))
+                           for c in (TRUE_NEG, TRUE_HIT, INDECISIVE)])
+    (verd,) = mesh.all_gather(verd)
+    return verd[:N], dict(zip(_VERDICT_NAMES, map(int, counts)))
+
+
 def distributed_filter(filt, approx_r, approx_s, pairs: np.ndarray,
                        mesh: JoinMesh | None = None, backend: str = "numpy",
                        predicate: str = "intersects",
@@ -378,13 +423,7 @@ def distributed_refine(R, S, pairs: np.ndarray,
     n_true = 0
     for sel, p, vr, _, vs, _ in RF.iter_pair_chunks(R, S, pairs):
         Va, Vb = vr.shape[1], vs.shape[1]
-        Bp = max(mesh.size, -(-len(p) // mesh.size) * mesh.size)
-        # pad rows repeat the chunk's first pair, so that they stay
-        # within its ring widths; they are masked out below
-        padded = np.concatenate([p, np.repeat(p[:1], Bp - len(p), axis=0)])
-        valid = np.arange(Bp) < len(p)
-        sh = mesh.shard(Bp)
-        rows = np.ascontiguousarray(padded[sh])
+        rows, real = mesh.shard_pairs(p)
         rr, ss = upload(rows[:, 0].copy(), dev), upload(rows[:, 1].copy(), dev)
         C = RF._chunk_rows(Va, Vb)
         lanes = [torch.stack(RF._core_lanes(kind, geom_r, geom_s,
@@ -392,8 +431,8 @@ def distributed_refine(R, S, pairs: np.ndarray,
                                             Va, Vb))
                  for c0 in range(0, len(rows), C)]
         res, unc = to_host(*torch.cat(lanes, dim=1))
-        res &= valid[sh]
-        unc &= valid[sh]
+        res &= real
+        unc &= real
         if unc.any():    # guard-band rows: the float64 host re-check
             res[unc] = RF.refine(R, S, rows[unc], predicate=predicate,
                                  backend="numpy")
@@ -466,10 +505,7 @@ def fused_shard_lanes(R, S, approx_r, approx_s, frame: ShardFrame,
     backend = _mesh_backend(mesh, backend)
     dev = mesh.device
     sh = mesh.shard(len(frame.ri))
-    ri = np.ascontiguousarray(frame.ri[sh])
-    si = np.ascontiguousarray(frame.si[sh])
-    cs = CandidateSet(ri=ri, si=si, ri_dev=upload(ri, dev),
-                      si_dev=upload(si, dev))
+    cs = device_frame(frame.ri[sh], frame.si[sh], dev)
     cs.valid = pair_mask_lane(frame.mbrs_r, frame.mbrs_s, frame.lo_r,
                               frame.lo_s, cs.ri_dev, cs.si_dev,
                               frame.own_x[sh], frame.own_y[sh], dev) \
@@ -478,23 +514,14 @@ def fused_shard_lanes(R, S, approx_r, approx_s, frame: ShardFrame,
         lists = get_filter("april")._lists
         lane = join.fused_status_rows(
             lists(approx_r, "A"), lists(approx_r, "F"), lists(approx_s, "A"),
-            lists(approx_s, "F"), ri, si, predicate="intersects",
+            lists(approx_s, "F"), cs.ri, cs.si, predicate="intersects",
             rows=(cs.ri_dev, cs.si_dev), backend=backend, device=dev)
-        cs.status = torch.where(cs.valid, lane, TRUE_NEG)
     else:
-        cs.status = torch.where(cs.valid, INDECISIVE,
-                                TRUE_NEG).to(torch.int8)
-    compact = compact_mask if backend == "cuda" else compact_mask_plain
-    perm, count = compact(cs.status == INDECISIVE)
-    res, unc = RF.fused_refine_lanes(R, S, cs.ri_dev, cs.si_dev, perm, count,
-                                     dev, "intersects")
-    perm = perm.to(torch.int64)
-    N = len(cs)
-    hit = torch.zeros(N, dtype=torch.bool, device=dev)
-    cs.hit = (cs.status == TRUE_HIT) | hit.scatter_(0, perm, res)
-    cs.unc = torch.zeros(N, dtype=torch.bool,
-                         device=dev).scatter_(0, perm, unc)
-    return cs
+        lane = torch.full((len(cs),), INDECISIVE, dtype=torch.int8,
+                          device=dev)
+    mask_status(cs, lane)
+    return refine_lanes(cs, R, S, dev, "intersects",
+                        kernel=backend == "cuda")
 
 
 def distributed_fused_join(R, S, approx_r, approx_s,

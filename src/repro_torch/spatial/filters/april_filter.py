@@ -197,36 +197,17 @@ class AprilFilter(IntermediateFilter):
 
     def verdicts_mesh(self, approx_r, approx_s, pairs, *, mesh=None,
                       backend: str | None = None, **opts):
-        """The ``intersects`` trichotomy of ``pairs`` in power-of-two width
-        buckets (``distributed.bucket_pairs``), each bucket's rows sharded
+        """The ``intersects`` trichotomy of ``pairs`` with the rows sharded
         over the ranks of ``mesh`` (``None``: a mesh of this process on
-        the card) and run through the trichotomy kernel (``backend``
-        ``"cuda"``) or its plain version (``"torch"``; default the mesh
-        device's own); the verdicts scattered back to batch order.
-        Returns (verdicts [N] int8, counts)."""
-        from ..distributed import (bucket_pairs, distributed_april_filter,
-                                   make_join_mesh)
+        the card), one trichotomy launch a rank (``backend`` ``"cuda"``)
+        or its plain version (``"torch"``; default the mesh device's own)
+        over the cached CSR lists (``distributed.sharded_trichotomy``).
+        Returns (verdicts [N] int8 in batch order, counts)."""
+        from ..distributed import make_join_mesh, sharded_trichotomy
         if opts:
             raise TypeError(f"unexpected filter options {sorted(opts)}")
-        pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
-        mesh = mesh or make_join_mesh()
-        # a slot the scatter never writes (a duplicated pair) is refined,
-        # not dropped as a certain negative
-        verdicts = np.full(len(pairs), join.INDECISIVE, np.int8)
-        counts = {"true_neg": 0, "true_hit": 0, "indecisive": 0}
-        keys = (pairs[:, 0] << 32) | pairs[:, 1]
-        order = np.argsort(keys)
-        sorted_keys = keys[order]
-        for packed in bucket_pairs(approx_r.store, approx_s.store, pairs,
-                                   n_devices=mesh.size):
-            verd, c = distributed_april_filter(packed, mesh, backend=backend)
-            for k in counts:
-                counts[k] += c[k]
-            pidx = packed.pair_idx[packed.valid]
-            vkeys = (pidx[:, 0] << 32) | pidx[:, 1]
-            verdicts[order[np.searchsorted(sorted_keys, vkeys)]] = \
-                verd[packed.valid]
-        return verdicts, counts
+        return sharded_trichotomy(approx_r, approx_s, pairs,
+                                  mesh or make_join_mesh(), backend=backend)
 
 
 @register_filter("april-c")

@@ -29,7 +29,8 @@ from . import refine as RF
 from .mbr_join import _prepare, candidate_rows, mbr_inside, pair_mask_lane
 
 __all__ = ["PIPELINE_MODES", "check_pipeline_mode", "to_host",
-           "CandidateSet", "Stage", "StagePlan", "build_stage_plan",
+           "CandidateSet", "Stage", "StagePlan", "device_frame",
+           "mask_status", "refine_lanes", "build_stage_plan",
            "execute_fused", "record_chains"]
 
 #: execution modes of JoinPlan: 'staged' materializes each stage's
@@ -134,6 +135,42 @@ def _empty_cs() -> CandidateSet:
 # Stage builders
 # ---------------------------------------------------------------------------
 
+def device_frame(ri, si, dev: torch.device) -> CandidateSet:
+    """A pair frame ``(ri, si)`` and its one upload to ``dev``."""
+    ri = np.ascontiguousarray(ri, np.int64)
+    si = np.ascontiguousarray(si, np.int64)
+    return CandidateSet(ri=ri, si=si, ri_dev=upload(ri, dev),
+                        si_dev=upload(si, dev))
+
+
+def mask_status(cs: CandidateSet, lane: torch.Tensor) -> CandidateSet:
+    """``cs.status``: the filter's ``lane`` with the rows ``cs.valid``
+    rejects (when there is a ``valid`` lane) set to TRUE_NEG."""
+    cs.status = (lane if cs.valid is None
+                 else torch.where(cs.valid, lane, TRUE_NEG))
+    return cs
+
+
+def refine_lanes(cs: CandidateSet, R, S, dev: torch.device,
+                 predicate: str, kernel: bool) -> CandidateSet:
+    """The filter -> refine boundary and the refinement of ``cs``: the
+    INDECISIVE rows of ``cs.status`` compacted on the device (the scan
+    kernel when ``kernel``, else its plain version), the predicate's
+    float64 core over the packed prefix (``refine.fused_refine_lanes``),
+    scattered back to ``cs.hit`` (TRUE_HIT rows included) and ``cs.unc``."""
+    compact = compact_mask if kernel else compact_mask_plain
+    perm, count = compact(cs.status == INDECISIVE)
+    res, unc = RF.fused_refine_lanes(R, S, cs.ri_dev, cs.si_dev, perm, count,
+                                     dev, predicate)
+    perm = perm.to(torch.int64)
+    N = len(cs)
+    hit_ref = torch.zeros(N, dtype=torch.bool, device=dev)
+    cs.hit = (cs.status == TRUE_HIT) | hit_ref.scatter_(0, perm, res)
+    cs.unc = torch.zeros(N, dtype=torch.bool,
+                         device=dev).scatter_(0, perm, unc)
+    return cs
+
+
 def build_stage_plan(plan, predicate: str) -> StagePlan:
     """The three-stage fused chain of one ``JoinPlan`` execution.
 
@@ -158,18 +195,12 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
     """
     dev = plan.device
 
-    def frame(ri, si) -> CandidateSet:
-        ri = np.ascontiguousarray(ri, np.int64)
-        si = np.ascontiguousarray(si, np.int64)
-        return CandidateSet(ri=ri, si=si, ri_dev=upload(ri, dev),
-                            si_dev=upload(si, dev))
-
     def mbr_stage(_):
         if plan.mbr_index is not None or plan.mbr_backend != "torch":
             pairs = plan.candidates(predicate)
             if len(pairs) == 0:
                 return _empty_cs()
-            return frame(pairs[:, 0], pairs[:, 1])
+            return device_frame(pairs[:, 0], pairs[:, 1], dev)
         mbrs_r, mbrs_s, k, extent = _prepare(plan.R.mbrs, plan.S.mbrs,
                                              plan.mbr_grid)
         if k == 0:
@@ -178,7 +209,7 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
                                                           extent)
         if len(ri) == 0:
             return _empty_cs()
-        cs = frame(ri, si)
+        cs = device_frame(ri, si, dev)
         cs.valid = pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, cs.ri_dev,
                                   cs.si_dev, own_x, own_y, dev)
         if predicate == "within":
@@ -192,27 +223,13 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
             plan.approx_r, plan.approx_s, cs.ri, cs.si, predicate=predicate,
             backend=plan.filter_backend, device=dev,
             rows=(cs.ri_dev, cs.si_dev), **plan.filter_opts)
-        if cs.valid is not None:
-            lane = torch.where(cs.valid, lane, TRUE_NEG)
-        cs.status = lane
-        return cs
+        return mask_status(cs, lane)
 
     def refine_stage(cs):
         if len(cs) == 0:
             return cs
-        compact = (compact_mask if plan.refine_backend == "cuda"
-                   else compact_mask_plain)
-        perm, count = compact(cs.status == INDECISIVE)
-        res, unc = RF.fused_refine_lanes(plan.R, plan.S, cs.ri_dev,
-                                         cs.si_dev, perm, count, dev,
-                                         predicate)
-        perm = perm.to(torch.int64)
-        N = len(cs)
-        hit_ref = torch.zeros(N, dtype=torch.bool, device=dev)
-        cs.hit = (cs.status == TRUE_HIT) | hit_ref.scatter_(0, perm, res)
-        cs.unc = torch.zeros(N, dtype=torch.bool,
-                             device=dev).scatter_(0, perm, unc)
-        return cs
+        return refine_lanes(cs, plan.R, plan.S, dev, predicate,
+                            kernel=plan.refine_backend == "cuda")
 
     return StagePlan([Stage("mbr", mbr_stage),
                       Stage("filter", filter_stage),

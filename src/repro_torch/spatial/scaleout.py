@@ -58,6 +58,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from ..core.geometry import BUILD_STAGES
 from ..core.partition import owner_tiles, quadrants, square_extent, tile_hits
 from ..core.rasterize import Extent
 from ..datagen.synthetic import PolygonDataset
@@ -299,8 +300,10 @@ def estimate_partition(st_r: _SideStats, st_s: _SideStats, extent: Extent,
     mean_vp = 0.0
     if ds_r is not None and ds_s is not None:
         filt = get_filter("april")
-        ax_r = filt.build(ds_r, n_order=n_order, extent=extent, kind=r_kind)
-        ax_s = filt.build(ds_s, n_order=n_order, extent=extent)
+        with BUILD_STAGES.stage("probe"):
+            ax_r = filt.build(ds_r, n_order=n_order, extent=extent,
+                              kind=r_kind)
+            ax_s = filt.build(ds_s, n_order=n_order, extent=extent)
         mean_ints_r = _store_ints(ax_r.store) / len(ds_r)
         mean_ints_s = _store_ints(ax_s.store) / len(ds_s)
         mr = np.asarray([m for _, _, _, m in st_r.sample])

@@ -147,6 +147,42 @@ def test_filter_and_verdicts_mesh_match(data, mesh, method):
     assert np.array_equal(got, want)
 
 
+@pytest.mark.parametrize("size", [1, 2, 3])
+def test_shard_pairs_cover_the_batch(data, size):
+    pairs = data[4][:7]
+    shards = [D.JoinMesh(torch.device("cpu"), None, r, size).shard_pairs(
+        pairs) for r in range(size)]
+    rows = np.concatenate([s for s, _ in shards])
+    real = np.concatenate([r for _, r in shards])
+    assert len(rows) % size == 0 and real.sum() == len(pairs)
+    assert np.array_equal(rows[real], pairs)
+    assert (rows[~real] == pairs[0]).all()
+
+
+def test_verdicts_mesh_is_one_launch_over_csr(data, mesh):
+    """One trichotomy call over the batch's own rows, on the cached CSR
+    lists (no width buckets, no padded copies); a duplicated pair gets its
+    own verdict in every slot."""
+    R0, S0, R, S, pairs = data
+    f = get_filter("april")
+    ar, as_ = (f.build(X, n_order=N_ORDER, side=side)
+               for X, side in ((R, "r"), (S, "s")))
+    batch = np.concatenate([pairs, pairs[:5]])
+    with join.record_joins() as calls:
+        got, counts = f.verdicts_mesh(ar, as_, batch, mesh=mesh)
+    assert [name for name, _ in calls] == ["april_trichotomy"]
+    lists = calls[0][1]
+    assert lists[0] is f._lists(ar, "A").to(mesh.device)
+    assert np.array_equal(lists[-2].numpy(), batch[:, 0])
+    want = f.verdicts(ar, as_, batch, backend="torch", device="cpu")
+    assert np.array_equal(got, want)
+    assert counts == {k: int(np.sum(want == v)) for k, v in (
+        ("true_neg", join.TRUE_NEG), ("true_hit", join.TRUE_HIT),
+        ("indecisive", join.INDECISIVE))}
+    assert f.verdicts_mesh(ar, as_, np.zeros((0, 2)), mesh=mesh)[1] == \
+        {"true_neg": 0, "true_hit": 0, "indecisive": 0}
+
+
 @pytest.mark.parametrize("grid", [None, 1, 7])
 def test_mbr_join_matches_numpy(data, mesh, grid):
     R0, S0, R, S, _ = data

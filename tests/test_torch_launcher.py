@@ -132,6 +132,19 @@ def _cli(*args):
     return out.stdout
 
 
+def test_rank_device_under_torchrun(monkeypatch):
+    """Each torchrun rank takes the card of its LOCAL_RANK."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert launch.rank_device("cuda") == "cuda"
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "1")
+    assert launch.rank_device("cpu") == "cpu"
+    assert launch.rank_device("cuda:0") == "cuda:0"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    mesh = make_join_mesh(device=launch.rank_device("cuda"))
+    assert mesh.device == torch.device("cuda", 1)
+
+
 def test_cli_main(want):
     got = re.search(r"results (\d+)", _cli("--parts", "2")).group(1)
     assert int(got) == len(want)
