@@ -220,6 +220,33 @@ reference package. Phases, any failure exits non-zero:
    Launch counts are reset before and read after each run and every
    recorded B1, B4, B2, B3 and B5 input is replayed against its plain
    version, exactly;
+15. (run after phase 14, before phase 9) the LM serving path
+   (``repro_torch.models``, ``launch.serve``), f32, plain PyTorch ops:
+   no kernel of the port runs, so the ``kernels`` line gains no row.
+   gemma2-2b at full width (``CONFIG``: 26 layers, d 2304, 8 heads over 4
+   kv heads, local 4096 and global layers, softcaps 50 and 30, vocab
+   256,000), its weights drawn from a seed on the CPU once: request 0's
+   prefill logits (``make_prefill_step``) and first ``LM_DECODE_CHECKED``
+   decode logits on the CPU, then on the card after the model is moved
+   there, within ``LM_TOL``; 8 requests (prompts of 4-9 tokens, 12 new,
+   the reference launcher's defaults, ``LM_POOLS``) through a
+   ``ServePool`` of 4 slots at ctx 64, every request served (none
+   evicted) with the tokens of its isolated greedy decoding on the card,
+   a differing token allowed only where the isolated run's top-2 logit
+   gap is below ``LM_TIE_GAP`` (that request's comparison stops there;
+   the count is printed), and ``greedy_generate`` equal to request 0's
+   isolated decoding; recurrentgemma-2b at full width, 5 requests through
+   2 slots (``tests/test_serve_pool.py``'s), likewise, so slot reuse
+   leaks no recurrent state; decode reproducing the full-sequence
+   forward (B 2, S 12, ``LM_TOL``) at full width for granite-moe (its
+   capacity factor raised, as the reference's test does), falcon-mamba,
+   whisper-small and llama-3.2-vision, weights drawn on the card, each
+   freed before the next (deepseek-coder-33b and qwen3-moe exceed the
+   card in f32: the reason is printed); all 10 smoke configs, decode
+   against forward on the card and the card against the CPU. Printed,
+   not gated: tokens/s and ms a step of each pool, one profiled pool
+   step's device busy share, peak device memory a model, the phase's
+   seconds, beside the card's name and power limit;
 9. (in a child process of this script, after phases 10, 11 and 12: late in
    a long process the card machine's profiler records no device events) the
    APRIL block-sparse attention kernels (``april_attention``, the LM
@@ -344,6 +371,27 @@ SCALEOUT_BUDGET_SHARE = 6
 SCALEOUT_MIN_TILES = 4
 SCALEOUT_SPLIT = {"split_factor": 1.0, "min_split_objs": 32}
 SCALEOUT_RANK_TIMEOUT = 300
+#: phase 15, the LM serving path: (requests, slots, context, new tokens a
+#: request) of each full-width pool: the reference launcher's defaults
+#: for gemma2-2b (prompts of 4-9 tokens), ``tests/test_serve_pool.py``'s
+#: for recurrentgemma-2b (prompts of 6)
+LM_POOLS = {"gemma2-2b": (8, 4, 64, 12), "recurrentgemma-2b": (5, 2, 32, 6)}
+#: a pool's token may differ from its request's isolated decoding only at
+#: a step where the isolated run's top-2 logit gap is below this (f32: the
+#: batch size changes the matmuls' summation order)
+LM_TIE_GAP = 1e-3
+#: f32 logits, absolute and relative: the card against the port's CPU run,
+#: and decode against the full-sequence forward (the bound of the
+#: reference's ``tests/test_arch_smoke.py``)
+LM_TOL = 2e-3
+#: gemma2-2b's decode steps held to the CPU run, after its prefill
+LM_DECODE_CHECKED = 4
+#: decode against forward: batch and sequence, and the configs run at full
+#: width; the two whose f32 weights exceed the card run at smoke width
+LM_DECODE_SHAPE = (2, 12)
+LM_FULL_DECODE = ("granite-moe-1b-a400m", "falcon-mamba-7b",
+                  "whisper-small", "llama-3.2-vision-11b")
+LM_SMOKE_ONLY = ("deepseek-coder-33b", "qwen3-moe-30b-a3b")
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 #: logit std of each head of the full-width draws (q is drawn at these
@@ -2260,6 +2308,308 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
     return extra
 
 
+def _lm_inputs(cfg, B, S, seed):
+    """Tokens [B, S] and the stub context (whisper frames or VLM patches)
+    of one decode-against-forward check, drawn as the reference's
+    ``tests/test_arch_smoke.py`` draws them."""
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(0, cfg.vocab, (B, S)).astype(np.int32)
+    extra = {}
+    if cfg.encoder is not None:
+        extra["frames"] = (rng.normal(size=(B, cfg.encoder.n_frames,
+                                            cfg.d_model)) * 0.02
+                           ).astype(np.float32)
+    elif cfg.n_patch_tokens:
+        extra["patches"] = (rng.normal(size=(B, cfg.n_patch_tokens,
+                                             cfg.d_model)) * 0.02
+                            ).astype(np.float32)
+    return toks, extra
+
+
+def _lm_forward_and_decode(model, cfg, toks, extra):
+    """Full-sequence logits [B, S, V] and per-token decode logits [B, S, V]
+    of ``toks`` on the model's device (caches of capacity S)."""
+    import torch
+    from repro_torch.models.model import (build_caches, forward_logits,
+                                          run_encoder, set_cache_pos)
+    dev = model.embed.device
+    B, S = toks.shape
+    with torch.no_grad():
+        ctx = None
+        if "frames" in extra:
+            ctx = run_encoder(model, torch.from_numpy(extra["frames"]).to(dev),
+                              cfg)
+        elif "patches" in extra:
+            ctx = torch.from_numpy(extra["patches"]).to(dev)
+        full, _, _ = forward_logits(model, toks, cfg, ctx=ctx)
+        caches = build_caches(cfg, B, S, dtype=torch.float32, device=dev)
+        outs = []
+        for t in range(S):
+            caches = set_cache_pos(caches, t)
+            logits, caches, _ = forward_logits(
+                model, toks[:, t: t + 1], cfg, ctx=ctx, caches=caches,
+                pos_offset=torch.tensor(t, dtype=torch.int32, device=dev))
+            outs.append(logits[:, 0])
+    return full, torch.stack(outs, dim=1)
+
+
+def _n_params(model) -> int:
+    return sum(p.numel() for p in model.parameters())
+
+
+def _lm_err(label, got, want) -> float:
+    """Max abs difference of two logit tensors; fails beyond ``LM_TOL``
+    (absolute and relative, as ``assert_allclose``)."""
+    import torch
+    got, want = got.double().cpu(), want.double().cpu()
+    err = float((got - want).abs().max())
+    if not torch.allclose(got, want, atol=LM_TOL, rtol=LM_TOL):
+        raise AssertionError(f"[{label}] logits differ by {err} beyond "
+                             f"atol = rtol = {LM_TOL}")
+    return err
+
+
+def _lm_isolated(decode, model, cfg, prompt, steps, cap, dev):
+    """Greedy decoding of one request alone (batch 1), as
+    ``greedy_generate`` decodes it: its tokens and, at each generated
+    step, the gap between its two largest logits."""
+    import torch
+    from repro_torch.models.model import build_caches
+    caches = build_caches(cfg, 1, cap, dtype=torch.float32, device=dev)
+    toks, out, gaps = [int(t) for t in prompt], [], []
+    for t in range(len(prompt) + steps - 1):
+        logits, caches = decode(model, caches, {"tokens": [[toks[t]]],
+                                                "pos": t})
+        if t >= len(prompt) - 1:
+            top = torch.topk(logits[0], 2).values.tolist()
+            out.append(int(torch.argmax(logits[0])))
+            gaps.append(top[0] - top[1])
+            toks.append(out[-1])
+    return out, gaps
+
+
+def _lm_pool(label, model, cfg, prompts, slots, ctx, max_new, dev, smi):
+    """Serve ``prompts`` through a ``ServePool`` on the card: every request
+    must be served (none evicted) with the tokens of its isolated greedy
+    decoding, a differing token allowed only where the isolated run's
+    top-2 logit gap is below ``LM_TIE_GAP`` (the request's comparison
+    stops there). Returns the isolated runs' tokens."""
+    import torch
+    from repro_torch.launch.serve import Request, ServePool
+    from repro_torch.models.serve import make_decode_step
+    pool = ServePool(cfg, model, slots, ctx, device=dev)
+    steps = []
+    decode = pool.decode
+
+    def counted(*a):
+        steps.append(1)
+        return decode(*a)
+    pool.decode = counted
+    reqs = [Request(rid=i, prompt=p, max_new=max_new)
+            for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    done = pool.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if len(done) != len(reqs) or not all(r.done for r in reqs):
+        raise AssertionError(f"[{label}] served {len(done)} of {len(reqs)} "
+                             "requests: a request was evicted or timed out")
+    isolated, ties = [], 0
+    step = make_decode_step(cfg, device=dev)
+    t1 = time.perf_counter()
+    for r in reqs:
+        want, gaps = _lm_isolated(step, model, cfg, r.prompt, max_new, ctx,
+                                  dev)
+        isolated.append(want)
+        for i, w in enumerate(want):
+            if r.out[i] != w:
+                if gaps[i] >= LM_TIE_GAP:
+                    raise AssertionError(
+                        f"[{label}] request {r.rid} token {i}: pool "
+                        f"{r.out[i]} != isolated {w} at a top-2 gap of "
+                        f"{gaps[i]}")
+                ties += 1
+                break
+    t_iso = time.perf_counter() - t1
+    # one more pool step under the profiler (a figure, not a gate: late in
+    # this process a session may record no device event)
+    pool.decode = decode
+    pool._refill([Request(rid=i, prompt=p, max_new=max_new)
+                  for i, p in enumerate(prompts[:slots])])
+    pool.step()
+    prof = _profile(pool.step)
+    top = dict(list(prof["top_device_us"].items())[:3])
+    n_tok = sum(len(r.out) for r in reqs)
+    print(f"[{label}] pool of {slots} slots, ctx {ctx}: {len(done)}/"
+          f"{len(reqs)} requests served, none evicted, {n_tok} tokens in "
+          f"{dt:.3f} s ({n_tok / dt:.1f} tokens/s), {len(steps)} pool steps "
+          f"({dt / len(steps) * 1e3:.2f} ms a step); each request == its "
+          f"isolated greedy decoding ({t_iso:.2f} s), {ties} comparison(s) "
+          f"stopped at a top-2 gap below {LM_TIE_GAP}; one profiled pool "
+          f"step: device busy {prof['device_busy_us']:.0f} us of "
+          f"{prof['wall_us']:.0f} us ({prof['device_busy_share']:.4f}), top "
+          f"{json.dumps(top)} (card {smi})", flush=True)
+    return isolated
+
+
+def _lm_phase(dev) -> None:
+    """Phase 15: the LM serving path on the card (``repro_torch.models``,
+    ``launch.serve``), f32, plain PyTorch ops: no kernel of the port runs
+    here, so the ``kernels`` line gains no row."""
+    import dataclasses
+    import gc
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.models.model import build_caches, init_model
+    from repro_torch.models.serve import (greedy_generate, make_decode_step,
+                                          make_prefill_step)
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"phase 15 card: {smi}", flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 15 compares f32 logits: TF32 matmuls "
+                             "must stay off")
+    cpu = torch.device("cpu")
+    peaks = {}
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def peak(label):
+        peaks[label] = torch.cuda.max_memory_allocated()
+
+    # (a) gemma2-2b at full width: weights drawn on the CPU once, the CPU
+    # run of request 0's prefill and first decode steps, then the card
+    free()
+    t0 = time.perf_counter()
+    cfg = get_config("gemma2-2b")
+    n_req, slots, ctx, max_new = LM_POOLS["gemma2-2b"]
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, rng.integers(4, 10))
+               for _ in range(n_req)]
+    model = init_model(0, cfg, device=cpu)
+    t_draw = time.perf_counter() - t0
+    p0 = prompts[0][None]
+
+    def first_logits(device):
+        prefill = make_prefill_step(cfg, device=device)(model, {"tokens": p0})
+        decode = make_decode_step(cfg, device=device)
+        caches = build_caches(cfg, 1, ctx, dtype=torch.float32,
+                              device=device)
+        steps = []
+        for t in range(LM_DECODE_CHECKED):
+            logits, caches = decode(model, caches, {"tokens": p0[:, t:t + 1],
+                                                    "pos": t})
+            steps.append(logits)
+        return prefill, torch.cat(steps)
+
+    t1 = time.perf_counter()
+    want_prefill, want_steps = first_logits(cpu)
+    t_cpu = time.perf_counter() - t1
+    model.to(dev)
+    got_prefill, got_steps = first_logits(dev)
+    errs = {"prefill": _lm_err("gemma2-2b prefill, card vs CPU", got_prefill,
+                               want_prefill),
+            "decode": _lm_err("gemma2-2b decode, card vs CPU", got_steps,
+                              want_steps)}
+    print(f"[gemma2-2b] full width ({_n_params(model) / 1e9:.3f} B "
+          f"parameters, f32): weights drawn on the CPU {t_draw:.1f} s, CPU "
+          f"prefill + {LM_DECODE_CHECKED} decode steps {t_cpu:.1f} s; card "
+          f"vs CPU max abs err {json.dumps(errs)} (tol {LM_TOL})",
+          flush=True)
+    isolated = _lm_pool("gemma2-2b", model, cfg, prompts, slots, ctx, max_new,
+                        dev, smi)
+    got = greedy_generate(model, cfg, p0, steps=max_new, ctx_capacity=ctx,
+                          device=dev)
+    if got[0].tolist() != isolated[0]:
+        raise AssertionError("[gemma2-2b] greedy_generate != the isolated "
+                             "decoding of request 0")
+    peak("gemma2-2b")
+    del model
+    free()
+
+    # (b) recurrentgemma-2b at full width: slot reuse must not leak state
+    cfg = get_config("recurrentgemma-2b")
+    n_req, slots, ctx, max_new = LM_POOLS["recurrentgemma-2b"]
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab, 6) for _ in range(n_req)]
+    model = init_model(0, cfg, device=dev)
+    print(f"[recurrentgemma-2b] full width ({_n_params(model) / 1e9:.3f} "
+          f"B parameters, f32), weights drawn on the card", flush=True)
+    _lm_pool("recurrentgemma-2b", model, cfg, prompts, slots, ctx, max_new,
+             dev, smi)
+    peak("recurrentgemma-2b")
+    del model
+    free()
+
+    # (c) decode reproduces the full-sequence forward at full width
+    card_bytes = torch.cuda.get_device_properties(0).total_memory
+    B, S = LM_DECODE_SHAPE
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        need = cfg.param_count() * 4
+        if arch not in LM_FULL_DECODE:
+            if arch in LM_SMOKE_ONLY and need <= card_bytes:
+                raise AssertionError(f"{arch} fits the card; run it at full "
+                                     "width")
+            if arch in LM_SMOKE_ONLY:
+                print(f"[{arch}] smoke width only: its f32 weights "
+                      f"(about {need / 1e9:.0f} GB) exceed the card's "
+                      f"{card_bytes / 1e9:.0f} GB", flush=True)
+            continue
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=64.0))
+        t0 = time.perf_counter()
+        model = init_model(2, cfg, device=dev)
+        toks, extra = _lm_inputs(cfg, B, S, seed=2)
+        full, dec = _lm_forward_and_decode(model, cfg, toks, extra)
+        if not bool(torch.isfinite(full).all()):
+            raise AssertionError(f"[{arch}] non-finite logits")
+        err = _lm_err(f"{arch} decode vs forward", dec, full)
+        torch.cuda.synchronize()
+        peak(arch)
+        print(f"[{arch}] full width ({_n_params(model) / 1e9:.3f} B "
+              f"parameters, f32), B {B} S {S}: decode == forward, max abs "
+              f"err {err} (tol {LM_TOL}), {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        del model, full, dec
+        free()
+
+    # (d) every smoke config: decode vs forward on the card, card vs CPU
+    smoke = {}
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=True)
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=64.0))
+        model = init_model(2, cfg, device=cpu)
+        toks, extra = _lm_inputs(cfg, *LM_DECODE_SHAPE, seed=2)
+        want_full, want_dec = _lm_forward_and_decode(model, cfg, toks, extra)
+        model.to(dev)
+        full, dec = _lm_forward_and_decode(model, cfg, toks, extra)
+        smoke[arch] = {
+            "decode_vs_forward": _lm_err(f"{arch} smoke decode vs forward",
+                                         dec, full),
+            "card_vs_cpu": max(_lm_err(f"{arch} smoke forward, card vs CPU",
+                                       full, want_full),
+                               _lm_err(f"{arch} smoke decode, card vs CPU",
+                                       dec, want_dec))}
+        del model
+    print(f"[smoke configs] max abs err on the card (tol {LM_TOL}): "
+          f"{json.dumps(smoke)}", flush=True)
+    print(f"phase 15 peak device memory by model (GB): "
+          f"{json.dumps({k: round(v / 1e9, 3) for k, v in peaks.items()})}",
+          flush=True)
+    print(f"phase 15 ok: the LM serving path "
+          f"({time.perf_counter() - t_phase:.1f} s; card {smi})", flush=True)
+
+
 def _attention_child(out: str) -> None:
     """Phase 9 in this process, its rows of the ``kernels`` line written to
     the JSON file ``out``: the body of :func:`_attention_in_fresh_process`'s
@@ -3151,6 +3501,9 @@ def main() -> int:
                                builds["want_small"], wrappers)
     for k in kernels:
         k.update(scaleout.get(k["name"], {}))
+
+    # 15. the LM serving path
+    _lm_phase(dev)
 
     # 9. the attention kernel, which no join runs, in a fresh process
     kernels.extend(_attention_in_fresh_process())

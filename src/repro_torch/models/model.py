@@ -1,0 +1,296 @@
+"""Model assembly: embedding -> layers -> head (the reference's
+``models/model.py``).
+
+The model is an ``nn.Module`` with one submodule per layer, in layer order
+(``model.layers[l]``); the reference scans over parameters stacked per
+pattern position, and layer ``c * period + i`` here is its cycle ``c`` of
+``cycle/p{i}``, the layers past the last full cycle its ``tail/t{i}``.
+Each layer is an ``nn.ModuleDict`` of ``nn.ParameterDict`` blocks keyed as
+the reference's per-layer tree (``ln1``, ``attn``, ``mlp`` ...), so the
+block functions take it as they take a dict.
+
+Decode caches keep the reference's tree: ``{'cycle': {'p{i}': stacked
+[n_cycles, ...]}, 'tail': {'t{i}': ...}}``.
+
+Modes:
+  prefill: full-sequence forward (no cache)
+  decode:  one token, stacked KV caches / recurrent states
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..device import resolve_device
+from .config import ModelConfig
+from .layers import _init, attention, attention_init, mlp, mlp_init, \
+    rmsnorm, rmsnorm_init, scalar
+from .moe import moe_init, moe_mlp
+from .rglru import rglru_block, rglru_init, rglru_state_init
+from .ssm import ssm_block, ssm_init, ssm_state_init
+
+
+# ----------------------------------------------------------------- trees
+
+def tree_map(fn, tree):
+    """``fn`` on every tensor leaf of a tree of nested dicts."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def tree_stack(trees):
+    """Nested dicts of tensors stacked leaf by leaf along a new dim 0."""
+    if isinstance(trees[0], dict):
+        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
+    return torch.stack(trees)
+
+
+def _module(tree):
+    """A nested dict of tensors as an ``nn.ParameterDict`` (a block) or an
+    ``nn.ModuleDict`` of blocks (a layer)."""
+    if all(isinstance(v, torch.Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v) for k, v in tree.items()})
+    return nn.ModuleDict({k: _module(v) for k, v in tree.items()})
+
+
+def module_tree(mod):
+    """The nested dict of tensors a ``_module`` was made from."""
+    if isinstance(mod, nn.ParameterDict):
+        return {k: v.data for k, v in mod.items()}
+    return {k: module_tree(v) for k, v in mod.items()}
+
+
+class LMModel(nn.Module):
+    """The parameters of one model configuration.
+
+    ``tree``: ``embed`` [V, D], ``final_norm``, ``lm_head`` [D, V] (untied
+    only), ``layers`` (one per-layer tree a layer, in order) and, with an
+    encoder, ``encoder`` {``layers``, ``final_norm``}. Matrices keep the
+    reference's ``[in, out]`` layout."""
+
+    def __init__(self, cfg: ModelConfig, tree: dict):
+        super().__init__()
+        self.cfg = cfg
+        self.embed = nn.Parameter(tree["embed"])
+        self.final_norm = _module(tree["final_norm"])
+        self.lm_head = (nn.Parameter(tree["lm_head"])
+                        if "lm_head" in tree else None)
+        self.layers = nn.ModuleList(_module(t) for t in tree["layers"])
+        self.kinds = tuple(cfg.layer_kinds())
+        self.encoder = None
+        if "encoder" in tree:
+            self.encoder = nn.ModuleDict({
+                "layers": nn.ModuleList(
+                    _module(t) for t in tree["encoder"]["layers"]),
+                "final_norm": _module(tree["encoder"]["final_norm"])})
+
+    def forward(self, tokens, **kw):
+        return forward_logits(self, tokens, self.cfg, **kw)
+
+
+# ----------------------------------------------------------------- layers
+
+def _layer_init(gen, cfg: ModelConfig, kind: str):
+    dev = gen.device
+    p = {"ln1": rmsnorm_init(cfg.d_model, dev)}
+    if kind in ("attn", "local", "xattn"):
+        p["attn"] = attention_init(gen, cfg)
+        if kind == "xattn":
+            p["lnx"] = rmsnorm_init(cfg.d_model, dev)
+            p["xattn"] = attention_init(gen, cfg, cross=True)
+    elif kind == "rglru":
+        p["rglru"] = rglru_init(gen, cfg)
+    elif kind == "ssm":
+        p["ssm"] = ssm_init(gen, cfg)
+        return p
+    else:
+        raise ValueError(kind)
+    p["ln2"] = rmsnorm_init(cfg.d_model, dev)
+    if cfg.moe is not None:
+        p["moe"] = moe_init(gen, cfg)
+    else:
+        p["mlp"] = mlp_init(gen, cfg)
+    return p
+
+
+def _apply_layer(p, x, cfg: ModelConfig, kind: str, *, ctx=None, cache=None,
+                 pos_offset=0, mask_mode="causal"):
+    """Returns (x, new_cache, aux)."""
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    new_cache = cache
+    if kind in ("attn", "local", "xattn"):
+        h, nc = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                          kind=("attn" if kind == "xattn" else kind),
+                          pos_offset=pos_offset,
+                          cache=(cache.get("kv") if cache else None),
+                          mask_mode=mask_mode)
+        x = x + h
+        if kind == "xattn":
+            hx, _ = attention(p["xattn"], rmsnorm(p["lnx"], x, cfg.norm_eps),
+                              cfg, kind="attn", ctx=ctx)
+            x = x + hx
+        if cache is not None:
+            new_cache = dict(cache, kv=nc)
+    elif kind in ("rglru", "ssm"):
+        block = rglru_block if kind == "rglru" else ssm_block
+        h, ns = block(p[kind], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
+                      state=(cache.get("state") if cache else None))
+        x = x + h
+        if cache is not None:
+            new_cache = dict(cache, state=ns)
+        if kind == "ssm":
+            return x, new_cache, aux
+    else:
+        raise ValueError(kind)
+    if cfg.moe is not None:
+        h, aux = moe_mlp(p["moe"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    else:
+        h = mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x + h, new_cache, aux
+
+
+def _cast_layer(tree, dtype):
+    """The reference's dtype rule: a layer's weights of 2 or more dims take
+    the compute dtype; norms, biases and other 1-D vectors stay f32."""
+    return tree_map(lambda a: a.to(dtype) if a.ndim >= 2 else a, tree)
+
+
+def init_model(seed: int, cfg: ModelConfig, dtype=torch.float32, *,
+               device=None):
+    """Randomly initialised model, with the reference's shapes, scales and
+    dtype rule: every tensor drawn in a fixed order from one
+    ``torch.Generator`` seeded with ``seed`` on ``device`` (``None`` -> the
+    card)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    tree = {"embed": _init(gen, (cfg.vocab, cfg.d_model), scale=0.02,
+                           dtype=dtype),
+            "final_norm": rmsnorm_init(cfg.d_model, gen.device)}
+    if not cfg.tie_embeddings:
+        tree["lm_head"] = _init(gen, (cfg.d_model, cfg.vocab), scale=0.02,
+                                dtype=dtype)
+    tree["layers"] = [_cast_layer(_layer_init(gen, cfg, kind), dtype)
+                      for kind in cfg.layer_kinds()]
+    if cfg.encoder is not None:
+        tree["encoder"] = {
+            "layers": [_cast_layer(_layer_init(gen, cfg, "attn"), dtype)
+                       for _ in range(cfg.encoder.n_layers)],
+            "final_norm": rmsnorm_init(cfg.d_model, gen.device)}
+    return LMModel(cfg, tree)
+
+
+def _sinusoid(S, D):
+    pos = np.arange(S)[:, None]
+    dim = np.arange(0, D, 2)[None, :] / D
+    ang = pos / (10000 ** dim)
+    out = np.zeros((S, D), np.float32)
+    out[:, 0::2] = np.sin(ang)
+    out[:, 1::2] = np.cos(ang)
+    return torch.from_numpy(out)
+
+
+def run_encoder(params, frames, cfg: ModelConfig):
+    """Whisper-style encoder over precomputed frame embeddings [B, T, D]."""
+    frames = torch.as_tensor(frames, device=params.embed.device)
+    x = frames + _sinusoid(frames.shape[1], cfg.d_model).to(
+        device=frames.device, dtype=frames.dtype)
+    for p in params.encoder["layers"]:
+        x, _, _ = _apply_layer(p, x, cfg, "attn", mask_mode="bidir")
+    return rmsnorm(params.encoder["final_norm"], x, cfg.norm_eps)
+
+
+# ----------------------------------------------------------------- caches
+
+def _one_layer_cache(cfg: ModelConfig, kind: str, batch: int, ctx_len: int,
+                     dtype, device, lead=()):
+    KV, dh = cfg.n_kv_heads, cfg.head_dim
+    if kind in ("attn", "xattn", "local"):
+        w = min(ctx_len, cfg.local_window) if kind == "local" else ctx_len
+        return {"kv": {
+            "k": torch.zeros(lead + (batch, KV, w, dh), dtype=dtype,
+                             device=device),
+            "v": torch.zeros(lead + (batch, KV, w, dh), dtype=dtype,
+                             device=device),
+            "pos": torch.zeros(lead + (batch,), dtype=torch.int32,
+                               device=device)}}
+    if kind == "rglru":
+        return {"state": rglru_state_init(cfg, batch, dtype, device, lead)}
+    if kind == "ssm":
+        return {"state": ssm_state_init(cfg, batch, dtype, device, lead)}
+    raise ValueError(kind)
+
+
+def build_caches(cfg: ModelConfig, batch: int, ctx_len: int,
+                 dtype=torch.bfloat16, *, device=None):
+    """Decode caches: {'cycle': stacked per pattern position, 'tail': ...}
+    on ``device`` (``None`` -> the card; ``"meta"`` allocates nothing)."""
+    dev = resolve_device(device)
+    lead = (cfg.n_cycles,)
+    cycle = {f"p{pi}": _one_layer_cache(cfg, kind, batch, ctx_len, dtype,
+                                        dev, lead)
+             for pi, kind in enumerate(cfg.block_pattern)}
+    tail = {f"t{i}": _one_layer_cache(cfg, kind, batch, ctx_len, dtype, dev)
+            for i, kind in enumerate(cfg.tail_kinds)}
+    return {"cycle": cycle, "tail": tail}
+
+
+def set_cache_pos(caches, pos):
+    """Mark all kv caches as holding ``pos`` tokens (decode position)."""
+    def setp(tree):
+        if isinstance(tree, dict) and "pos" in tree:
+            old = tree["pos"]
+            new = torch.as_tensor(pos, device=old.device).to(torch.int32)
+            return dict(tree, pos=torch.broadcast_to(new, old.shape))
+        if isinstance(tree, dict):
+            return {k: setp(v) for k, v in tree.items()}
+        return tree
+    return setp(caches)
+
+
+# ----------------------------------------------------------------- forward
+
+def forward_logits(params, tokens, cfg: ModelConfig, *, ctx=None,
+                   caches=None, pos_offset=0):
+    """tokens: [B, S] -> (logits [B, S, V] f32, new_caches, aux).
+
+    params: an ``LMModel``. caches: stacked decode caches (S must be 1).
+    ctx: cross-attn context (VLM patches / whisper encoder output).
+    """
+    emb = params.embed
+    dev = emb.device
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    x = emb[tokens] * scalar(np.sqrt(cfg.d_model), emb.dtype)
+    if ctx is not None:
+        ctx = torch.as_tensor(ctx, device=dev)
+
+    period, n_cyc = cfg.pattern_period, cfg.n_cycles
+    new_cycle = {f"p{pi}": [] for pi in range(period)}
+    new_tail = {}
+    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
+    for li, (p, kind) in enumerate(zip(params.layers, params.kinds)):
+        c, pi = divmod(li, period)
+        cache = None
+        if caches is not None:
+            cache = (tree_map(lambda a: a[c], caches["cycle"][f"p{pi}"])
+                     if c < n_cyc else caches["tail"][f"t{li - n_cyc * period}"])
+        x, nc, aux = _apply_layer(p, x, cfg, kind, ctx=ctx, cache=cache,
+                                  pos_offset=pos_offset)
+        aux_total = aux_total + aux
+        if caches is not None:
+            if c < n_cyc:
+                new_cycle[f"p{pi}"].append(nc)
+            else:
+                new_tail[f"t{li - n_cyc * period}"] = nc
+
+    new_caches = None
+    if caches is not None:
+        new_caches = {"cycle": {k: tree_stack(v) for k, v in new_cycle.items()},
+                      "tail": new_tail}
+    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    head = emb.T if cfg.tie_embeddings else params.lm_head
+    logits = (x @ head.to(x.dtype)).float()
+    if cfg.logit_softcap is not None:
+        logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
+    return logits, new_caches, aux_total
