@@ -225,7 +225,8 @@ reference package. Phases, any failure exits non-zero:
    no kernel of the port runs, so the ``kernels`` line gains no row.
    gemma2-2b at full width (``CONFIG``: 26 layers, d 2304, 8 heads over 4
    kv heads, local 4096 and global layers, softcaps 50 and 30, vocab
-   256,000), its weights drawn from a seed on the CPU once: request 0's
+   256,000), its weights drawn from a seed on the card once and copied to
+   the CPU: request 0's
    prefill logits (``make_prefill_step``) and first ``LM_DECODE_CHECKED``
    decode logits on the CPU, then on the card after the model is moved
    there, within ``LM_TOL``; 8 requests (prompts of 4-9 tokens, 12 new,
@@ -247,6 +248,38 @@ reference package. Phases, any failure exits non-zero:
    not gated: tokens/s and ms a step of each pool, one profiled pool
    step's device busy share, peak device memory a model, the phase's
    seconds, beside the card's name and power limit;
+16. (run after phase 15, before phase 9, in a child process of this
+   script, as phase 9: late in a long process the profiler records no
+   device events, and a fresh context has the whole card) LM training
+   (``models.train``, ``optim``, ``launch.train``), f32 without TF32,
+   plain PyTorch ops and autograd: no kernel of the port runs (a profiled
+   step's trace must name none), so the ``kernels`` line gains no row.
+   (a) all 10 smoke configs: one ``make_train_step(remat_policy="dots")``
+   step on the card and one on the CPU from the same weights and batch,
+   the loss and ``grad_norm`` within ``TRAIN_REL_TOL`` (relative), the
+   parameters within 2.5 lr, the first moments (``m`` = 0.1 g) leaf by
+   leaf within ``TRAIN_M_TOL`` of each leaf's largest; (b) gemma2-2b at
+   full width, weights drawn on the card, ``SyntheticCorpus`` batches of
+   ``TRAIN_SHAPE`` (2 x 512, cut from ``train_4k``'s 256 x 4096): the
+   first step's forward and backward under the remat policies ``none``,
+   ``dots`` and ``nothing`` agree within ``TRAIN_REL_TOL``, and the
+   memory the forward leaves allocated for the backward falls from
+   ``none`` to ``dots`` to ``nothing`` (that and the peak of each
+   printed), then 8 steps at lr 3e-4 with every loss finite and the last
+   below the first, one profiled step, and the first step again in two
+   strided microbatches equal to it (loss and ``grad_norm`` within
+   ``TRAIN_REL_TOL``, parameters within 2.5 lr, ``m`` as in (a)); (c) granite-moe-1b-a400m (the MoE backward and its
+   aux loss) and recurrentgemma-2b (the doubling scan's backward) at full
+   width, 3 steps each, finite losses, one profiled step; (d) the
+   launcher, ``train_loop("smollm-135m", smoke=False, steps=12, batch=4,
+   seq=256, ckpt_every=4)``, uninterrupted, then crashed at step 9 with
+   a checkpoint directory (it must raise), then resumed from the step-8
+   checkpoint: the resumed run takes steps 8-11, and its losses equal the
+   uninterrupted run's last 4 within ``TRAIN_RESUME_TOL``. Printed, not gated: ms a step, tokens/s, model
+   FLOPs a step (6 N T plus the attention products) over the step time
+   as a share of the f32 peak, peak device memory, the busy share of a
+   profiled step, the phase's seconds, beside the card's name and power
+   limit;
 9. (in a child process of this script, after phases 10, 11 and 12: late in
    a long process the card machine's profiler records no device events) the
    APRIL block-sparse attention kernels (``april_attention``, the LM
@@ -392,6 +425,32 @@ LM_DECODE_SHAPE = (2, 12)
 LM_FULL_DECODE = ("granite-moe-1b-a400m", "falcon-mamba-7b",
                   "whisper-small", "llama-3.2-vision-11b")
 LM_SMOKE_ONLY = ("deepseek-coder-33b", "qwen3-moe-30b-a3b")
+#: phase 16, LM training (f32, no TF32): batch and sequence of the
+#: full-width steps, cut from the ``train_4k`` cell's 256 x 4096 to fit one
+#: card and the script's time; gemma2-2b's steps and learning rate; the
+#: steps of each model of the full-width backward check; the launcher's
+#: full-width run, the step its crash is injected at and its resume bound
+#: (``tests/test_fault_tolerance.py::test_crash_resume_equivalence``'s)
+TRAIN_SHAPE = (2, 512)
+TRAIN_STEPS = 8
+TRAIN_LR = 3e-4
+TRAIN_BACKWARD = {"granite-moe-1b-a400m": 3, "recurrentgemma-2b": 3}
+TRAIN_LAUNCH = dict(smoke=False, steps=12, batch=4, seq=256, ckpt_every=4)
+TRAIN_FAIL_AT = 9
+TRAIN_RESUME_TOL = dict(rtol=1e-4, atol=1e-5)
+#: relative bound on a step's loss and ``grad_norm``: the card against the
+#: port's CPU run, a microbatched step and each remat policy against the
+#: plain one (f32: summation order only; at most 1.5e-7 measured on the
+#: H100)
+TRAIN_REL_TOL = 1e-5
+#: bound on a first-moment leaf's max abs difference, relative to the
+#: leaf's largest entry: the card against the CPU, and a microbatched
+#: step against one batch (a flipped sign gives 2, a lost 1/N scale or a
+#: lost microbatch about 1)
+TRAIN_M_TOL = 1e-4
+#: the smoke configs' card-against-CPU step: learning rate and batch shape
+TRAIN_SMOKE_LR = 1e-3
+TRAIN_SMOKE_SHAPE = (2, 16)
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 #: logit std of each head of the full-width draws (q is drawn at these
@@ -2483,8 +2542,9 @@ def _lm_phase(dev) -> None:
     def peak(label):
         peaks[label] = torch.cuda.max_memory_allocated()
 
-    # (a) gemma2-2b at full width: weights drawn on the CPU once, the CPU
-    # run of request 0's prefill and first decode steps, then the card
+    # (a) gemma2-2b at full width: weights drawn on the card once and
+    # copied to the CPU (a CPU draw took 19-26 s), the CPU run of request
+    # 0's prefill and first decode steps, then the card
     free()
     t0 = time.perf_counter()
     cfg = get_config("gemma2-2b")
@@ -2492,7 +2552,7 @@ def _lm_phase(dev) -> None:
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab, rng.integers(4, 10))
                for _ in range(n_req)]
-    model = init_model(0, cfg, device=cpu)
+    model = init_model(0, cfg, device=dev).to(cpu)
     t_draw = time.perf_counter() - t0
     p0 = prompts[0][None]
 
@@ -2518,7 +2578,8 @@ def _lm_phase(dev) -> None:
             "decode": _lm_err("gemma2-2b decode, card vs CPU", got_steps,
                               want_steps)}
     print(f"[gemma2-2b] full width ({_n_params(model) / 1e9:.3f} B "
-          f"parameters, f32): weights drawn on the CPU {t_draw:.1f} s, CPU "
+          f"parameters, f32): weights drawn on the card and copied to the "
+          f"CPU {t_draw:.1f} s, CPU "
           f"prefill + {LM_DECODE_CHECKED} decode steps {t_cpu:.1f} s; card "
           f"vs CPU max abs err {json.dumps(errs)} (tol {LM_TOL})",
           flush=True)
@@ -2608,6 +2669,317 @@ def _lm_phase(dev) -> None:
           flush=True)
     print(f"phase 15 ok: the LM serving path "
           f"({time.perf_counter() - t_phase:.1f} s; card {smi})", flush=True)
+
+
+def _train_flops(model, cfg, B, S) -> float:
+    """Model FLOPs of one training step of B x S tokens: 6 N T over the
+    parameters a token uses (an MoE layer's top_k of its experts), plus
+    the attention products (Q K^T and P V over the full S x S the port
+    computes, forward and backward: 3 x 4 B S^2 H dh a layer)."""
+    n = float(_n_params(model))
+    if cfg.moe is not None:
+        experts = sum(p.numel() for name, p in model.named_parameters()
+                      if ".moe.w" in name)
+        n -= experts * (1 - cfg.moe.top_k / cfg.moe.num_experts)
+    attn = sum(1 for k in cfg.layer_kinds() if k in ("attn", "local",
+                                                      "xattn"))
+    return 6 * n * B * S + 3 * attn * 4 * B * S * S * cfg.n_heads \
+        * cfg.head_dim
+
+
+def _params_on_host(model) -> dict:
+    return {n: p.detach().cpu() for n, p in model.named_parameters()}
+
+
+def _max_param_diff(model, want: dict) -> float:
+    """Max abs difference of ``model``'s parameters from ``want`` (host
+    tensors by name), leaf by leaf on the model's device."""
+    dev = model.embed.device
+    return max(float((p.detach() - want[n].to(dev)).abs().max())
+               for n, p in model.named_parameters())
+
+
+def _rel(a, b) -> float:
+    return abs(float(a) - float(b)) / max(abs(float(b)), 1e-30)
+
+
+def _m_err(m: dict, want: dict) -> float:
+    """The largest, over the first-moment leaves ``m`` (tensors by
+    parameter name), of a leaf's max abs difference from ``want``'s (host
+    tensors) over the largest entry of ``want``'s leaf."""
+    worst = 0.0
+    for n, t in m.items():
+        w = want[n].to(t.device)
+        diff, scale = float((t - w).abs().max()), float(w.abs().max())
+        worst = max(worst, diff / scale if scale else
+                    (0.0 if diff == 0 else float("inf")))
+    return worst
+
+
+def _train_phase() -> None:
+    """Phase 16: LM training on the card (``models.train``, ``optim``,
+    ``launch.train``), f32, plain PyTorch ops and autograd: no kernel of
+    the port runs here, so the ``kernels`` line gains no row."""
+    import gc
+    import torch
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.launch.train import SyntheticCorpus, train_loop
+    from repro_torch.models.model import init_model
+    from repro_torch.models.train import (REMAT_POLICIES, _global_norm,
+                                          loss_fn, make_train_step)
+    from repro_torch.optim import adamw_init
+    t_phase = time.perf_counter()
+    dev, cpu = torch.device("cuda"), torch.device("cpu")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    free_b, total_b = torch.cuda.mem_get_info()
+    print(f"phase 16 card: {smi}; {free_b / 1e9:.1f} of {total_b / 1e9:.1f} "
+          f"GB free", flush=True)
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 16 compares f32 steps: TF32 matmuls "
+                             "must stay off")
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # (a) every smoke config: one step on the card against the port's CPU
+    t0 = time.perf_counter()
+    smoke = {}
+    for arch in ARCHS:
+        cfg = get_config(arch, smoke=True)
+        batch = SyntheticCorpus(cfg.vocab, *TRAIN_SMOKE_SHAPE,
+                                seed=1).next_batch(cfg)
+        out = {}
+        for d in (cpu, dev):
+            model = init_model(1, cfg, device=cpu).to(d)
+            step = make_train_step(cfg, lr=TRAIN_SMOKE_LR,
+                                   remat_policy="dots", device=d)
+            model, opt, metrics = step(
+                model, adamw_init(dict(model.named_parameters())), batch)
+            out[d.type] = (model, opt,
+                           {k: float(v) for k, v in metrics.items()})
+        (m_cpu, opt_cpu, want), (m_dev, opt_dev, got) = out["cpu"], \
+            out["cuda"]
+        err = {k: _rel(got[k], want[k]) for k in ("loss", "grad_norm")}
+        err["params"] = _max_param_diff(m_dev, _params_on_host(m_cpu))
+        err["m"] = _m_err(opt_dev["m"], opt_cpu["m"])
+        if max(err["loss"], err["grad_norm"]) > TRAIN_REL_TOL or \
+                err["params"] > 2.5 * TRAIN_SMOKE_LR or \
+                err["m"] > TRAIN_M_TOL:
+            raise AssertionError(f"[{arch} smoke] a train step on the card "
+                                 f"differs from the CPU's: {err}")
+        smoke[arch] = err
+    print(f"[smoke configs] one train step (dots, lr {TRAIN_SMOKE_LR}), "
+          f"card vs CPU: loss and grad_norm relative, params max abs, m "
+          f"relative to each leaf's largest (bounds {TRAIN_REL_TOL}, "
+          f"{2.5 * TRAIN_SMOKE_LR}, {TRAIN_M_TOL}): "
+          f"{json.dumps(smoke)} ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+
+    # (b) gemma2-2b at full width
+    free()
+    arch = "gemma2-2b"
+    cfg = get_config(arch)
+    B, S = TRAIN_SHAPE
+    data = SyntheticCorpus(cfg.vocab, B, S, seed=0)
+    batches = [data.next_batch(cfg) for _ in range(TRAIN_STEPS + 1)]
+    model, t_init = timed(lambda: init_model(0, cfg, device=dev))
+    n_par = _n_params(model)
+    flops = _train_flops(model, cfg, B, S)
+    policies = {}
+    for name in ("none", "dots", "nothing"):
+        free()
+        kept = []
+
+        def fwd_bwd():
+            base = torch.cuda.memory_allocated()
+            loss, _ = loss_fn(model, batches[0], cfg,
+                              remat_policy=REMAT_POLICIES[name])
+            # what the forward leaves allocated for the backward
+            kept.append(torch.cuda.memory_allocated() - base)
+            grads = torch.autograd.grad(loss, list(model.parameters()),
+                                        allow_unused=True,
+                                        materialize_grads=True)
+            return float(loss.detach()), float(_global_norm(grads))
+        (loss, gnorm), dt = timed(fwd_bwd)
+        policies[name] = {"loss": loss, "grad_norm": gnorm, "s": dt,
+                          "kept_for_backward_gb": kept[0] / 1e9,
+                          "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    kept = [policies[k]["kept_for_backward_gb"]
+            for k in ("nothing", "dots", "none")]
+    if not kept[0] < kept[1] < kept[2]:
+        raise AssertionError(f"[{arch}] the memory kept for the backward "
+                             f"does not fall from none to dots to nothing: "
+                             f"{kept} GB")
+    for name, p in policies.items():
+        err = max(_rel(p["loss"], policies["none"]["loss"]),
+                  _rel(p["grad_norm"], policies["none"]["grad_norm"]))
+        if err > TRAIN_REL_TOL:
+            raise AssertionError(f"[{arch}] remat policy {name!r} changes "
+                                 f"the first step by {err} (relative)")
+        p["rel_err"] = err
+    print(f"[{arch} train] full width ({n_par / 1e9:.3f} B parameters, f32, "
+          f"drawn on the card in {t_init:.2f} s), B {B} x S {S}: first "
+          f"step's forward and backward by remat policy (loss, grad_norm, "
+          f"seconds, device GB the forward leaves for the backward, peak "
+          f"device GB, relative error against none): "
+          f"{json.dumps(policies)} (card {smi})", flush=True)
+
+    free()
+    opt = adamw_init(dict(model.named_parameters()))
+    step = make_train_step(cfg, lr=TRAIN_LR, remat_policy="dots", device=dev)
+    losses, secs = [], []
+    for i in range(TRAIN_STEPS):
+        # the model and the moments are updated in place; the returned
+        # state carries the step count
+        (model, opt, metrics), dt = timed(
+            lambda: step(model, opt, batches[i]))
+        losses.append(float(metrics["loss"]))
+        secs.append(dt)
+        if i == 0:
+            first = _params_on_host(model)
+            first_m = {n: t.cpu() for n, t in opt["m"].items()}
+            first_metrics = {k: float(v) for k, v in metrics.items()}
+    peak_run = torch.cuda.max_memory_allocated() / 1e9
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[{arch}] losses over {TRAIN_STEPS} steps are "
+                             f"not finite or do not fall: {losses}")
+    prof = _profile(lambda: step(model, opt, batches[TRAIN_STEPS]))
+    if prof["port_kernels_us_and_launches"]:
+        raise AssertionError(f"[{arch}] a train step launched a kernel of "
+                             f"the port: {prof['port_kernels_us_and_launches']}")
+    step_s = float(np.mean(secs[1:]))
+    top = dict(list(prof["top_device_us"].items())[:4])
+    print(f"[{arch} train] {TRAIN_STEPS} steps (dots, lr {TRAIN_LR}), "
+          f"losses {json.dumps(losses)}; step 1 {secs[0] * 1e3:.1f} ms, "
+          f"steps 2-{TRAIN_STEPS} {step_s * 1e3:.1f} ms a step "
+          f"({B * S / step_s:.1f} tokens/s), {flops / 1e12:.2f} model "
+          f"TFLOP a step, {flops / step_s / 1e12:.2f} TFLOP/s "
+          f"({flops / step_s / F32_OPS_PER_S:.4f} of the f32 peak); peak "
+          f"device memory {peak_run:.2f} GB; one profiled step: device busy "
+          f"{prof['device_busy_us']:.0f} us of {prof['wall_us']:.0f} us "
+          f"({prof['device_busy_share']:.4f}; "
+          f"{prof['device_busy_us'] / 1e6 / step_s:.4f} of an unprofiled "
+          f"step), top {json.dumps(top)} (card {smi})", flush=True)
+    del model, opt
+    free()
+
+    # the first step again from the same weights, in two strided
+    # microbatches
+    model = init_model(0, cfg, device=dev)
+    step2 = make_train_step(cfg, lr=TRAIN_LR, remat_policy="dots",
+                            microbatch=2, device=dev)
+    model, opt, metrics = step2(
+        model, adamw_init(dict(model.named_parameters())), batches[0])
+    err = {k: _rel(metrics[k], first_metrics[k])
+           for k in ("loss", "grad_norm")}
+    err["params"] = _max_param_diff(model, first)
+    err["m"] = _m_err(opt["m"], first_m)
+    if max(err["loss"], err["grad_norm"]) > TRAIN_REL_TOL or \
+            err["params"] > 2.5 * TRAIN_LR or err["m"] > TRAIN_M_TOL:
+        raise AssertionError(f"[{arch}] microbatch=2 differs from one "
+                             f"batch: {err}")
+    print(f"[{arch} train] microbatch=2 == one batch: loss and grad_norm "
+          f"relative {err['loss']}, {err['grad_norm']}, params max abs "
+          f"{err['params']}, m relative to each leaf's largest {err['m']} "
+          f"(bounds {TRAIN_REL_TOL}, {2.5 * TRAIN_LR}, {TRAIN_M_TOL}); peak "
+          f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    del model, opt, first, first_m
+    free()
+
+    # (c) the MoE and recurrent backward at full width
+    for arch, n_steps in TRAIN_BACKWARD.items():
+        cfg = get_config(arch)
+        data = SyntheticCorpus(cfg.vocab, B, S, seed=0)
+        model = init_model(0, cfg, device=dev)
+        opt = adamw_init(dict(model.named_parameters()))
+        step = make_train_step(cfg, lr=TRAIN_LR, remat_policy="dots",
+                               device=dev)
+        losses, secs = [], []
+        for _ in range(n_steps):
+            batch = data.next_batch(cfg)
+            (model, opt, metrics), dt = timed(
+                lambda: step(model, opt, batch))
+            losses.append(float(metrics["loss"]))
+            secs.append(dt)
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"[{arch}] non-finite losses: {losses}")
+        prof = _profile(lambda: step(model, opt, batch))
+        step_s = float(np.mean(secs[1:]))
+        flops = _train_flops(model, cfg, B, S)
+        top = dict(list(prof["top_device_us"].items())[:4])
+        print(f"[{arch} train] full width ({_n_params(model) / 1e9:.3f} B "
+              f"parameters, f32), B {B} x S {S}, {n_steps} steps: losses "
+              f"{json.dumps(losses)}; step 1 {secs[0] * 1e3:.1f} ms, then "
+              f"{step_s * 1e3:.1f} ms a step ({B * S / step_s:.1f} "
+              f"tokens/s, {flops / step_s / 1e12:.2f} model TFLOP/s, "
+              f"{flops / step_s / F32_OPS_PER_S:.4f} of the f32 peak); peak "
+              f"device memory {torch.cuda.max_memory_allocated() / 1e9:.2f} "
+              f"GB; one profiled step: device busy "
+              f"{prof['device_busy_us']:.0f} us of {prof['wall_us']:.0f} us "
+              f"({prof['device_busy_share']:.4f}; "
+              f"{prof['device_busy_us'] / 1e6 / step_s:.4f} of an unprofiled "
+              f"step), top {json.dumps(top)} (card {smi})", flush=True)
+        del model, opt
+        free()
+
+    # (d) the launcher at full width: a crash, a resume, the same losses
+    t0 = time.perf_counter()
+    _, _, want = train_loop("smollm-135m", device="cuda", **TRAIN_LAUNCH)
+    t_run = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory() as ck:
+        try:
+            train_loop("smollm-135m", ckpt_dir=ck, fail_at_step=TRAIN_FAIL_AT,
+                       device="cuda", **TRAIN_LAUNCH)
+        except RuntimeError as e:
+            if "injected failure" not in str(e):
+                raise
+        else:
+            raise AssertionError("the launcher ran past its injected crash")
+        _, opt, resumed = train_loop("smollm-135m", ckpt_dir=ck,
+                                     device="cuda", **TRAIN_LAUNCH)
+    # the resume starts at the last checkpoint before the crash
+    every = TRAIN_LAUNCH["ckpt_every"]
+    last = TRAIN_FAIL_AT // every * every
+    if len(resumed) != TRAIN_LAUNCH["steps"] - last:
+        raise AssertionError(f"[smollm-135m launcher] the resumed run took "
+                             f"{len(resumed)} steps, not the "
+                             f"{TRAIN_LAUNCH['steps'] - last} after its "
+                             f"step-{last} checkpoint")
+    if int(opt["step"]) != TRAIN_LAUNCH["steps"] or not np.allclose(
+            resumed, want[last:], **TRAIN_RESUME_TOL):
+        raise AssertionError(f"[smollm-135m launcher] resumed losses "
+                             f"{resumed} != the uninterrupted run's "
+                             f"{want[last:]}")
+    print(f"[smollm-135m launcher] full width, {TRAIN_LAUNCH}: "
+          f"uninterrupted {t_run:.1f} s, losses {json.dumps(want)}; crash "
+          f"at step {TRAIN_FAIL_AT}, resumed from step {last}: max abs "
+          f"difference {float(np.max(np.abs(np.subtract(resumed, want[last:]))))}"
+          f" (bound {TRAIN_RESUME_TOL}) (card {smi})", flush=True)
+    print(f"phase 16 ok: LM training ({time.perf_counter() - t_phase:.1f} "
+          f"s; card {smi})", flush=True)
+
+
+def _train_in_fresh_process() -> None:
+    """Phase 16 in a child process of this script; fails if the child
+    fails. As for phase 9: the profiler of a process some minutes old
+    records no device event, and a fresh context has the whole card."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            "sys.path.insert(0, sys.argv[1] + '/src'); "
+            "import chip_smoke; chip_smoke._train_phase()")
+    subprocess.run([sys.executable, "-c", code,
+                    str(Path(__file__).resolve().parent)], check=True)
 
 
 def _attention_child(out: str) -> None:
@@ -3504,6 +3876,9 @@ def main() -> int:
 
     # 15. the LM serving path
     _lm_phase(dev)
+
+    # 16. LM training, in a fresh process
+    _train_in_fresh_process()
 
     # 9. the attention kernel, which no join runs, in a fresh process
     kernels.extend(_attention_in_fresh_process())

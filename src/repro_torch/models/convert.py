@@ -8,6 +8,11 @@ stacked over the ``n_cycles`` cycles of pattern position ``i``),
 keeps one submodule per layer in layer order (``LMModel``): layer ``c *
 period + i`` is ``cycle/p{i}[c]``. Both keep matrices in the ``[in, out]``
 layout, so nothing is transposed and the round trip is exact.
+
+AdamW's state crosses the same way: the reference's moments ``m`` and
+``v`` are trees of its parameter layout; the port's are keyed by the
+model's ``named_parameters()`` names (``layers.3.attn.wq``), and are
+restacked as the weights are.
 """
 from __future__ import annotations
 
@@ -15,8 +20,9 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..tree import tree_from_paths, tree_map, tree_stack
 from .config import ModelConfig
-from .model import LMModel, module_tree, tree_map, tree_stack
+from .model import LMModel, module_tree
 
 
 def _tensor(a, dev, dtype):
@@ -37,13 +43,8 @@ def _array(t: torch.Tensor) -> np.ndarray:
     return t.numpy().copy()
 
 
-def load_reference_params(cfg: ModelConfig, tree: dict, *, device=None,
-                          dtype=None) -> LMModel:
-    """The port's model holding the reference's parameter ``tree`` (nested
-    dicts of numpy arrays, ``init_model``'s layout) on ``device`` (``None``
-    -> the card). ``dtype`` casts every floating leaf; ``None`` keeps each
-    leaf's own dtype."""
-    dev = resolve_device(device)
+def _port_tree(cfg: ModelConfig, tree: dict, dev, dtype) -> dict:
+    """The reference's tree of ``cfg`` as the port's (one tree a layer)."""
     t = tree_map(lambda a: _tensor(a, dev, dtype), tree)
     period = cfg.pattern_period
     layers = []
@@ -62,27 +63,86 @@ def load_reference_params(cfg: ModelConfig, tree: dict, *, device=None,
             "layers": [tree_map(lambda a: a[j].clone(), enc["layers"])
                        for j in range(cfg.encoder.n_layers)],
             "final_norm": enc["final_norm"]}
-    return LMModel(cfg, port)
+    return port
+
+
+def _reference_tree(cfg: ModelConfig, port: dict) -> dict:
+    """The port's tree of ``cfg`` as the reference's, in numpy arrays:
+    the inverse of ``_port_tree``."""
+    period, n_cyc = cfg.pattern_period, cfg.n_cycles
+    layers = port["layers"]
+    out = {"embed": port["embed"], "final_norm": port["final_norm"],
+           "cycle": {f"p{pi}": tree_stack(layers[pi: n_cyc * period: period])
+                     for pi in range(period)}}
+    if "lm_head" in port:
+        out["lm_head"] = port["lm_head"]
+    if cfg.tail_kinds:
+        out["tail"] = {f"t{i}": layers[n_cyc * period + i]
+                       for i in range(len(cfg.tail_kinds))}
+    if "encoder" in port:
+        out["encoder"] = {
+            "layers": tree_stack(port["encoder"]["layers"]),
+            "final_norm": port["encoder"]["final_norm"]}
+    return tree_map(_array, out)
+
+
+def _named(tree, prefix="") -> dict:
+    """A port tree's leaves by ``named_parameters()`` name (dotted path)."""
+    if isinstance(tree, torch.Tensor):
+        return {prefix: tree}
+    out = {}
+    for k, v in enumerate(tree) if isinstance(tree, list) else tree.items():
+        out.update(_named(v, f"{prefix}.{k}" if prefix else str(k)))
+    return out
+
+
+def load_reference_params(cfg: ModelConfig, tree: dict, *, device=None,
+                          dtype=None) -> LMModel:
+    """The port's model holding the reference's parameter ``tree`` (nested
+    dicts of numpy arrays, ``init_model``'s layout) on ``device`` (``None``
+    -> the card). ``dtype`` casts every floating leaf; ``None`` keeps each
+    leaf's own dtype."""
+    return LMModel(cfg, _port_tree(cfg, tree, resolve_device(device), dtype))
+
+
+def _model_tree(model: LMModel) -> dict:
+    """The port tree of ``model``'s parameter values."""
+    port = {"embed": model.embed.data,
+            "final_norm": module_tree(model.final_norm),
+            "layers": [module_tree(m) for m in model.layers]}
+    if model.lm_head is not None:
+        port["lm_head"] = model.lm_head.data
+    if model.encoder is not None:
+        port["encoder"] = {
+            "layers": [module_tree(m) for m in model.encoder["layers"]],
+            "final_norm": module_tree(model.encoder["final_norm"])}
+    return port
 
 
 def to_reference_params(model: LMModel) -> dict:
     """The reference's parameter tree (nested dicts of numpy arrays) of the
     port's ``model``: the inverse of ``load_reference_params``."""
-    cfg = model.cfg
-    period, n_cyc = cfg.pattern_period, cfg.n_cycles
-    layers = [module_tree(m) for m in model.layers]
-    out = {"embed": model.embed.data,
-           "final_norm": module_tree(model.final_norm),
-           "cycle": {f"p{pi}": tree_stack(layers[pi: n_cyc * period: period])
-                     for pi in range(period)}}
-    if model.lm_head is not None:
-        out["lm_head"] = model.lm_head.data
-    if cfg.tail_kinds:
-        out["tail"] = {f"t{i}": layers[n_cyc * period + i]
-                       for i in range(len(cfg.tail_kinds))}
-    if model.encoder is not None:
-        out["encoder"] = {
-            "layers": tree_stack([module_tree(m)
-                                  for m in model.encoder["layers"]]),
-            "final_norm": module_tree(model.encoder["final_norm"])}
-    return tree_map(_array, out)
+    return _reference_tree(model.cfg, _model_tree(model))
+
+
+def load_reference_opt_state(cfg: ModelConfig, opt: dict, *,
+                             device=None) -> dict:
+    """The port's AdamW state (``optim.adamw``: the moments by parameter
+    name, on ``device``, ``None`` -> the card; the step on the host) of the
+    reference's ``opt`` ({"m", "v": trees of the reference's parameter
+    layout, "step"}), restacked as ``load_reference_params`` restacks the
+    weights."""
+    dev = resolve_device(device)
+    out = {k: _named(_port_tree(cfg, opt[k], dev, None)) for k in ("m", "v")}
+    out["step"] = torch.tensor(int(np.asarray(opt["step"])),
+                               dtype=torch.int32)
+    return out
+
+
+def to_reference_opt_state(cfg: ModelConfig, opt: dict) -> dict:
+    """The reference's AdamW state (numpy arrays) of the port's ``opt``:
+    the inverse of ``load_reference_opt_state``."""
+    out = {k: _reference_tree(cfg, tree_from_paths(opt[k], "."))
+           for k in ("m", "v")}
+    out["step"] = np.asarray(int(opt["step"]), np.int32)
+    return out

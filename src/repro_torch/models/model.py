@@ -21,8 +21,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..device import resolve_device
+from ..tree import tree_map, tree_stack
 from .config import ModelConfig
 from .layers import _init, attention, attention_init, mlp, mlp_init, \
     rmsnorm, rmsnorm_init, scalar
@@ -32,20 +34,6 @@ from .ssm import ssm_block, ssm_init, ssm_state_init
 
 
 # ----------------------------------------------------------------- trees
-
-def tree_map(fn, tree):
-    """``fn`` on every tensor leaf of a tree of nested dicts."""
-    if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
-    return fn(tree)
-
-
-def tree_stack(trees):
-    """Nested dicts of tensors stacked leaf by leaf along a new dim 0."""
-    if isinstance(trees[0], dict):
-        return {k: tree_stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
-
 
 def _module(tree):
     """A nested dict of tensors as an ``nn.ParameterDict`` (a block) or an
@@ -191,13 +179,33 @@ def _sinusoid(S, D):
     return torch.from_numpy(out)
 
 
-def run_encoder(params, frames, cfg: ModelConfig):
-    """Whisper-style encoder over precomputed frame embeddings [B, T, D]."""
+def _remat(fn, remat_policy, *args):
+    """``fn(*args)``, its activations rematerialised in the backward pass
+    under ``remat_policy``: ``None`` keeps them all, otherwise it is the
+    ``context_fn`` of ``torch.utils.checkpoint.checkpoint`` (what to save;
+    ``models.train.REMAT_POLICIES`` maps the reference's names to them)."""
+    if remat_policy is None:
+        return fn(*args)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      context_fn=remat_policy)
+
+
+def run_encoder(params, frames, cfg: ModelConfig, remat_policy=None,
+                unroll=False):
+    """Whisper-style encoder over precomputed frame embeddings [B, T, D].
+
+    ``remat_policy`` rematerialises each encoder layer (see ``_remat``).
+    ``unroll`` is the reference's switch from a scan to a Python loop; the
+    port always loops in Python, so it changes nothing."""
     frames = torch.as_tensor(frames, device=params.embed.device)
     x = frames + _sinusoid(frames.shape[1], cfg.d_model).to(
         device=frames.device, dtype=frames.dtype)
+
+    def enc_layer(x, p):
+        return _apply_layer(p, x, cfg, "attn", mask_mode="bidir")[0]
+
     for p in params.encoder["layers"]:
-        x, _, _ = _apply_layer(p, x, cfg, "attn", mask_mode="bidir")
+        x = _remat(enc_layer, remat_policy, x, p)
     return rmsnorm(params.encoder["final_norm"], x, cfg.norm_eps)
 
 
@@ -252,45 +260,71 @@ def set_cache_pos(caches, pos):
 # ----------------------------------------------------------------- forward
 
 def forward_logits(params, tokens, cfg: ModelConfig, *, ctx=None,
-                   caches=None, pos_offset=0):
+                   caches=None, pos_offset=0, remat_policy=None,
+                   activation_hook=None, unroll=False):
     """tokens: [B, S] -> (logits [B, S, V] f32, new_caches, aux).
 
     params: an ``LMModel``. caches: stacked decode caches (S must be 1).
     ctx: cross-attn context (VLM patches / whisper encoder output).
+    remat_policy: rematerialise each cycle of ``pattern_period`` layers in
+    the backward pass, as the reference's scan body (see ``_remat``); the
+    tail layers never are. activation_hook(x, where) is called on the
+    embeddings (``"embed"``), after every layer (``"layer"``), after the
+    final norm (``"final"``) and on the logits (``"logits"``). ``unroll``
+    is the reference's switch from its cycle scan to a Python loop; the
+    port always loops in Python, so it changes nothing.
     """
+    hook = activation_hook or (lambda x, where: x)
     emb = params.embed
     dev = emb.device
     tokens = torch.as_tensor(tokens, device=dev).long()
     x = emb[tokens] * scalar(np.sqrt(cfg.d_model), emb.dtype)
+    x = hook(x, "embed")
     if ctx is not None:
         ctx = torch.as_tensor(ctx, device=dev)
 
     period, n_cyc = cfg.pattern_period, cfg.n_cycles
-    new_cycle = {f"p{pi}": [] for pi in range(period)}
-    new_tail = {}
-    aux_total = torch.zeros((), dtype=torch.float32, device=dev)
-    for li, (p, kind) in enumerate(zip(params.layers, params.kinds)):
-        c, pi = divmod(li, period)
-        cache = None
-        if caches is not None:
-            cache = (tree_map(lambda a: a[c], caches["cycle"][f"p{pi}"])
-                     if c < n_cyc else caches["tail"][f"t{li - n_cyc * period}"])
-        x, nc, aux = _apply_layer(p, x, cfg, kind, ctx=ctx, cache=cache,
-                                  pos_offset=pos_offset)
-        aux_total = aux_total + aux
-        if caches is not None:
-            if c < n_cyc:
-                new_cycle[f"p{pi}"].append(nc)
-            else:
-                new_tail[f"t{li - n_cyc * period}"] = nc
+
+    def layers(x, lo, hi):
+        """Layers lo..hi-1: (x, their summed aux, their new caches)."""
+        aux = torch.zeros((), dtype=torch.float32, device=dev)
+        new = []
+        for li in range(lo, hi):
+            c, pi = divmod(li, period)
+            cache = None
+            if caches is not None:
+                cache = (tree_map(lambda a: a[c], caches["cycle"][f"p{pi}"])
+                         if c < n_cyc
+                         else caches["tail"][f"t{li - n_cyc * period}"])
+            x, nc, a = _apply_layer(params.layers[li], x, cfg,
+                                    params.kinds[li], ctx=ctx, cache=cache,
+                                    pos_offset=pos_offset)
+            aux = aux + a
+            new.append(nc)
+            x = hook(x, "layer")
+        return x, aux, new
+
+    cycle_aux, cycle_caches = [], []
+    for c in range(n_cyc):
+        x, aux, new = _remat(layers, remat_policy, x, c * period,
+                             (c + 1) * period)
+        cycle_aux.append(aux)
+        cycle_caches.append(new)
+    x, aux_tail, tail_caches = layers(x, n_cyc * period, cfg.n_layers)
 
     new_caches = None
     if caches is not None:
-        new_caches = {"cycle": {k: tree_stack(v) for k, v in new_cycle.items()},
-                      "tail": new_tail}
+        new_caches = {
+            "cycle": {f"p{pi}": tree_stack([new[pi] for new in cycle_caches])
+                      for pi in range(period)},
+            "tail": {f"t{i}": nc for i, nc in enumerate(tail_caches)}}
     x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    x = hook(x, "final")
     head = emb.T if cfg.tie_embeddings else params.lm_head
     logits = (x @ head.to(x.dtype)).float()
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)
-    return logits, new_caches, aux_total
+    logits = hook(logits, "logits")
+    aux = (torch.stack(cycle_aux).sum() if cycle_aux
+           else torch.zeros((), dtype=torch.float32, device=dev)) + aux_tail
+    return logits, new_caches, aux
