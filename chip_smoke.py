@@ -7,7 +7,10 @@ Needs one CUDA card and the CUDA toolkit; imports nothing of JAX or of the
 reference package. Phases, any failure exits non-zero:
 
 1. the card's name and power limit (``nvidia-smi``);
-2. build every kernel from ``src/repro_torch/csrc`` (``build/kernels/``);
+2. build every kernel from ``src/repro_torch/csrc`` (``build/kernels/``),
+   one ``nvcc`` a source, all started together beside phase 3's host
+   set-up: the join kernels are waited for before phase 3 launches one,
+   the attention kernels (phase 9's alone) before phase 9;
 3. hold the filter kernels against their plain PyTorch versions on the
    card, exactly: the trichotomy kernel, and the overlap kernel's AA join,
    on the first 65,536 candidate rows of the T1 x T2 join and on every
@@ -186,7 +189,7 @@ reference package. Phases, any failure exits non-zero:
    must equal a one-request run (filter ``none``, numpy backends) over the
    dataset as it stood at its drain, and the fused tickets the staged
    ones, pairs and order. RI staged and fused services (seeded with
-   copies of phase 5's T2 store) take the first 128. Then the patched
+   copies of phase 5's T2 store) take the first 64. Then the patched
    stores must equal fresh torch builds over the mutated dataset, every
    array in dtype, shape and bytes, and so must the device copies the
    last drain used (the interval lists and their row keys, RI's device
@@ -196,7 +199,7 @@ reference package. Phases, any failure exits non-zero:
    sets; a checkpoint of the staged service restores into a new one,
    which must answer 64 requests alike; under a budget of one store,
    warming a second dataset's store must evict and lower
-   ``torch.cuda.memory_allocated``; ``run_serve`` drives 2000 requests
+   ``torch.cuda.memory_allocated``; ``run_serve`` drives 1000 requests
    through the background worker (figures, not gates). Launch counts are
    reset before and read after each trace, and every recorded B1, B4, B2,
    B3 and B5 input is replayed against its plain version, exactly;
@@ -211,12 +214,12 @@ reference package. Phases, any failure exits non-zero:
    two gloo ranks on the one card (child processes of this script, a
    ``FileStore``) run the four sharded stages on partition 0, each rank's
    outputs equal to its world-of-one outputs; the out-of-core tiled join
-   (``scaleout.tiled_join``) over chunk streams of 1200 (T1 3600, T2
-   12000; a budget a sixth of the plan's estimated bytes, so at least 4
-   tiles and a skew split), staged and fused, each with the pair set of
-   the in-memory staged ``cuda`` ``JoinPlan`` over
-   ``make_chunked_dataset``, then at phase 6's counts static balance, and
-   a run stopped after 2 tiles and resumed, arrays equal to a clean run.
+   (``scaleout.tiled_join``) over chunk streams of 1200 at phase 6's
+   counts (T1 1200, T2 4000; a budget a sixth of the plan's estimated
+   bytes, so at least 4 tiles and a skew split), staged and fused, each
+   with the pair set of the in-memory staged ``cuda`` ``JoinPlan`` over
+   ``make_chunked_dataset``, then static balance, and a run stopped after
+   2 tiles and resumed, arrays equal to a clean run.
    Launch counts are reset before and read after each run and every
    recorded B1, B4, B2, B3 and B5 input is replayed against its plain
    version, exactly;
@@ -280,6 +283,35 @@ reference package. Phases, any failure exits non-zero:
    as a share of the f32 peak, peak device memory, the busy share of a
    profiled step, the phase's seconds, beside the card's name and power
    limit;
+17. (run after phase 16, before phase 9, in gloo ranks that are child
+   processes of this script on ``cuda:0``) the sharded LM step
+   (``models.sharding``, ``models.parallel``, ``launch.mesh``,
+   ``runtime.elastic``, ``launch.dryrun``), f32 without TF32, plain PyTorch
+   ops and hand-written collectives: no kernel of the port runs, so the
+   ``kernels`` line gains no row. (a) gemma2-2b at full width cut to 4
+   layers (two local/global cycles), ``TRAIN_SHAPE`` batch, lr 1e-3: one
+   single-card step, then 2 ranks as a 1 x 2 mesh (tensor parallel); the
+   loss within 1e-4, ``grad_norm`` within ``TRAIN_REL_TOL`` and every
+   gathered parameter within 5e-3 of the single step's (the reference's
+   ``tests/test_model_distributed.py`` bounds), and every gathered first
+   moment, leaf by leaf, within ``TRAIN_M_TOL`` of its largest entry
+   (``_m_err``: one step moves each weight by about lr whatever its
+   gradient, so only the moments see a misrouted gradient shard); (b)
+   gemma2-2b at full depth on the 1 x 2 mesh, 3 steps: finite losses, the
+   first within ``TRAIN_REL_TOL`` of phase 16's first single-card step on
+   the same weights and batch; (c) smollm-135m at full width on 2 x 1 and on
+   2 x 2 (4 ranks) against the single-card step under (a)'s bounds, then
+   ``train_loop(mesh=...)`` on 2 x 2 crashed at step 3 and resumed from its
+   step-2 checkpoint on the 2 x 1 mesh the two survivors form
+   (``make_mesh_from_devices``), the losses within ``TRAIN_RESUME_TOL`` of
+   phase 16's uninterrupted single-card run of the same launcher (the
+   survivors form a new gloo group in the same processes); (d) beside (c),
+   in a process of its own, the dry run of gemma2-2b ``train_4k`` on the
+   production mesh (16 x 16, bf16, sequence parallel) and of (b)'s cell (2 x
+   512 on 1 x 2, f32). Printed, not gated: ms a step, tokens/s, collective
+   bytes a step and rank by kind, peak device memory a rank, each dry-run
+   cell's three terms beside (b)'s measured step, the phase's seconds,
+   beside the card's name and power limit;
 9. (in a child process of this script, after phases 10, 11 and 12: late in
    a long process the card machine's profiler records no device events) the
    APRIL block-sparse attention kernels (``april_attention``, the LM
@@ -331,6 +363,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -384,15 +417,19 @@ NEIGHBORS_PREFIX = 10
 #: fused services), of the RI trace, of the adaptive trace (a prefix of
 #: the APRIL trace) and of the checkpoint round trip; requests a drain
 #: takes; an insert and a delete every SERVICE_MUTATE requests; the
-#: requests run_serve drives through the background worker
+#: requests run_serve drives through the background worker. The RI trace
+#: (from 128), run_serve's requests (from 2000) and phase 14's tiled runs
+#: (from 3600 x 12000) are cut so that the script, phase 17 included,
+#: ends inside its time limit: uncut, it took 1178.0 and 1185.2 s of the
+#: 1200 on the H100 (PERF.md, "Findings")
 SERVICE_REQUESTS = 512
-SERVICE_RI_REQUESTS = 128
+SERVICE_RI_REQUESTS = 64
 SERVICE_ADAPTIVE_REQUESTS = 192
 SERVICE_CKPT_REQUESTS = 64
 SERVICE_GROUP = 16
 SERVICE_MUTATE = 25
 SERVICE_REPLAN_AFTER = 4
-SERVE_REQUESTS = 2000
+SERVE_REQUESTS = 1000
 SERVICE_SEED = 29
 #: phase 14, the scale-out path: the launcher's partitions a side; the
 #: tiled join's chunk size, its budget a share of the plan's estimated
@@ -451,6 +488,20 @@ TRAIN_M_TOL = 1e-4
 #: the smoke configs' card-against-CPU step: learning rate and batch shape
 TRAIN_SMOKE_LR = 1e-3
 TRAIN_SMOKE_SHAPE = (2, 16)
+#: phase 17, the sharded step (gloo ranks on the one card): gemma2-2b's
+#: depth in the equality check (two local/global cycles), the learning
+#: rate, the loss and parameter bounds of the reference's
+#: ``tests/test_model_distributed.py``, the full-depth steps, the
+#: launcher's run (crash at step 3, checkpoints every 2), a rank's time
+#: limit
+SHARDED_LAYERS = 4
+SHARDED_LR = 1e-3
+SHARDED_LOSS_TOL = 1e-4
+SHARDED_PARAM_TOL = 5e-3
+SHARDED_STEPS = 3
+SHARDED_LAUNCH = dict(smoke=False, steps=4, batch=4, seq=256, ckpt_every=2)
+SHARDED_FAIL_AT = 3
+SHARDED_RANK_TIMEOUT = 400
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 #: logit std of each head of the full-width draws (q is drawn at these
@@ -2305,7 +2356,7 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
               f"{st.n_results} result pairs (card {smi})", flush=True)
         return res, st
 
-    n_r, n_s = args.r_count, args.s_count
+    n_r, n_s = args.r_count // HOST_SCALE, args.s_count // HOST_SCALE
     b = budget(n_r, n_s, **SCALEOUT_SPLIT)
     want_t, _ = in_memory(n_r, n_s)
     runs = {}
@@ -2334,12 +2385,10 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
         if getattr(runs["staged"], k) != getattr(runs["fused"], k):
             raise AssertionError(f"[tiled] staged and fused {k} differ")
     # static balance, then a static run stopped after 2 tiles and resumed
-    n_r, n_s = args.r_count // HOST_SCALE, args.s_count // HOST_SCALE
     b = budget(n_r, n_s, balance="static")
-    want_s, _ = in_memory(n_r, n_s)
     clean, st = tiled("tiled-static", n_r, n_s, balance="static",
                       tile_budget=b)
-    same_set("tiled-static", clean, want_s)
+    same_set("tiled-static", clean, want_t)
     if st.extra["tile_plan"]["n_splits"] != 0:
         raise AssertionError("[tiled-static] a static plan split")
     with tempfile.TemporaryDirectory() as ck:
@@ -2356,7 +2405,7 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
     print(f"[tiled] staged and fused == the in-memory set "
           f"({len(want_t)} pairs) and each other's counts; static, stopped "
           f"and resumed at {n_r} x {n_s} == its in-memory set "
-          f"({len(want_s)} pairs), resumed arrays == the static run's "
+          f"({len(want_t)} pairs), resumed arrays == the static run's "
           f"(card {smi})", flush=True)
 
     extra = {name: {"launches_scaleout": {
@@ -2716,10 +2765,14 @@ def _m_err(m: dict, want: dict) -> float:
     return worst
 
 
-def _train_phase() -> None:
+def _train_phase(first_out: str | None = None) -> None:
     """Phase 16: LM training on the card (``models.train``, ``optim``,
     ``launch.train``), f32, plain PyTorch ops and autograd: no kernel of
-    the port runs here, so the ``kernels`` line gains no row."""
+    the port runs here, so the ``kernels`` line gains no row.
+    ``first_out`` receives what phase 17 is held to: gemma2-2b's first
+    full-width step (its loss and ``grad_norm``) and the uninterrupted
+    launcher run's losses (a run's first steps do not depend on its
+    length: the learning rate is constant)."""
     import gc
     import torch
     from repro_torch.configs import ARCHS, get_config
@@ -2967,19 +3020,404 @@ def _train_phase() -> None:
           f"at step {TRAIN_FAIL_AT}, resumed from step {last}: max abs "
           f"difference {float(np.max(np.abs(np.subtract(resumed, want[last:]))))}"
           f" (bound {TRAIN_RESUME_TOL}) (card {smi})", flush=True)
+    if first_out:
+        Path(first_out).write_text(json.dumps({
+            "gemma2-2b": first_metrics,
+            "launcher": {"run": TRAIN_LAUNCH, "losses": want}}))
     print(f"phase 16 ok: LM training ({time.perf_counter() - t_phase:.1f} "
           f"s; card {smi})", flush=True)
 
 
-def _train_in_fresh_process() -> None:
+def _train_in_fresh_process(out: str) -> None:
     """Phase 16 in a child process of this script; fails if the child
     fails. As for phase 9: the profiler of a process some minutes old
     records no device event, and a fresh context has the whole card."""
     code = ("import sys; sys.path.insert(0, sys.argv[1]); "
             "sys.path.insert(0, sys.argv[1] + '/src'); "
-            "import chip_smoke; chip_smoke._train_phase()")
+            "import chip_smoke; chip_smoke._train_phase(sys.argv[2])")
     subprocess.run([sys.executable, "-c", code,
-                    str(Path(__file__).resolve().parent)], check=True)
+                    str(Path(__file__).resolve().parent), out], check=True)
+
+
+# ----------------------------------------------------------------- phase 17
+
+def _sharded_setup(part: str, rank: int, world: int, tmp: str):
+    """A child of phase 17: rank ``rank`` of ``world`` gloo ranks over a
+    ``FileStore`` in ``tmp``, computing on ``cuda:0``; ``_sharded_done``
+    ends it."""
+    from datetime import timedelta
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(Path(tmp) / f"{part}.store"), world), rank=rank,
+        world_size=world, timeout=timedelta(seconds=SHARDED_RANK_TIMEOUT))
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("phase 17 compares f32 steps: TF32 matmuls "
+                             "must stay off")
+    return torch.device("cuda")
+
+
+def _sharded_done(tmp: str, name: str, report) -> None:
+    """A phase-17 child's report written, then the group torn down once
+    every rank is done."""
+    import torch.distributed as dist
+    Path(tmp, name).write_text(json.dumps(report))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _sharded_step(cfg, model, mesh, batch, lr):
+    """One sharded step of ``model`` (global weights on the card) on
+    ``mesh``: (this rank's sharded model, the first moments gathered,
+    metrics as floats, the step's collective bytes by kind)."""
+    from repro_torch.models.parallel import gather_tree
+    from repro_torch.models.sharding import (
+        distribute_model, make_activation_hook, named_sharding_tree,
+        opt_state_specs, opt_state_zeros, shard_batch)
+    from repro_torch.models.train import make_train_step
+    ospecs = opt_state_specs(model, mesh)
+    opt = opt_state_zeros(model, mesh, ospecs)
+    sharded = distribute_model(model, mesh)
+    step = make_train_step(
+        cfg, lr=lr, device=mesh.device,
+        activation_hook=make_activation_hook(mesh, sequence_parallel=False),
+        grad_shardings=named_sharding_tree(mesh, ospecs["m"]))
+    mesh.tally.clear()
+    sharded, opt, m = step(sharded, opt, shard_batch(batch, mesh))
+    tally = dict(mesh.tally)
+    return sharded, gather_tree(opt["m"], ospecs["m"], mesh), \
+        {k: float(v) for k, v in m.items()}, tally
+
+
+def _single_step(cfg, dev, batch, lr):
+    """gemma2-2b's (or any config's) single-card step from
+    ``init_model(0, cfg)``: (metrics, the new parameters and the first
+    moments by name)."""
+    from repro_torch.models.model import init_model
+    from repro_torch.models.train import make_train_step
+    from repro_torch.optim import adamw_init
+    model = init_model(0, cfg, device=dev)
+    model, opt, m = make_train_step(cfg, lr=lr, device=dev)(
+        model, adamw_init(dict(model.named_parameters())), batch)
+    return {k: float(v) for k, v in m.items()}, \
+        {k: p.detach() for k, p in model.named_parameters()}, opt["m"]
+
+
+def _held(label, got, want, params, want_params, m, want_m):
+    """The sharded step's loss, ``grad_norm``, gathered parameters and
+    gathered first moments against the single-card step's, under phase
+    17's bounds. After one AdamW step every weight moves by about lr
+    whatever its gradient, so only the moments (0.1 g) see a gradient
+    shard on the wrong rank or slice: each leaf's max abs difference over
+    its largest entry (``_m_err``) within ``TRAIN_M_TOL``."""
+    err = {"loss": abs(got["loss"] - want["loss"]),
+           "grad_norm": _rel(got["grad_norm"], want["grad_norm"]),
+           "params": max(float((params[k] - p).abs().max())
+                         for k, p in want_params.items()),
+           "m": _m_err(m, want_m)}
+    if sorted(m) != sorted(want_m) or err["loss"] > SHARDED_LOSS_TOL or \
+            err["grad_norm"] > TRAIN_REL_TOL or \
+            err["params"] > SHARDED_PARAM_TOL or err["m"] > TRAIN_M_TOL:
+        raise AssertionError(f"[{label}] the sharded step differs from the "
+                             f"single-card step: {err}")
+    return err
+
+
+def _sharded_tp_child(rank: int, tmp: str, first: str) -> None:
+    """Phase 17 (a) and (b), rank ``rank`` of 2 on a 1 x 2 mesh."""
+    import dataclasses
+    import gc
+    import torch
+    dev = _sharded_setup("tp", rank, 2, tmp)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.train import SyntheticCorpus
+    from repro_torch.models.model import init_model
+    from repro_torch.models.parallel import gather_params
+    from repro_torch.models.sharding import (
+        distribute_model, make_activation_hook, opt_state_specs,
+        opt_state_zeros, shard_batch)
+    from repro_torch.models.train import make_train_step
+    report = {}
+    B, S = TRAIN_SHAPE
+    full_cfg = get_config("gemma2-2b")
+    data = SyntheticCorpus(full_cfg.vocab, B, S, seed=0)
+    batches = [data.next_batch(full_cfg) for _ in range(SHARDED_STEPS)]
+    mesh = make_dev_mesh(1, 2, device=dev)
+
+    # (a) 4 layers, the sharded step against the single-card step
+    cfg = dataclasses.replace(full_cfg, n_layers=SHARDED_LAYERS)
+    if rank == 0:
+        want, want_params, want_m = _single_step(cfg, dev, batches[0],
+                                                 SHARDED_LR)
+    model = init_model(0, cfg, device=dev)
+    sharded, m, got, tally = _sharded_step(cfg, model, mesh, batches[0],
+                                           SHARDED_LR)
+    del model
+    params = gather_params(sharded)
+    if rank == 0:
+        report["a"] = {"single": want, "sharded": got, "tally": tally,
+                       "err": _held("gemma2-2b 4 layers, 1 x 2", got, want,
+                                    params, want_params, m, want_m)}
+        del want_params, want_m
+    del sharded, m, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) full depth, 3 steps
+    torch.cuda.reset_peak_memory_stats()
+    cfg = full_cfg
+    model = init_model(0, cfg, device=dev)
+    ospecs = opt_state_specs(model, mesh)
+    opt = opt_state_zeros(model, mesh, ospecs)
+    sharded = distribute_model(model, mesh)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    step = make_train_step(
+        cfg, lr=SHARDED_LR, device=dev,
+        activation_hook=make_activation_hook(mesh, sequence_parallel=False))
+    losses, secs, tallies = [], [], []
+    for b in batches:
+        mesh.tally.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sharded, opt, m = step(sharded, opt, shard_batch(b, mesh))
+        losses.append(float(m["loss"]))
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        tallies.append(dict(mesh.tally))
+    want = json.loads(Path(first).read_text())["gemma2-2b"]
+    if not all(np.isfinite(losses)) or \
+            _rel(losses[0], want["loss"]) > TRAIN_REL_TOL:
+        raise AssertionError(f"[gemma2-2b 1 x 2] losses {losses}; the first "
+                             f"against phase 16's single-card {want['loss']}")
+    report["b"] = {"losses": losses, "seconds": secs, "tally": tallies[-1],
+                   "first_rel_err": _rel(losses[0], want["loss"]),
+                   "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    _sharded_done(tmp, f"tp_{rank}.json", report)
+
+
+def _sharded_dp_child(rank: int, tmp: str, first: str) -> None:
+    """Phase 17 (c), rank ``rank`` of 4: the step on 2 x 1 (the first two
+    ranks; rank 2 meanwhile takes smollm-135m's single-card step, the
+    reference) and on 2 x 2, held by rank 0 to the single-card step, then
+    the launcher on 2 x 2, crashed at step ``SHARDED_FAIL_AT``; ranks 2
+    and 3 then leave, and the two survivors form a new group and resume
+    the launcher on the 2 x 1 mesh ``make_mesh_from_devices`` makes of
+    them, held to phase 16's uninterrupted single-card run of the same
+    launcher (``first``)."""
+    import torch
+    import torch.distributed as dist
+    dev = _sharded_setup("dp", rank, 4, tmp)
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_dev_mesh
+    from repro_torch.launch.train import SyntheticCorpus, train_loop
+    from repro_torch.models.model import init_model
+    from repro_torch.models.parallel import gather_params
+    from repro_torch.runtime.elastic import make_mesh_from_devices
+    cfg = get_config("smollm-135m")
+    batch = SyntheticCorpus(cfg.vocab, *TRAIN_SHAPE, seed=0).next_batch(cfg)
+    report, secs, held = {}, {}, {}
+    ck = str(Path(tmp) / "ck")
+    single = Path(tmp, "dp_single.pt")
+    meshes = (("2x1", make_mesh_from_devices(range(2), 1, device=dev)),
+              ("2x2", make_dev_mesh(2, 2, device=dev)))
+    if rank == 2:
+        t0 = time.perf_counter()
+        torch.save(_single_step(cfg, dev, batch, SHARDED_LR),
+                   single.with_suffix(".tmp"))
+        os.replace(single.with_suffix(".tmp"), single)
+        secs["single"] = time.perf_counter() - t0
+    for label, mesh in meshes:
+        if mesh.coords is None:
+            continue
+        t0 = time.perf_counter()
+        sharded, m, got, tally = _sharded_step(
+            cfg, init_model(0, cfg, device=dev), mesh, batch, SHARDED_LR)
+        torch.cuda.synchronize()
+        secs[label] = time.perf_counter() - t0
+        params = gather_params(sharded)
+        if rank == 0:
+            held[label] = (got, tally, params, m)
+    if rank == 0:
+        # rank 2 saved the reference before it took part in the 2 x 2 step
+        want, want_params, want_m = torch.load(single, map_location=dev)
+        for label, (got, tally, params, m) in held.items():
+            report[label] = {"sharded": got, "tally": tally,
+                             "err": _held(f"smollm-135m {label}", got, want,
+                                          params, want_params, m, want_m)}
+        del held, want_params, want_m
+    t0 = time.perf_counter()
+    try:
+        train_loop("smollm-135m", ckpt_dir=ck, mesh=mesh,
+                   fail_at_step=SHARDED_FAIL_AT, **SHARDED_LAUNCH)
+    except RuntimeError as e:
+        if "injected failure" not in str(e):
+            raise
+    else:
+        raise AssertionError("the sharded launcher ran past its crash")
+    torch.cuda.synchronize()
+    secs["crashed launcher"] = time.perf_counter() - t0
+    report["seconds"] = secs
+    _sharded_done(tmp, f"dp_{rank}.json", report)
+    if rank >= 2:
+        return
+    # the survivors' elastic restart
+    _sharded_setup("resume", rank, 2, tmp)
+    mesh = make_mesh_from_devices(range(2), 1, device=dev)
+    t0 = time.perf_counter()
+    _, opt, resumed = train_loop("smollm-135m", ckpt_dir=ck, mesh=mesh,
+                                 **SHARDED_LAUNCH)
+    secs = time.perf_counter() - t0
+    last = SHARDED_FAIL_AT // SHARDED_LAUNCH["ckpt_every"] * \
+        SHARDED_LAUNCH["ckpt_every"]
+    if int(opt["step"]) != SHARDED_LAUNCH["steps"] or \
+            len(resumed) != SHARDED_LAUNCH["steps"] - last:
+        raise AssertionError(f"[launcher 2 x 1] resumed {len(resumed)} steps "
+                             f"to step {int(opt['step'])}")
+    run = json.loads(Path(first).read_text())["launcher"]
+    if {k: v for k, v in run["run"].items() if k not in ("steps",
+                                                         "ckpt_every")} \
+            != {k: v for k, v in SHARDED_LAUNCH.items()
+                if k not in ("steps", "ckpt_every")}:
+        raise AssertionError(f"phase 16's launcher run {run['run']} is not "
+                             f"{SHARDED_LAUNCH}'s")
+    want = run["losses"][:SHARDED_LAUNCH["steps"]]
+    if not np.allclose(resumed, want[last:], **TRAIN_RESUME_TOL):
+        raise AssertionError(f"[launcher 2 x 1] resumed losses {resumed} != "
+                             f"the uninterrupted run's {want[last:]}")
+    _sharded_done(tmp, f"resume_{rank}.json", {
+        "mesh": mesh.shape, "resumed": resumed, "want": want,
+        "from_step": last, "seconds": secs})
+
+
+def _dryrun_child(tmp: str) -> None:
+    """Phase 17 (d): the dry run of gemma2-2b ``train_4k`` on the
+    production mesh (bf16 and sequence parallel, the reference's
+    defaults) and of the phase's own cell (2 x 512 on 1 x 2, f32, as (b)
+    ran it)."""
+    import torch
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    cfg = get_config("gemma2-2b")
+    cells = {
+        "train_4k 16x16": dryrun.run_model_cell(
+            cfg, SHAPES["train_4k"], dryrun.cell_mesh(), arch="gemma2-2b",
+            shape_name="train_4k"),
+        "2x512 1x2": dryrun.run_model_cell(
+            cfg, (TRAIN_SHAPE[1], TRAIN_SHAPE[0], "train"),
+            dryrun.cell_mesh(mesh_shape=(1, 2)), arch="gemma2-2b",
+            sequence_parallel=False, dtype=torch.float32)}
+    Path(tmp, "dryrun.json").write_text(json.dumps(cells))
+
+
+def _rank_group(fn: str, world: int, tmp: str, *extra) -> list:
+    """``world`` child processes of this script running ``fn(rank, tmp,
+    *extra)``; fails if any fails or outlives ``SHARDED_RANK_TIMEOUT``."""
+    code = ("import sys; sys.path.insert(0, sys.argv[1]); "
+            f"import chip_smoke; chip_smoke.{fn}(int(sys.argv[2]), "
+            "*sys.argv[3:])")
+    procs = [subprocess.Popen([sys.executable, "-c", code,
+                               str(Path(__file__).resolve().parent), str(r),
+                               tmp, *extra]) for r in range(world)]
+    try:
+        rcs = [p.wait(timeout=SHARDED_RANK_TIMEOUT) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    if any(rcs):
+        raise AssertionError(f"[{fn}] the rank processes exited with {rcs}")
+    return rcs
+
+
+def _sharded_phase(first: str) -> None:
+    """Phase 17: the sharded LM step, the elastic restart and the dry run
+    (``models.sharding``, ``models.parallel``, ``launch.mesh``,
+    ``runtime.elastic``, ``launch.dryrun``), gloo ranks as child processes
+    of this script on ``cuda:0``, f32 without TF32: no kernel of the port
+    runs, so the ``kernels`` line gains no row."""
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    B, S = TRAIN_SHAPE
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        _rank_group("_sharded_tp_child", 2, tmp, first)
+        t_tp = time.perf_counter() - t0
+        tp = [json.loads(Path(tmp, f"tp_{r}.json").read_text())
+              for r in range(2)]
+        # (d) needs no card: the dry run runs beside (c)'s ranks
+        t0 = time.perf_counter()
+        dry = subprocess.Popen([
+            sys.executable, "-c", "import sys; sys.path.insert(0, "
+            "sys.argv[1]); import chip_smoke; chip_smoke._dryrun_child("
+            "sys.argv[2])", str(Path(__file__).resolve().parent), tmp])
+        try:
+            _rank_group("_sharded_dp_child", 4, tmp, first)
+            t_dp = time.perf_counter() - t0
+            rc = dry.wait(timeout=SHARDED_RANK_TIMEOUT)
+        finally:
+            if dry.poll() is None:
+                dry.kill()
+                dry.wait()
+        t_dry = time.perf_counter() - t0
+        if rc:
+            raise AssertionError(f"[dry run] the child exited with {rc}")
+        dp = json.loads(Path(tmp, "dp_0.json").read_text())
+        resume = json.loads(Path(tmp, "resume_0.json").read_text())
+        cells = json.loads(Path(tmp, "dryrun.json").read_text())
+    a, b = tp[0]["a"], tp[0]["b"]
+    print(f"[sharded a] gemma2-2b full width cut to {SHARDED_LAYERS} layers, "
+          f"B {B} x S {S}, lr {SHARDED_LR}, 2 gloo ranks on cuda:0 as a "
+          f"1 x 2 mesh (tensor parallel) against one card: loss abs "
+          f"{a['err']['loss']}, grad_norm relative {a['err']['grad_norm']}, "
+          f"parameters max abs {a['err']['params']}, first moments "
+          f"relative to each leaf's largest {a['err']['m']} (bounds "
+          f"{SHARDED_LOSS_TOL}, {TRAIN_REL_TOL}, {SHARDED_PARAM_TOL}, "
+          f"{TRAIN_M_TOL}); "
+          f"collective bytes a rank {json.dumps(a['tally'])}", flush=True)
+    step_s = float(np.mean(b["seconds"][1:]))
+    print(f"[sharded b] gemma2-2b full depth on 1 x 2, {SHARDED_STEPS} "
+          f"steps: losses {json.dumps(b['losses'])} (the first against "
+          f"phase 16's single-card step: relative {b['first_rel_err']}); "
+          f"seconds a step {json.dumps(b['seconds'])}, steps 2-"
+          f"{SHARDED_STEPS} {step_s * 1e3:.1f} ms a step "
+          f"({B * S / step_s:.1f} tokens/s); collective bytes a step and "
+          f"rank {json.dumps(b['tally'])}; peak device memory a rank "
+          f"{json.dumps([r['b']['peak_gb'] for r in tp])} GB (card {smi})",
+          flush=True)
+    print(f"[sharded c] smollm-135m full width, B {B} x S {S}, against one "
+          f"card: 2 x 1 {json.dumps(dp['2x1']['err'])}, 2 x 2 "
+          f"{json.dumps(dp['2x2']['err'])}; "
+          f"collective bytes a rank 2 x 1 {json.dumps(dp['2x1']['tally'])}, "
+          f"2 x 2 {json.dumps(dp['2x2']['tally'])}; the launcher "
+          f"({SHARDED_LAUNCH}) on 2 x 2 crashed at step {SHARDED_FAIL_AT}, "
+          f"resumed from step {resume['from_step']} on "
+          f"{json.dumps(resume['mesh'])} from the survivors in "
+          f"{resume['seconds']:.1f} s (seconds of the 4-rank group's parts "
+          f"{json.dumps(dp['seconds'])}): losses "
+          f"{json.dumps(resume['resumed'])}"
+          f" against the uninterrupted single-card run's "
+          f"{json.dumps(resume['want'][resume['from_step']:])} (bound "
+          f"{TRAIN_RESUME_TOL})", flush=True)
+    for name, c in cells.items():
+        print(f"[sharded d] dry run gemma2-2b {name} ({c['dtype']}, "
+              f"{c['chips']} ranks): t_compute {c['t_compute'] * 1e3:.2f} "
+              f"ms, t_memory {c['t_memory'] * 1e3:.2f} ms, t_collective "
+              f"{c['t_collective'] * 1e3:.2f} ms ({c['bottleneck']}); FLOPs "
+              f"{c['flops_per_chip']:.4e}, bytes {c['bytes_per_chip']:.4e}, "
+              f"collective bytes {json.dumps(c['coll_breakdown'])}, memory "
+              f"{c['memory_per_chip_bytes'] / 1e9:.2f} GB a rank; beside "
+              f"(b)'s measured {step_s * 1e3:.1f} ms a step", flush=True)
+    print(f"phase 17 ok: the sharded LM step "
+          f"({time.perf_counter() - t_phase:.1f} s: (a)+(b) {t_tp:.1f}, (c) "
+          f"{t_dp:.1f}, (d) beside it {t_dry:.1f}; card {smi})", flush=True)
 
 
 def _attention_child(out: str) -> None:
@@ -3308,12 +3746,16 @@ def main() -> int:
                          text=True, check=True)
     print(smi.stdout.strip(), flush=True)
 
-    # 2. build every kernel from source
-    t0 = time.perf_counter()
-    per_lib = _build.build_all()
-    print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"{json.dumps({k: round(v, 1) for k, v in per_lib.items()})}",
-          flush=True)
+    # 2. build every kernel from source, one nvcc a source, all started
+    # together beside the host's set-up: the join kernels are waited for
+    # before phase 3 launches one, the attention kernels before phase 9
+    t_kernels = time.perf_counter()
+    attention_libs = ("april_attention", "april_attention_tc")
+    builds_pool = ThreadPoolExecutor(2)
+    join_build = builds_pool.submit(_build.build_all, [
+        n for n in _build.SOURCES if n not in attention_libs])
+    attention_build = builds_pool.submit(_build.build_all, attention_libs)
+    builds_pool.shutdown(wait=False)
 
     # 3. kernels against their plain versions on the card, exactly
     t_phase = time.perf_counter()
@@ -3330,6 +3772,11 @@ def main() -> int:
     cands = plan.candidates("intersects")
     print(f"host: datasets + APRIL build + candidates "
           f"{time.perf_counter() - t0:.1f} s, {len(cands)} candidates",
+          flush=True)
+    per_lib = join_build.result()
+    print(f"build: the join kernels done "
+          f"{time.perf_counter() - t_kernels:.1f} s after the start "
+          f"{json.dumps({k: round(v, 1) for k, v in per_lib.items()})}",
           flush=True)
     lists = {k: plan.filter._lists(a, kind).to(dev)
              for k, a, kind in (("xa", plan.approx_r, "A"),
@@ -3877,10 +4324,18 @@ def main() -> int:
     # 15. the LM serving path
     _lm_phase(dev)
 
-    # 16. LM training, in a fresh process
-    _train_in_fresh_process()
+    # 16. LM training, in a fresh process; 17. the sharded step, in gloo
+    # ranks on the card, held to phase 16's first step
+    with tempfile.TemporaryDirectory() as tmp:
+        first = str(Path(tmp) / "first_step.json")
+        _train_in_fresh_process(first)
+        _sharded_phase(first)
 
     # 9. the attention kernel, which no join runs, in a fresh process
+    per_lib = attention_build.result()
+    print(f"build: the attention kernels done "
+          f"{json.dumps({k: round(v, 1) for k, v in per_lib.items()})} s "
+          f"after the start, beside phases 3 on", flush=True)
     kernels.extend(_attention_in_fresh_process())
     bad = [k["name"] for k in kernels
            if not k.get("rel_err", k["max_abs_err"]) <= k["tol"]]

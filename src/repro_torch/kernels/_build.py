@@ -3,10 +3,11 @@
 Every ``csrc/*.cu`` file compiles with ``nvcc`` into its own shared library
 with a plain C interface under ``build/kernels/`` at the checkout root, and
 loads with ``ctypes``. Nothing is built at import time: the first call to
-:func:`load` builds every stale library at once, one ``nvcc`` process per
-source, all started together, then waits for all of them. A library's file
-name carries a hash of its source and flags, so an edited source rebuilds
-and an unchanged one is reused.
+:func:`load` builds its library if it is stale; :func:`build_all` builds
+several at once, one ``nvcc`` process per source, all started together,
+then waits for all of them. A library's file name carries a hash of its
+source and flags, so an edited source rebuilds and an unchanged one is
+reused.
 """
 from __future__ import annotations
 
@@ -60,10 +61,11 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def build_all() -> dict[str, float]:
-    """Compile every stale library in parallel; returns seconds per
-    library built (empty when all were current)."""
-    todo = [n for n in SOURCES if not _lib_path(n).exists()]
+def build_all(names=None) -> dict[str, float]:
+    """Compile every stale library of ``names`` (default: all) in
+    parallel; returns seconds per library built (empty when all were
+    current)."""
+    todo = [n for n in (names or SOURCES) if not _lib_path(n).exists()]
     if not todo:
         return {}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
@@ -96,11 +98,11 @@ def build_all() -> dict[str, float]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library ``name``, building every stale one first."""
+    """The loaded library ``name``, built first if it is stale."""
     with _LOCK:
         lib = _LIBS.get(name)
         if lib is None:
-            build_all()
+            build_all((name,))
             lib = ctypes.CDLL(str(_lib_path(name)))
             _LIBS[name] = lib
         return lib

@@ -24,6 +24,8 @@ NEG_INF = -2.3819763e38  # large negative for bf16-safe masking
 
 
 def _init(gen: torch.Generator, shape, scale=None, dtype=torch.float32):
+    if gen.device.type == "meta":       # shapes only (``init_model``)
+        return torch.empty(shape, dtype=dtype, device="meta")
     scale = scale if scale is not None else 1.0 / np.sqrt(shape[0])
     return (torch.randn(shape, generator=gen, device=gen.device)
             * scale).to(dtype)

@@ -18,6 +18,8 @@ Modes:
 """
 from __future__ import annotations
 
+from types import SimpleNamespace
+
 import numpy as np
 import torch
 from torch import nn
@@ -26,9 +28,11 @@ from torch.utils.checkpoint import checkpoint
 from ..device import resolve_device
 from ..tree import tree_map, tree_stack
 from .config import ModelConfig
-from .layers import _init, attention, attention_init, mlp, mlp_init, \
-    rmsnorm, rmsnorm_init, scalar
-from .moe import moe_init, moe_mlp
+from .layers import _init, attention_init, mlp_init, rmsnorm, \
+    rmsnorm_init, scalar
+from .moe import moe_init
+from .parallel import _Gather, _Scatter, _Sharding, attention_block, \
+    embed, mlp_block, moe_block, recurrent_block, rows, seq_parallel
 from .rglru import rglru_block, rglru_init, rglru_state_init
 from .ssm import ssm_block, ssm_init, ssm_state_init
 
@@ -80,6 +84,8 @@ class LMModel(nn.Module):
 
 # ----------------------------------------------------------------- layers
 
+_WHOLE = _Sharding()      # a model on one device
+
 def _layer_init(gen, cfg: ModelConfig, kind: str):
     dev = gen.device
     p = {"ln1": rmsnorm_init(cfg.d_model, dev)}
@@ -103,28 +109,39 @@ def _layer_init(gen, cfg: ModelConfig, kind: str):
     return p
 
 
-def _apply_layer(p, x, cfg: ModelConfig, kind: str, *, ctx=None, cache=None,
-                 pos_offset=0, mask_mode="causal"):
-    """Returns (x, new_cache, aux)."""
+def _apply_layer(p, x, cfg: ModelConfig, kind: str, *, sh=_WHOLE, pre="",
+                 ctx=None, cache=None, pos_offset=0, mask_mode="causal"):
+    """Returns (x, new_cache, aux). ``sh``: the model's ``_Sharding``
+    (``models/parallel.py``), ``pre`` the layer's parameter-name prefix;
+    on a mesh ``cache`` is this rank's shards of the layer's decode cache
+    (its ``pos`` for the whole batch)."""
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     new_cache = cache
     if kind in ("attn", "local", "xattn"):
-        h, nc = attention(p["attn"], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                          kind=("attn" if kind == "xattn" else kind),
-                          pos_offset=pos_offset,
-                          cache=(cache.get("kv") if cache else None),
-                          mask_mode=mask_mode)
+        kv = None
+        if cache is not None:
+            kv = dict(cache["kv"], pos=rows(cache["kv"]["pos"], x.shape[0],
+                                            sh))
+        h, nc = attention_block(p["attn"], pre + "attn.",
+                                rmsnorm(p["ln1"], x, cfg.norm_eps), cfg, sh,
+                                kind=("attn" if kind == "xattn" else kind),
+                                mask_mode=mask_mode, cache=kv,
+                                pos_offset=pos_offset)
         x = x + h
         if kind == "xattn":
-            hx, _ = attention(p["xattn"], rmsnorm(p["lnx"], x, cfg.norm_eps),
-                              cfg, kind="attn", ctx=ctx)
-            x = x + hx
+            x = x + attention_block(p["xattn"], pre + "xattn.",
+                                    rmsnorm(p["lnx"], x, cfg.norm_eps), cfg,
+                                    sh, kind="attn", ctx=ctx)[0]
         if cache is not None:
-            new_cache = dict(cache, kv=nc)
+            new_cache = dict(cache, kv=dict(
+                nc, pos=cache["kv"]["pos"] + x.shape[1]))
     elif kind in ("rglru", "ssm"):
-        block = rglru_block if kind == "rglru" else ssm_block
-        h, ns = block(p[kind], rmsnorm(p["ln1"], x, cfg.norm_eps), cfg,
-                      state=(cache.get("state") if cache else None))
+        block, init = ((rglru_block, rglru_state_init) if kind == "rglru"
+                       else (ssm_block, ssm_state_init))
+        h, ns = recurrent_block(block, init, p[kind], pre + kind + ".",
+                                rmsnorm(p["ln1"], x, cfg.norm_eps), cfg, sh,
+                                state=None if cache is None
+                                else cache["state"])
         x = x + h
         if cache is not None:
             new_cache = dict(cache, state=ns)
@@ -132,10 +149,11 @@ def _apply_layer(p, x, cfg: ModelConfig, kind: str, *, ctx=None, cache=None,
             return x, new_cache, aux
     else:
         raise ValueError(kind)
+    xn = rmsnorm(p["ln2"], x, cfg.norm_eps)
     if cfg.moe is not None:
-        h, aux = moe_mlp(p["moe"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        h, aux = moe_block(p["moe"], pre + "moe.", xn, cfg, sh)
     else:
-        h = mlp(p["mlp"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+        h = mlp_block(p["mlp"], pre + "mlp.", xn, cfg, sh)
     return x + h, new_cache, aux
 
 
@@ -150,9 +168,10 @@ def init_model(seed: int, cfg: ModelConfig, dtype=torch.float32, *,
     """Randomly initialised model, with the reference's shapes, scales and
     dtype rule: every tensor drawn in a fixed order from one
     ``torch.Generator`` seeded with ``seed`` on ``device`` (``None`` -> the
-    card)."""
+    card). On ``"meta"`` the tensors have shapes and dtypes only."""
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    gen = (SimpleNamespace(device=dev) if dev.type == "meta" else
+           torch.Generator(device=dev).manual_seed(int(seed)))
     tree = {"embed": _init(gen, (cfg.vocab, cfg.d_model), scale=0.02,
                            dtype=dtype),
             "final_norm": rmsnorm_init(cfg.d_model, gen.device)}
@@ -192,20 +211,24 @@ def _remat(fn, remat_policy, *args):
 
 def run_encoder(params, frames, cfg: ModelConfig, remat_policy=None,
                 unroll=False):
-    """Whisper-style encoder over precomputed frame embeddings [B, T, D].
+    """Whisper-style encoder over precomputed frame embeddings [B, T, D]
+    (on a sharded model, this rank's rows).
 
     ``remat_policy`` rematerialises each encoder layer (see ``_remat``).
     ``unroll`` is the reference's switch from a scan to a Python loop; the
     port always loops in Python, so it changes nothing."""
+    sh = _Sharding.of(params)
     frames = torch.as_tensor(frames, device=params.embed.device)
     x = frames + _sinusoid(frames.shape[1], cfg.d_model).to(
         device=frames.device, dtype=frames.dtype)
 
-    def enc_layer(x, p):
-        return _apply_layer(p, x, cfg, "attn", mask_mode="bidir")[0]
+    def enc_layer(x, j):
+        return _apply_layer(params.encoder["layers"][j], x, cfg, "attn",
+                            sh=sh, pre=f"encoder.layers.{j}.",
+                            mask_mode="bidir")[0]
 
-    for p in params.encoder["layers"]:
-        x = _remat(enc_layer, remat_policy, x, p)
+    for j in range(len(params.encoder["layers"])):
+        x = _remat(enc_layer, remat_policy, x, j)
     return rmsnorm(params.encoder["final_norm"], x, cfg.norm_eps)
 
 
@@ -268,18 +291,39 @@ def forward_logits(params, tokens, cfg: ModelConfig, *, ctx=None,
     ctx: cross-attn context (VLM patches / whisper encoder output).
     remat_policy: rematerialise each cycle of ``pattern_period`` layers in
     the backward pass, as the reference's scan body (see ``_remat``); the
-    tail layers never are. activation_hook(x, where) is called on the
-    embeddings (``"embed"``), after every layer (``"layer"``), after the
-    final norm (``"final"``) and on the logits (``"logits"``). ``unroll``
-    is the reference's switch from its cycle scan to a Python loop; the
-    port always loops in Python, so it changes nothing.
+    tail layers never are. A callable activation_hook(x, where) is called
+    on the embeddings (``"embed"``), after every layer (``"layer"``),
+    after the final norm (``"final"``) and on the logits (``"logits"``);
+    its ``sequence_parallel`` flag (``sharding.make_activation_hook``)
+    splits a sharded model's activations between layers over the sequence.
+    ``unroll`` is the reference's switch from its cycle scan to a Python
+    loop; the port always loops in Python, so it changes nothing.
+
+    A sharded model (``sharding.distribute_model``) takes this rank's rows
+    of ``tokens`` and ``ctx`` and its shards of the caches
+    (``sharding.cache_specs``; their ``pos`` and ``pos_offset`` for the
+    whole batch), and returns its block of the logits: its rows, and the
+    vocabulary split over ``model`` when the embedding (or head) is.
     """
-    hook = activation_hook or (lambda x, where: x)
+    sh = _Sharding.of(params)
+    hook = activation_hook if callable(activation_hook) else \
+        (lambda x, where: x)
     emb = params.embed
     dev = emb.device
     tokens = torch.as_tensor(tokens, device=dev).long()
-    x = emb[tokens] * scalar(np.sqrt(cfg.d_model), emb.dtype)
-    x = hook(x, "embed")
+    B, S = tokens.shape
+    if not isinstance(pos_offset, int):
+        pos_offset = rows(torch.as_tensor(pos_offset, device=dev), B, sh)
+    x = embed(emb, tokens, sh) * scalar(np.sqrt(cfg.d_model), emb.dtype)
+    sp = seq_parallel(activation_hook, sh, S)
+
+    def boundary(x):      # a sequence-parallel layout: this rank's chunk
+        return _Scatter.apply(x, sh.mesh, "model", 1) if sp else x
+
+    def whole(x):
+        return _Gather.apply(x, sh.mesh, "model", 1) if sp else x
+
+    x = boundary(hook(x, "embed"))
     if ctx is not None:
         ctx = torch.as_tensor(ctx, device=dev)
 
@@ -296,12 +340,13 @@ def forward_logits(params, tokens, cfg: ModelConfig, *, ctx=None,
                 cache = (tree_map(lambda a: a[c], caches["cycle"][f"p{pi}"])
                          if c < n_cyc
                          else caches["tail"][f"t{li - n_cyc * period}"])
-            x, nc, a = _apply_layer(params.layers[li], x, cfg,
-                                    params.kinds[li], ctx=ctx, cache=cache,
-                                    pos_offset=pos_offset)
+            x, nc, a = _apply_layer(params.layers[li], whole(x), cfg,
+                                    params.kinds[li], sh=sh,
+                                    pre=f"layers.{li}.", ctx=ctx,
+                                    cache=cache, pos_offset=pos_offset)
             aux = aux + a
             new.append(nc)
-            x = hook(x, "layer")
+            x = boundary(hook(x, "layer"))
         return x, aux, new
 
     cycle_aux, cycle_caches = [], []
@@ -318,9 +363,11 @@ def forward_logits(params, tokens, cfg: ModelConfig, *, ctx=None,
             "cycle": {f"p{pi}": tree_stack([new[pi] for new in cycle_caches])
                       for pi in range(period)},
             "tail": {f"t{i}": nc for i, nc in enumerate(tail_caches)}}
-    x = rmsnorm(params.final_norm, x, cfg.norm_eps)
+    x = rmsnorm(params.final_norm, whole(x), cfg.norm_eps)
     x = hook(x, "final")
     head = emb.T if cfg.tie_embeddings else params.lm_head
+    if sh.vocab_split:
+        x = sh.copy(x)
     logits = (x @ head.to(x.dtype)).float()
     if cfg.logit_softcap is not None:
         logits = cfg.logit_softcap * torch.tanh(logits / cfg.logit_softcap)

@@ -52,6 +52,15 @@ def moe_mlp(p, x, cfg: ModelConfig):
     With ``dispatch_groups = G > 1`` tokens are ranked and scattered within
     G independent groups: the dispatch buffer becomes [G, E, C/G, D].
     """
+    buf, route, aux = moe_dispatch(p, x, cfg)
+    y = moe_experts(buf, p["w1"], p["w3"], p["w2"])
+    return moe_combine(y, route, x.shape), aux
+
+
+def moe_dispatch(p, x, cfg: ModelConfig):
+    """The router, its aux loss and the scatter of ``x`` [B, S, D] into
+    the [G, E, C, D] expert buffer: (buf, route, aux), ``route`` being
+    what ``moe_combine`` needs."""
     m = cfg.moe
     B, S, D = x.shape
     T = B * S
@@ -96,17 +105,27 @@ def moe_mlp(p, x, cfg: ModelConfig):
     gathered = torch.gather(xg, 1, st[..., None].expand(G, Tl * K, D))
     gathered = gathered * keep[..., None].to(x.dtype)
     buf = _group_add(E * C + 1, slot, gathered)[:, :-1].reshape(G, E, C, D)
+    return buf, (slot, st, sg, keep), aux
 
-    # expert compute; swiglu
-    h = F.silu(torch.einsum("gecd,edf->gecf", buf, p["w1"].to(x.dtype))) \
-        * torch.einsum("gecd,edf->gecf", buf, p["w3"].to(x.dtype))
-    y = torch.einsum("gecf,efd->gecd", h, p["w2"].to(x.dtype))
 
-    # combine: gather each kept assignment's output, weight by gate
+def moe_experts(buf, w1, w3, w2):
+    """The swiglu experts over the buffer [G, E, C, D] (the weights'
+    leading dimension is E's)."""
+    h = F.silu(torch.einsum("gecd,edf->gecf", buf, w1.to(buf.dtype))) \
+        * torch.einsum("gecd,edf->gecf", buf, w3.to(buf.dtype))
+    return torch.einsum("gecf,efd->gecd", h, w2.to(buf.dtype))
+
+
+def moe_combine(y, route, shape):
+    """Each kept assignment's expert output, weighted by its gate, summed
+    back to its token: [B, S, D] of ``shape``."""
+    slot, st, sg, keep = route
+    G, E, C, D = y.shape
+    Tl = shape[0] * shape[1] // G
     yf = y.reshape(G, E * C, D)
     contrib = torch.gather(
         yf, 1, torch.clamp_max(slot, E * C - 1)[..., None].expand(
-            G, Tl * K, D))
-    contrib = contrib * (sg * keep.float())[..., None].to(x.dtype)
+            G, slot.shape[1], D))
+    contrib = contrib * (sg * keep.float())[..., None].to(y.dtype)
     out = _group_add(Tl, st, contrib)
-    return out.reshape(B, S, D), aux
+    return out.reshape(shape)

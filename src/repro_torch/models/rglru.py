@@ -34,15 +34,23 @@ def rglru_init(gen, cfg: ModelConfig):
     }
 
 
-def rglru_block(p, x, cfg: ModelConfig, state=None):
-    """x: [B, S, D]; state: None or {h: [B,DR] f32, conv: [B,3,DR]}."""
+def rglru_block(p, x, cfg: ModelConfig, state=None, split=None):
+    """x: [B, S, D]; state: None or {h: [B,DR] f32, conv: [B,3,DR]}.
+
+    split: a ``parallel._Sharding`` whose ``model`` axis splits the DR
+    channels, ``p`` and ``state`` holding this rank's shards under
+    ``param_specs`` / ``cache_specs`` (the gates read every channel);
+    None runs the whole block."""
+    if split is not None:
+        x = split.copy(x)
     g = gelu(x @ p["in_g"].to(x.dtype))
     xr = x @ p["in_x"].to(x.dtype)
     conv_state = state["conv"] if state is not None else None
     xr, new_conv = _causal_conv(xr, p["conv_w"], p["conv_b"], conv_state)
 
-    r = torch.sigmoid((xr @ p["w_r"].to(x.dtype)).float())
-    i = torch.sigmoid((xr @ p["w_i"].to(x.dtype)).float())
+    xr_all = xr if split is None else split.gather_sum(xr, 2)
+    r = torch.sigmoid((xr_all @ p["w_r"].to(x.dtype)).float())
+    i = torch.sigmoid((xr_all @ p["w_i"].to(x.dtype)).float())
     log_a = -C_COEF * F.softplus(p["lam"]) * r          # log a_t  [B,S,DR]
     a = torch.exp(log_a)
     gated = torch.sqrt(torch.clamp_min(1.0 - a * a, 1e-12)) * i * xr.float()
@@ -55,6 +63,8 @@ def rglru_block(p, x, cfg: ModelConfig, state=None):
         new_h = h
         h = h[:, None, :]
     y = (h.to(x.dtype) * g) @ p["out"].to(x.dtype)
+    if split is not None:
+        y = split.reduce(y)
     new_state = None if state is None else {"h": new_h, "conv": new_conv}
     return y, new_state
 

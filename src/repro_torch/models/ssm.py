@@ -68,20 +68,36 @@ def _causal_conv(x, w, b, state=None):
     return y, new_state
 
 
-def ssm_block(p, x, cfg: ModelConfig, state=None):
+def ssm_block(p, x, cfg: ModelConfig, state=None, split=None):
     """x: [B, S, D]. state: None (full sequence) or dict {h: [B,DI,N],
-    conv: [B,K-1,DI]}. Returns (y [B,S,D], new_state)."""
+    conv: [B,K-1,DI]}. Returns (y [B,S,D], new_state).
+
+    split: a ``parallel._Sharding`` whose ``model`` axis splits the DI
+    channels, ``p`` and ``state`` holding this rank's shards under
+    ``param_specs`` / ``cache_specs``; None runs the whole block."""
     s = cfg.ssm
     N = s.d_state
     dt_rank = p["dt_proj"].shape[0]
 
-    xz = x @ p["in_proj"].to(x.dtype)                   # [B,S,2DI]
-    xi, z = torch.chunk(xz, 2, dim=-1)
+    if split is None:
+        xz = x @ p["in_proj"].to(x.dtype)               # [B,S,2DI]
+        xi, z = torch.chunk(xz, 2, dim=-1)
+    else:
+        # in_proj's [xi | z] columns are split as one block: gather them
+        # and take this rank's channels of each half
+        w = split.gather_sum(p["in_proj"], 1).to(x.dtype)
+        DI, c = w.shape[1] // 2, p["conv_b"].shape[0]
+        lo = split.r * c
+        x = split.copy(x)
+        xi = x @ w[:, lo: lo + c]
+        z = x @ w[:, DI + lo: DI + lo + c]
     conv_state = state["conv"] if state is not None else None
     xi, new_conv = _causal_conv(xi, p["conv_w"], p["conv_b"], conv_state)
     xi = F.silu(xi)
 
     proj = xi @ p["x_proj"].to(x.dtype)                 # [B,S,dt_rank+2N]
+    if split is not None:                 # x_proj's rows are split
+        proj = split.copy(split.reduce(proj))
     dt = proj[..., :dt_rank] @ p["dt_proj"].to(x.dtype) \
         + p["dt_bias"].to(x.dtype)
     dt = F.softplus(dt.float())                         # [B,S,DI]
@@ -103,6 +119,8 @@ def ssm_block(p, x, cfg: ModelConfig, state=None):
     y = y + xi.float() * p["D"]
     y = (y * F.silu(z.float())).to(x.dtype)
     out = y @ p["out_proj"].to(x.dtype)
+    if split is not None:
+        out = split.reduce(out)
     new_state = None if state is None else {"h": new_h, "conv": new_conv}
     return out, new_state
 

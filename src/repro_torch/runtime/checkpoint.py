@@ -54,8 +54,13 @@ def _path_str(path) -> str:
 
 
 def _host(leaf) -> np.ndarray:
+    """A host snapshot of ``leaf``: a tensor is copied (``.cpu()`` of a
+    CPU tensor shares its storage, and an in-place update after ``save``
+    returns must not reach the file); a numpy leaf is taken as it is."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().cpu().numpy()
+        t = leaf.detach()
+        return t.numpy().copy() if t.device.type == "cpu" else \
+            t.cpu().numpy()
     return np.asarray(leaf)
 
 

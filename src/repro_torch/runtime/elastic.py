@@ -1,4 +1,11 @@
-"""Straggler mitigation for the partitioned spatial join.
+"""Elastic re-meshing, and straggler mitigation for the partitioned
+spatial join.
+
+``remesh_tree`` lays a host (numpy) tree onto a NEW mesh: the core of an
+elastic restart. After a node is lost the launcher builds a smaller mesh
+from the survivors (``make_mesh_from_devices``), restores the latest
+checkpoint (its arrays are global, so the dead mesh's layout does not
+matter) and takes each rank's shards under the new mesh's specs.
 
 ``StragglerMonitor`` keeps an exponential moving average of step wall
 times and flags a step that takes more than ``threshold`` times the
@@ -11,7 +18,41 @@ from __future__ import annotations
 
 import time
 
-__all__ = ["StragglerMonitor", "WorkQueue"]
+import numpy as np
+import torch
+
+
+__all__ = ["remesh_tree", "make_mesh_from_devices", "StragglerMonitor",
+           "WorkQueue"]
+
+
+def make_mesh_from_devices(ranks, n_model: int,
+                           axis_names=("data", "model"), *, device=None):
+    """The largest (data, model) mesh the surviving ``ranks`` (rank ids of
+    the default process group) can form, computing on ``device``
+    (``None`` -> the card). Every rank of the default group calls it,
+    since it makes the mesh's process groups."""
+    from ..launch.mesh import Mesh
+    ranks = sorted(int(r) for r in ranks)
+    n_model = min(n_model, len(ranks))
+    n_data = len(ranks) // n_model
+    grid = np.asarray(ranks[: n_data * n_model]).reshape(n_data, n_model)
+    return Mesh(grid, axis_names, device=device)
+
+
+def remesh_tree(host_tree, mesh, spec_tree):
+    """This rank's shards, on ``mesh.device``, of a tree of global host
+    arrays (numpy or tensors; nested dicts and lists) under a tree of
+    specs of the same structure."""
+    from ..models.sharding import local_shard
+    if isinstance(host_tree, dict):
+        return {k: remesh_tree(v, mesh, spec_tree[k])
+                for k, v in host_tree.items()}
+    if isinstance(host_tree, list):
+        return [remesh_tree(v, mesh, s) for v, s in zip(host_tree, spec_tree)]
+    t = host_tree if isinstance(host_tree, torch.Tensor) else \
+        torch.from_numpy(np.array(host_tree))
+    return local_shard(t, mesh, spec_tree).to(mesh.device).clone()
 
 
 class StragglerMonitor:

@@ -253,6 +253,72 @@ def test_remat_policies_keep_less_for_the_backward(arch):
         kept["everything"], kept
 
 
+class _Shapes(TorchDispatchMode):
+    """Records (weak reference, the shapes of the op outputs on it) of
+    every storage an op makes."""
+
+    def __init__(self):
+        super().__init__()
+        self.made = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in out if isinstance(out, (list, tuple)) else (out,):
+            if isinstance(t, torch.Tensor):
+                s = t.untyped_storage()
+                self.made.setdefault(s._cdata, (StorageWeakRef(s), set()))[
+                    1].add(tuple(t.shape))
+        return out
+
+    def alive(self) -> set:
+        gc.collect()
+        return set().union(*(shapes for ref, shapes in self.made.values()
+                             if not ref.expired()))
+
+
+@pytest.mark.parametrize("arch", ["gemma2-2b", "granite-moe-1b-a400m"])
+def test_dots_policy_recomputes_the_batched_matmuls(arch):
+    """ROADMAP C10: ``"dots"`` is the reference's
+    ``dots_with_no_batch_dims_saveable``: the outputs of the batched
+    matmuls (``bmm``), the attention scores [B, KV, G, S, T] and the MoE
+    experts' [G, E, C, D], are recomputed, so no tensor the forward
+    leaves for the backward has their shape; the
+    projections (``mm``) are saved. The outer ``saved_tensors_hooks``
+    see only what is saved outside a checkpointed cycle (the checkpoint's
+    own hooks take what is saved inside it), so the storages still alive
+    after the forward are what it keeps, as in
+    ``test_remat_policies_keep_less_for_the_backward``."""
+    from repro_torch.models.moe import moe_capacity
+    cfg = get_config(arch, smoke=True)
+    model = init_model(3, cfg, device="cpu")
+    batch = _batch(cfg, seed=5)
+    B, S = batch["tokens"].shape
+    KV, G, dh = cfg.n_kv_heads, cfg.n_heads // cfg.n_kv_heads, cfg.head_dim
+    batched = {(B, KV, G, S, S)}
+    if cfg.moe is not None:
+        batched.add((1, cfg.moe.num_experts, moe_capacity(cfg, B * S),
+                     cfg.d_model))
+    kept, outside = {}, {}
+    for policy in ("none", "dots"):
+        seen = outside[policy] = set()
+
+        def pack(t):
+            seen.add(tuple(t.shape))
+            return t
+        mode = _Shapes()
+        with mode, torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            loss, _ = train.loss_fn(
+                model, batch, cfg, remat_policy=train.REMAT_POLICIES[policy])
+        kept[policy] = mode.alive()
+        del loss
+    # the shapes are the right ones: without checkpointing they are saved
+    assert batched <= kept["none"] and batched <= outside["none"]
+    assert not batched & kept["dots"], batched & kept["dots"]
+    assert not batched & outside["dots"]
+    # the projections' outputs stay saved under "dots"
+    assert (B * S, cfg.n_heads * dh) in kept["dots"]
+
+
 def test_activation_hook_sees_every_boundary():
     cfg = get_config("recurrentgemma-2b", smoke=True)
     model = init_model(0, cfg, device="cpu")
@@ -271,11 +337,36 @@ def test_activation_hook_sees_every_boundary():
 
 
 def test_sharded_knobs_name_their_roadmap_item():
+    """The sharded knobs (ROADMAP A11c) work: on a mesh of one rank
+    ``make_train_step(grad_shardings=...)`` gives the plain step's numbers
+    and ``train_loop(mesh=...)`` the plain run's losses. More ranks are
+    ``tests/test_torch_sharding.py``'s."""
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.sharding import (
+        distribute_model, named_sharding_tree, opt_state_specs)
+    from repro_torch.runtime.elastic import remesh_tree
     cfg = get_config("smollm-135m", smoke=True)
-    with pytest.raises(NotImplementedError, match="A11c"):
-        train.make_train_step(cfg, grad_shardings={}, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11c"):
-        train_loop("smollm-135m", mesh=object(), device="cpu")
+    mesh = Mesh(np.zeros((1, 1), np.int64), ("data", "model"), device="cpu")
+    batch = _batch(cfg)
+    plain = init_model(3, cfg, device="cpu")
+    _, _, want = train.make_train_step(cfg, lr=LR, device="cpu")(
+        plain, _fresh_opt(plain), batch)
+    model = init_model(3, cfg, device="cpu")
+    specs = opt_state_specs(model, mesh)
+    step = train.make_train_step(
+        cfg, lr=LR, device="cpu",
+        grad_shardings=named_sharding_tree(mesh, specs["m"]))
+    fresh = _fresh_opt(model)
+    opt = {k: remesh_tree(fresh[k], mesh, specs[k]) for k in ("m", "v")}
+    sharded, _, got = step(distribute_model(model, mesh),
+                           dict(opt, step=fresh["step"]), batch)
+    for k in ("loss", "xent", "aux", "grad_norm"):
+        assert float(got[k]) == pytest.approx(float(want[k]), rel=LOSS_RTOL)
+    for k, p in plain.named_parameters():
+        torch.testing.assert_close(dict(sharded.named_parameters())[k], p)
+    run = dict(steps=3, batch=2, seq=16, device="cpu")
+    assert train_loop("smollm-135m", mesh=mesh, **run)[2] == pytest.approx(
+        train_loop("smollm-135m", **run)[2], rel=LOSS_RTOL)
 
 
 def test_entry_points_need_a_card_unless_asked_for_the_cpu(monkeypatch):

@@ -116,6 +116,29 @@ def test_checkpoint_of_another_model_is_refused(tmp_path):
         train_loop("smollm-135m", ckpt_dir=ck, steps=2, **small)
 
 
+def test_async_save_of_a_cpu_tensor_is_a_snapshot(tmp_path, monkeypatch):
+    """ROADMAP C11: an in-place update made after ``save`` returns does not
+    reach a checkpoint written in the background."""
+    import threading
+    from repro_torch.runtime import checkpoint
+    go = threading.Event()
+    write = checkpoint.CheckpointManager._write
+
+    def held(self, *a):
+        go.wait(30)
+        write(self, *a)
+    monkeypatch.setattr(checkpoint.CheckpointManager, "_write", held)
+    mgr = checkpoint.CheckpointManager(str(tmp_path / "ck"))
+    w = torch.zeros(4)
+    mgr.save(1, {"w": w})
+    w.add_(1.0)
+    go.set()
+    mgr.wait()
+    step, flat, _ = mgr.restore()
+    assert step == 1
+    np.testing.assert_array_equal(flat["w"], np.zeros(4, np.float32))
+
+
 def _tree_equal(a, b):
     la, lb = jax.tree.leaves(a), jax.tree.leaves(b)
     assert jax.tree.structure(a) == jax.tree.structure(b)
