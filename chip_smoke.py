@@ -185,11 +185,11 @@ reference package. Phases, any failure exits non-zero:
    selection, window, intersects, within), drained every 16 requests
    (``SERVICE_GROUP``), with an insert and a delete every 25
    (``SERVICE_MUTATE``). APRIL staged (``cuda`` backends, its first drain
-   profiled) and fused services take the same 512 requests; every ticket
+   profiled) and fused services take the same 256 requests; every ticket
    must equal a one-request run (filter ``none``, numpy backends) over the
    dataset as it stood at its drain, and the fused tickets the staged
    ones, pairs and order. RI staged and fused services (seeded with
-   copies of phase 5's T2 store) take the first 64. Then the patched
+   copies of phase 5's T2 store) take the first 32. Then the patched
    stores must equal fresh torch builds over the mutated dataset, every
    array in dtype, shape and bytes, and so must the device copies the
    last drain used (the interval lists and their row keys, RI's device
@@ -199,24 +199,25 @@ reference package. Phases, any failure exits non-zero:
    sets; a checkpoint of the staged service restores into a new one,
    which must answer 64 requests alike; under a budget of one store,
    warming a second dataset's store must evict and lower
-   ``torch.cuda.memory_allocated``; ``run_serve`` drives 1000 requests
+   ``torch.cuda.memory_allocated``; ``run_serve`` drives 500 requests
    through the background worker (figures, not gates). Launch counts are
    reset before and read after each trace, and every recorded B1, B4, B2,
    B3 and B5 input is replayed against its plain version, exactly;
 14. (run after phase 13, before phase 9) the scale-out path: the
    partitioned launcher (``launch.spatial_join.run_join``, 2 x 2
-   partitions) on phase 4's datasets, fused (profiled first), with the
-   sharded stages (``cuda`` filter, ``torch`` MBR lane, ``device64``
-   refine) and a checkpoint, rerun to resume every partition, staged
-   ``cuda`` and adaptive, each with phase 4's pair set, and RI at phase
-   6's counts with the torch build, with phase 6's set; the sharded fused
-   chain of partition 0 once more under ``set_sync_debug_mode("error")``;
+   partitions) at phase 6's counts (T1 1200, T2 4000), fused (profiled
+   first), with the sharded stages (``cuda`` filter, ``torch`` MBR lane,
+   ``device64`` refine) and a checkpoint, rerun to resume every
+   partition, staged ``cuda``, adaptive and RI with the torch build, each
+   with phase 6's pair set; the sharded fused chain of partition 0 once
+   more under ``set_sync_debug_mode("error")``;
    two gloo ranks on the one card (child processes of this script, a
    ``FileStore``) run the four sharded stages on partition 0, each rank's
    outputs equal to its world-of-one outputs; the out-of-core tiled join
-   (``scaleout.tiled_join``) over chunk streams of 1200 at phase 6's
-   counts (T1 1200, T2 4000; a budget a sixth of the plan's estimated
-   bytes, so at least 4 tiles and a skew split), staged and fused, each
+   (``scaleout.tiled_join``) over chunk streams of 400 at a ninth of the
+   main counts (``WITHIN_HOST_SCALE``: T1 400, T2 1333; a budget a sixth
+   of the plan's estimated bytes, so at least 4 tiles and a skew split),
+   staged and fused, each
    with the pair set of the in-memory staged ``cuda`` ``JoinPlan`` over
    ``make_chunked_dataset``, then static balance, and a run stopped after
    2 tiles and resumed, arrays equal to a clean run.
@@ -312,6 +313,19 @@ reference package. Phases, any failure exits non-zero:
    bytes a step and rank by kind, peak device memory a rank, each dry-run
    cell's three terms beside (b)'s measured step, the phase's seconds,
    beside the card's name and power limit;
+18. (run after phase 11, before phase 12; it builds nothing) the
+   raw-store filter wrappers of ``core.join`` with ``backend="cuda"`` on
+   the stores and candidate rows of earlier phases: ``april_filter_batch``
+   over phase 4's T1 x T2 stores and every candidate row (the full order:
+   one trichotomy launch; ``("AA", "AF")``: two overlap launches),
+   ``within_filter_batch`` over phase 10's T2 x T10 stores and within
+   candidates (one overlap launch), ``linestring_filter_batch`` over phase
+   11's chains x T2 (two), each's launches counted and its verdicts held
+   bit for bit to the staged rows function's plain versions on the lists
+   the joins used; then ``examples_torch/quickstart.py`` in a child
+   process on the card (T1 300 x T2 500, ``n_order`` 9), whose ``none``,
+   ``april`` and ``ri`` joins must give the same pairs; the phase's seconds
+   beside its budget (``HELPERS_BUDGET_S``) and the card;
 9. (in a child process of this script, after phases 10, 11 and 12: late in
    a long process the card machine's profiler records no device events) the
    APRIL block-sparse attention kernels (``april_attention``, the LM
@@ -359,6 +373,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -402,9 +417,10 @@ RI_CASE_SEED = 19
 #: the host filters run at the main path's counts over this (DATASET_SPECS
 #: has T1 1200 and T2 4000, a third of the smoke's 3600 x 12000)
 HOST_SCALE = 3
-#: phase 10's host filters run at a further third of that (T2 1333 x T10
-#: 100 at the default counts): RI's build of the zip codes alone took
-#: about 52 s at 4000 x 300 on the card machine's host
+#: phase 10's host filters and phase 14's tiled join run at a further
+#: third of that (T2 1333 x T10 100 at the default counts): RI's build of
+#: the zip codes alone took about 52 s at 4000 x 300 on the card
+#: machine's host
 WITHIN_HOST_SCALE = 3 * HOST_SCALE
 #: phase 12's prefix (T1 polygons, T8 chains) for the sequential builds and
 #: APRIL's per-polygon methods, which are Python loops; APRIL's
@@ -417,26 +433,24 @@ NEIGHBORS_PREFIX = 10
 #: fused services), of the RI trace, of the adaptive trace (a prefix of
 #: the APRIL trace) and of the checkpoint round trip; requests a drain
 #: takes; an insert and a delete every SERVICE_MUTATE requests; the
-#: requests run_serve drives through the background worker. The RI trace
-#: (from 128), run_serve's requests (from 2000) and phase 14's tiled runs
-#: (from 3600 x 12000) are cut so that the script, phase 17 included,
-#: ends inside its time limit: uncut, it took 1178.0 and 1185.2 s of the
-#: 1200 on the H100 (PERF.md, "Findings")
-SERVICE_REQUESTS = 512
-SERVICE_RI_REQUESTS = 64
+#: requests run_serve drives through the background worker. These
+#: traces and phase 14's runs are sized for the script's 1200 s limit on
+#: the slowest card machine seen (PERF.md, "Findings")
+SERVICE_REQUESTS = 256
+SERVICE_RI_REQUESTS = 32
 SERVICE_ADAPTIVE_REQUESTS = 192
 SERVICE_CKPT_REQUESTS = 64
 SERVICE_GROUP = 16
 SERVICE_MUTATE = 25
 SERVICE_REPLAN_AFTER = 4
-SERVE_REQUESTS = 1000
+SERVE_REQUESTS = 500
 SERVICE_SEED = 29
 #: phase 14, the scale-out path: the launcher's partitions a side; the
 #: tiled join's chunk size, its budget a share of the plan's estimated
 #: bytes, the tiles it must give and its split settings; the seconds the
 #: two rank processes may take
 SCALEOUT_PARTS = 2
-SCALEOUT_CHUNK = 1200
+SCALEOUT_CHUNK = 400
 SCALEOUT_BUDGET_SHARE = 6
 SCALEOUT_MIN_TILES = 4
 SCALEOUT_SPLIT = {"split_factor": 1.0, "min_split_objs": 32}
@@ -502,6 +516,10 @@ SHARDED_STEPS = 3
 SHARDED_LAUNCH = dict(smoke=False, steps=4, batch=4, seq=256, ckpt_every=2)
 SHARDED_FAIL_AT = 3
 SHARDED_RANK_TIMEOUT = 400
+#: phase 18, the raw-store wrappers and the quickstart example: the
+#: phase's budget (printed beside its seconds) and the example's time limit
+HELPERS_BUDGET_S = 40
+QUICKSTART_TIMEOUT = 300
 COUNTS = ("n_candidates", "n_true_hits", "n_true_negs", "n_indecisive",
           "n_results")
 #: logit std of each head of the full-width draws (q is drawn at these
@@ -1131,6 +1149,7 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
             prebuilt=(plan.approx_s, None))
     builds["april T10"] = (time.perf_counter() - t1, stages)
     builds["Z"], builds["z_store"] = Z, base.approx_s.store
+    builds["z_approx"] = base.approx_s
     pre = (base.approx_r, base.approx_s)
     print(f"host: T10 x {len(Z)} APRIL build {time.perf_counter() - t0:.1f} "
           f"s (T2 x {len(S)} store reused from phase 4)", flush=True)
@@ -1335,6 +1354,7 @@ def _linestring_phase(args, dev, S, plan, ri_s, wrappers, builds) -> dict:
     need("line-staged", interval_overlap=n_ov,
          edges_intersect_csr=int(st.n_indecisive > 0))
     cands = base.candidates("linestring")
+    builds["line_approx"], builds["line_cands"] = base.approx_r, cands
     rng = np.random.default_rng(0)
     sample = cands[rng.choice(len(cands), size=min(512, len(cands)),
                               replace=False)]
@@ -1492,6 +1512,134 @@ def _linestring_phase(args, dev, S, plan, ri_s, wrappers, builds) -> dict:
     print(f"phase 11 ok: linestring joins "
           f"({time.perf_counter() - t_phase:.1f} s)", flush=True)
     return extra
+
+
+def _helpers_phase(args, dev, plan, cands, builds) -> dict:
+    """Phase 18: the raw-store filter wrappers and the quickstart example
+    on the card, on the stores and candidate rows of earlier phases (it
+    builds none): ``april_filter_batch`` over phase 4's T1 x T2 stores and
+    candidates (the full order in one trichotomy launch, ``("AA", "AF")``
+    in two overlap launches), ``within_filter_batch`` over phase 10's T2 x
+    T10 stores (one overlap launch) and ``linestring_filter_batch`` over
+    phase 11's chains x T2 (two), each with ``backend="cuda"`` and its
+    launches counted, held bit for bit to the staged rows function's plain
+    versions (``backend="torch"``) on the lists the joins used; then
+    ``examples_torch/quickstart.py`` in a child process, whose three
+    filters must give the same pairs. Returns, by kernel, the keys its row
+    of the ``kernels`` line gains."""
+    from repro_torch import JoinPlan
+    from repro_torch.core import join
+    from repro_torch.kernels.interval_join import (april_trichotomy,
+                                                   interval_overlap)
+    t_phase = time.perf_counter()
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip()
+    print(f"phase 18 card: {smi}", flush=True)
+    wrappers = (april_trichotomy, interval_overlap)
+    lists = plan.filter._lists
+    S, Z = plan.S, builds["Z"]
+    r_ap, s_ap, z_ap = plan.approx_r, plan.approx_s, builds["z_approx"]
+    line_ap, line_cands = builds["line_approx"], builds["line_cands"]
+    w_cands = JoinPlan(S, Z, filter="april",
+                       n_order=args.n_order).candidates("within")
+    line = line_ap.store
+    cases = (
+        ("april_filter_batch", cands,
+         lambda p, **kw: join.april_filter_batch(
+             r_ap.store, s_ap.store, p, **kw),
+         lambda p: join.april_trichotomy_rows(
+             lists(r_ap, "A"), lists(r_ap, "F"), lists(s_ap, "A"),
+             lists(s_ap, "F"), p[:, 0], p[:, 1], backend="torch",
+             device=dev), {"april_trichotomy": 1, "interval_overlap": 0}),
+        ("april_filter_batch AA-AF", cands,
+         lambda p, **kw: join.april_filter_batch(
+             r_ap.store, s_ap.store, p, ("AA", "AF"), **kw),
+         lambda p: join.april_trichotomy_rows(
+             lists(r_ap, "A"), lists(r_ap, "F"), lists(s_ap, "A"),
+             lists(s_ap, "F"), p[:, 0], p[:, 1], backend="torch",
+             order=("AA", "AF"), device=dev),
+         {"april_trichotomy": 0, "interval_overlap": 2}),
+        ("within_filter_batch", w_cands,
+         lambda p, **kw: join.within_filter_batch(
+             s_ap.store, z_ap.store, p, **kw),
+         lambda p: join.within_trichotomy_rows(
+             lists(s_ap, "A"), lists(z_ap, "A"), lists(z_ap, "F"),
+             p[:, 0], p[:, 1], backend="torch", device=dev),
+         {"april_trichotomy": 0, "interval_overlap": 1}),
+        ("linestring_filter_batch", line_cands,
+         lambda p, **kw: join.linestring_filter_batch(
+             s_ap.store, line.off, line.ids, p, **kw),
+         lambda p: join.linestring_trichotomy_rows(
+             lists(line_ap, "line"), lists(s_ap, "A"), lists(s_ap, "F"),
+             p[:, 0], p[:, 1], backend="torch", device=dev),
+         {"april_trichotomy": 0, "interval_overlap": 2}),
+    )
+    launches, rows = {}, {}
+    for label, pairs, wrapper, plain, need in cases:
+        _reset(wrappers)
+        t0 = time.perf_counter()
+        got = wrapper(pairs, backend="cuda", device=dev)
+        first = time.perf_counter() - t0
+        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        t0 = time.perf_counter()
+        wrapper(pairs, backend="cuda", device=dev)
+        again = time.perf_counter() - t0
+        want = plain(pairs)
+        counts = np.bincount(want, minlength=3).tolist()
+        print(f"[{label}] {len(pairs)} rows; launches "
+              f"{json.dumps(launches[label])}; first call {first:.3f} s "
+              f"(with any list conversion and upload), again {again:.3f} s; "
+              f"TRUE_NEG/TRUE_HIT/INDECISIVE {counts} (card {smi})",
+              flush=True)
+        if launches[label] != need:
+            raise AssertionError(f"[{label}] launches {launches[label]}, "
+                                 f"not {need}")
+        if got.dtype != np.int8 or not np.array_equal(got, want):
+            raise AssertionError(f"[{label}] backend='cuda' != the rows "
+                                 "function's plain versions")
+        if label == "april_filter_batch" and 0 in counts:
+            raise AssertionError(f"[{label}] a verdict class is empty")
+        rows[label] = len(pairs)
+    t_wrappers = time.perf_counter() - t_phase
+
+    # the quickstart example in a child process, on the card
+    t0 = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        filter(None, [str(root / "src"), os.environ.get("PYTHONPATH")])))
+    proc = subprocess.run([sys.executable,
+                           str(root / "examples_torch" / "quickstart.py")],
+                          cwd=root, env=env, capture_output=True, text=True,
+                          timeout=QUICKSTART_TIMEOUT)
+    print(proc.stdout.rstrip(), flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"examples_torch/quickstart.py exited "
+                             f"{proc.returncode}")
+    digests = {m: (int(n), h) for m, n, h in re.findall(
+        r"^(\S+) pairs: (\d+) sha1 (\w+)$", proc.stdout, re.M)}
+    if sorted(digests) != ["april", "none", "ri"] \
+            or len(set(digests.values())) != 1 \
+            or digests["april"][0] == 0:
+        raise AssertionError(f"the quickstart's filters gave different "
+                             f"pairs: {digests}")
+    t_quick = time.perf_counter() - t0
+    secs = time.perf_counter() - t_phase
+    print(f"phase 18 ok: raw-store wrappers == rows functions, launches "
+          f"{json.dumps(launches)} ({t_wrappers:.1f} s); quickstart on the "
+          f"card, three filters == {digests['april'][0]} pairs "
+          f"({t_quick:.1f} s); {secs:.1f} s of a {HELPERS_BUDGET_S} s "
+          f"budget (card {smi})", flush=True)
+
+    def by(name) -> dict:
+        """The wrapper calls that launched kernel ``name``: how often, and
+        the candidate rows each was given."""
+        calls = [k for k, v in launches.items() if v[name]]
+        return {"launches_helpers": {k: launches[k][name] for k in calls},
+                "helpers_rows": {k: rows[k] for k in calls}}
+    return {name: by(name) for name in ("april_trichotomy",
+                                        "interval_overlap")}
 
 
 def _store_arrays(store) -> list:
@@ -2144,9 +2292,10 @@ def _two_ranks(Rp, Sp, ar, as_, smi) -> list:
     return reports
 
 
-def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
+def _scaleout_phase(args, dev, want, wrappers) -> dict:
     """Phase 14: the scale-out path on the card (the partitioned launcher,
-    the sharded stages on two ranks, the out-of-core tiled join). Returns,
+    the sharded stages on two ranks, the out-of-core tiled join), at phase
+    6's counts; ``want`` is phase 6's pair set. Returns,
     by kernel, the keys its row of the ``kernels`` line gains: the launches
     of each run."""
     import torch
@@ -2207,11 +2356,14 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
                                  f"({len(_pair_set(res))} != "
                                  f"{len(want_set)})")
 
+    # the launcher at phase 6's counts, a third of phase 4's, for the
+    # script's time limit
     size = dict(r_name="T1", s_name="T2", n_order=args.n_order,
-                parts=SCALEOUT_PARTS, seed=0, count_r=args.r_count,
-                count_s=args.s_count, mesh=mesh)
-    # 1. the partitioned launcher at full size; the fused run is profiled
-    # first (a process some minutes old records no device events)
+                parts=SCALEOUT_PARTS, seed=0,
+                count_r=args.r_count // HOST_SCALE,
+                count_s=args.s_count // HOST_SCALE, mesh=mesh)
+    # 1. the partitioned launcher; the fused run is profiled first (a
+    # process some minutes old records no device events)
     box = []
     prof = _profile_showing("launcher-fused", lambda: box.append(run(
         "launcher-fused", lambda: run_join(pipeline_mode="fused", **size),
@@ -2247,22 +2399,19 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
     res, totals = run("launcher-adaptive", lambda: run_join(
         plan_mode="adaptive", **size))
     same_set("launcher-adaptive", res, want)
-    small = dict(size, count_r=args.r_count // HOST_SCALE,
-                 count_s=args.s_count // HOST_SCALE)
     res, _ = run("launcher-ri", lambda: run_join(
         method="ri", backend="cuda", refine_backend="cuda",
-        build_backend="torch", **small),
+        build_backend="torch", **size),
         need=("ri_trichotomy", "edges_intersect_csr"))
-    same_set("launcher-ri", res, want_small)
-    print(f"[launcher] fused, sharded (and resumed), staged, adaptive: "
-          f"{len(want)} pairs == phase 4's set; RI at "
-          f"{small['count_r']} x {small['count_s']}: {len(want_small)} "
+    same_set("launcher-ri", res, want)
+    print(f"[launcher] at {size['count_r']} x {size['count_s']}: fused, "
+          f"sharded (and resumed), staged, adaptive and RI: {len(want)} "
           f"pairs == phase 6's set (card {smi})", flush=True)
 
     # 2. the sharded stages of partition 0 of the launcher's run: its fused
     # chain under set_sync_debug_mode("error"), then two ranks on the card
-    R = make_dataset("T1", seed=0, count=args.r_count)
-    S = make_dataset("T2", seed=1, count=args.s_count)
+    R = make_dataset("T1", seed=0, count=size["count_r"])
+    S = make_dataset("T2", seed=1, count=size["count_s"])
     parting = part_mod.partition_space([R, S], SCALEOUT_PARTS)
     p0 = parting.partitions[0]
     Rp = PolygonDataset("r", R.verts[p0.obj_idx["T1"]],
@@ -2356,7 +2505,8 @@ def _scaleout_phase(args, dev, want, want_small, wrappers) -> dict:
               f"{st.n_results} result pairs (card {smi})", flush=True)
         return res, st
 
-    n_r, n_s = args.r_count // HOST_SCALE, args.s_count // HOST_SCALE
+    n_r = args.r_count // WITHIN_HOST_SCALE
+    n_s = args.s_count // WITHIN_HOST_SCALE
     b = budget(n_r, n_s, **SCALEOUT_SPLIT)
     want_t, _ = in_memory(n_r, n_s)
     runs = {}
@@ -4305,6 +4455,11 @@ def main() -> int:
     for k in kernels:
         k.update(line.get(k["name"], {}))
 
+    # 18. the raw-store wrappers and the quickstart example
+    helpers = _helpers_phase(args, dev, plan, cands, builds)
+    for k in kernels:
+        k.update(helpers.get(k["name"], {}))
+
     # 12. the construction paths
     _construction_phase(args, dev, R, S, plan, ri_r, ri_s,
                         results["default"], stats["default"], builds,
@@ -4316,8 +4471,7 @@ def main() -> int:
         k.update(service.get(k["name"], {}))
 
     # 14. the scale-out path
-    scaleout = _scaleout_phase(args, dev, _pair_set(results["default"]),
-                               builds["want_small"], wrappers)
+    scaleout = _scaleout_phase(args, dev, builds["want_small"], wrappers)
     for k in kernels:
         k.update(scaleout.get(k["name"], {}))
 

@@ -12,6 +12,11 @@
   the host (:func:`contain_rows_np`) or on the device
   (:func:`contain_rows`), a row-keyed ``torch.searchsorted`` with no
   kernel of its own, as in the reference.
+* **Raw-store wrappers** (:func:`april_filter_batch`,
+  :func:`within_filter_batch`, :func:`linestring_filter_batch`) run the
+  staged trichotomies on AprilStores and candidate pairs [N, 2], the
+  stores' lists cached on the stores; :func:`batch_overlap_np` is the
+  per-row host reference of the padded layout of :func:`pack_lists`.
 
 Backends of the filter stage (``filter_backend`` on ``JoinPlan``):
 
@@ -52,7 +57,8 @@ __all__ = [
     "contain_rows", "april_trichotomy_rows", "within_trichotomy_rows",
     "linestring_trichotomy_rows", "fused_status_rows", "record_joins",
     "csr_delete_row", "csr_append_row", "adaptive_order",
-    "pack_csr_intervals", "pack_lists",
+    "pack_csr_intervals", "pack_lists", "batch_overlap_np",
+    "april_filter_batch", "within_filter_batch", "linestring_filter_batch",
 ]
 
 I32_MAX = np.int32(np.iinfo(np.int32).max)
@@ -236,6 +242,27 @@ def pack_lists(store, idx: np.ndarray, kind: str, pad_to: int | None = None):
     off = store.a_off if kind == "A" else store.f_off
     ints = store.a_ints if kind == "A" else store.f_ints
     return pack_csr_intervals(off, ints, idx, pad_to=pad_to)
+
+
+def batch_overlap_np(xs, xl, nx, ys, yl, ny) -> np.ndarray:
+    """[B] bool: does padded row b of X overlap row b of Y? Rows as
+    :func:`pack_csr_intervals` gives them (inclusive lasts, the first
+    ``nx[b]`` / ``ny[b]`` slots valid). Overlap iff some (i, j) has
+    ys[j] <= xl[i] and xs[i] <= yl[j]: per x interval, a binary search of
+    the y lasts for the first j with yl[j] >= xs[i]. A host loop over the
+    rows, the per-row reference of the padded layout."""
+    B = xs.shape[0]
+    out = np.zeros(B, dtype=bool)
+    for b in range(B):
+        nyb = int(ny[b])
+        nxb = int(nx[b])
+        if nyb == 0 or nxb == 0:
+            continue
+        j = np.searchsorted(yl[b, :nyb], xs[b, :nxb], side="left")
+        ok = j < nyb
+        jj = np.minimum(j, nyb - 1)
+        out[b] = bool(np.any(ok & (ys[b, jj] <= xl[b, :nxb])))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -725,3 +752,101 @@ def fused_status_rows(Xa: IntervalLists, Xf: IntervalLists | None,
                            TRUE_NEG).to(torch.int8)
     return _interval_join("april_trichotomy", backend, Xa.to(dev),
                           Xf.to(dev), Ya.to(dev), Yf.to(dev), *rows)
+
+
+# ---------------------------------------------------------------------------
+# Raw-store wrappers
+# ---------------------------------------------------------------------------
+
+def _store_lists(store, kind: str) -> IntervalLists:
+    """One list kind (``"A"`` or ``"F"``) of an AprilStore as
+    :class:`IntervalLists`, cached on the store so that repeated wrapper
+    calls pay the biased-int32 conversion (and each device upload) once.
+    An entry is kept with the offset and interval arrays it was built from
+    and rebuilt when the store holds other ones: the row splices of
+    incremental maintenance replace both arrays."""
+    off, ints = ((store.a_off, store.a_ints) if kind == "A"
+                 else (store.f_off, store.f_ints))
+    try:
+        cache = store._interval_lists_cache
+    except AttributeError:
+        cache = store._interval_lists_cache = {}
+    hit = cache.get(kind)
+    if hit is None or hit[0] is not off or hit[1] is not ints:
+        hit = cache[kind] = (off, ints,
+                             IntervalLists.from_intervals(off, ints))
+    return hit[2]
+
+
+def _wrapper_backend(backend: str | None, device) -> str:
+    """A raw-store wrapper's backend: ``None`` follows ``device`` as
+    :class:`JoinPlan` does (``"cuda"`` on a CUDA device, ``"torch"``
+    otherwise; ``device=None`` is the card and raises without one)."""
+    if backend is not None:
+        return backend
+    return "cuda" if resolve_device(device).type == "cuda" else "torch"
+
+
+def _pairs(pairs) -> np.ndarray:
+    """Candidate pairs as [N, 2] int64; empty ones give an empty int8
+    result through the rows functions, after their backend checks."""
+    return np.asarray(pairs, np.int64).reshape(-1, 2)
+
+
+def within_filter_batch(store_r, store_s, pairs: np.ndarray, *,
+                        backend: str | None = None,
+                        device=None) -> np.ndarray:
+    """APRIL within filter (§4.3.2) over candidate pairs [N, 2] of raw
+    AprilStores -> [N] int8, verdict-identical to
+    :func:`within_verdict_pair` applied per pair: AA disjoint -> TRUE_NEG;
+    every A(r) interval inside an F(s) interval -> TRUE_HIT; else
+    INDECISIVE. A thin wrapper over :func:`within_trichotomy_rows`:
+    ``"cuda"`` launches the interval-overlap kernel for the AA-join,
+    ``"torch"`` runs its plain version, both on ``device`` (``None`` ->
+    ``"cuda"``); ``"numpy"`` runs on the host. ``backend=None`` is
+    ``"cuda"`` on a CUDA device and ``"torch"`` on any other."""
+    pairs = _pairs(pairs)
+    return within_trichotomy_rows(
+        _store_lists(store_r, "A"), _store_lists(store_s, "A"),
+        _store_lists(store_s, "F"), pairs[:, 0], pairs[:, 1],
+        backend=_wrapper_backend(backend, device), device=device)
+
+
+def linestring_filter_batch(store_s, line_off: np.ndarray,
+                            line_ids: np.ndarray, pairs: np.ndarray, *,
+                            backend: str | None = None,
+                            device=None) -> np.ndarray:
+    """Polygon x linestring filter (§4.3.3) -> [N] int8. ``pairs`` rows are
+    (line index, polygon index); the chains are a CSR array of sorted cell
+    ids (``line_off``, ``line_ids``, a ``LineCellStore``'s ``off`` and
+    ``ids``), each a unit interval. Verdict-identical to
+    :func:`linestring_verdict_pair`; a thin wrapper over
+    :func:`linestring_trichotomy_rows`, whose two joins the ``"cuda"``
+    backend launches the interval-overlap kernel for (backends and
+    ``device`` as in :func:`within_filter_batch`)."""
+    pairs = _pairs(pairs)
+    return linestring_trichotomy_rows(
+        IntervalLists.from_unit_cells(line_off, line_ids),
+        _store_lists(store_s, "A"), _store_lists(store_s, "F"),
+        pairs[:, 0], pairs[:, 1], backend=_wrapper_backend(backend, device),
+        device=device)
+
+
+def april_filter_batch(store_r, store_s, pairs: np.ndarray,
+                       order: tuple[str, ...] = ("AA", "AF", "FA"), *,
+                       backend: str | None = None,
+                       device=None) -> np.ndarray:
+    """APRIL filter (Algorithm 2) over candidate pairs [[r, s], ...] of raw
+    AprilStores -> [N] int8; a thin wrapper over
+    :func:`april_trichotomy_rows`. ``"cuda"`` evaluates a full ``order``
+    in one launch of the fused trichotomy kernel and a partial one through
+    the interval-overlap kernel, ``"torch"`` runs the plain versions, both
+    on ``device`` (``None`` -> ``"cuda"``); ``"numpy"`` runs on the host.
+    ``backend=None`` follows ``device`` as in
+    :func:`within_filter_batch`."""
+    pairs = _pairs(pairs)
+    return april_trichotomy_rows(
+        _store_lists(store_r, "A"), _store_lists(store_r, "F"),
+        _store_lists(store_s, "A"), _store_lists(store_s, "F"),
+        pairs[:, 0], pairs[:, 1], backend=_wrapper_backend(backend, device),
+        order=order, device=device)

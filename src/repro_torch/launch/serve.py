@@ -115,7 +115,7 @@ class ServePool:
         return served
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="gemma2-2b")
     ap.add_argument("--requests", type=int, default=8)
@@ -123,7 +123,7 @@ def main():
     ap.add_argument("--max-new", type=int, default=12)
     ap.add_argument("--device", default="cuda",
                     help="where the model runs: cuda (default) or cpu")
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, smoke=True)

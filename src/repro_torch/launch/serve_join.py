@@ -128,7 +128,7 @@ def run_serve(dataset: str = "T1", count: int | None = 300,
     }
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dataset", default="T1")
     ap.add_argument("--count", type=int, default=300)
@@ -164,7 +164,7 @@ def main():
     ap.add_argument("--ckpt-dir", default=None)
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
+    args = ap.parse_args(argv)
     report = run_serve(
         dataset=args.dataset, count=args.count,
         query_layer=args.query_layer, n_queries=args.n_queries,

@@ -49,7 +49,7 @@ from ..device import InputLog, check_backend_device, resolve_device, upload
 from ..kernels.refine import edges_intersect_csr, edges_intersect_csr_plain
 
 __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
-           "refine", "refine_pairs", "refine_pairs_seq",
+           "refine", "refine_pair", "refine_pairs", "refine_pairs_seq",
            "refine_within_pairs", "refine_within_pairs_seq",
            "refine_line_poly_pairs", "refine_line_poly_pairs_seq",
            "device_geometry", "fused_refine_lanes", "iter_pair_chunks"]
@@ -71,15 +71,19 @@ def check_refine_backend(backend: str) -> None:
                          f"expected one of {REFINE_BACKENDS}")
 
 
+def refine_pair(R, i: int, S, j: int) -> bool:
+    """Exact float64 intersection of polygon ``R[i]`` and ``S[j]``: the
+    one-pair oracle."""
+    return geometry.polygons_intersect(R.verts[i], R.nverts[i],
+                                       S.verts[j], S.nverts[j])
+
+
 def refine_pairs_seq(R, S, pairs: np.ndarray) -> np.ndarray:
     """Per-pair float64 reference for exact polygon intersection."""
     pairs = np.asarray(pairs, np.int64).reshape(-1, 2)
     if len(pairs) == 0:
         return np.zeros(0, bool)
-    return np.asarray([
-        geometry.polygons_intersect(R.verts[i], R.nverts[i],
-                                    S.verts[j], S.nverts[j])
-        for i, j in pairs], bool)
+    return np.asarray([refine_pair(R, i, S, j) for i, j in pairs], bool)
 
 
 def refine_within_pairs_seq(R, S, pairs: np.ndarray) -> np.ndarray:

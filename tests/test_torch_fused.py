@@ -18,7 +18,6 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import join as rjoin  # noqa: E402
 from repro.datagen import make_dataset as r_make_dataset  # noqa: E402
-from repro.datagen.fixtures import SNAPPED_HOST, SNAPPED_TRI  # noqa: E402
 from repro.datagen.synthetic import PolygonDataset  # noqa: E402
 from repro.kernels.compact import compact_mask as r_compact_mask  # noqa: E402
 from repro.kernels.compact.ref import compact_mask_ref  # noqa: E402
@@ -32,6 +31,7 @@ from repro.spatial import refine as rrefine  # noqa: E402
 from repro_torch import JoinPlan, JoinStats, make_dataset, state  # noqa: E402
 from repro_torch.core import geometry  # noqa: E402
 from repro_torch.core.join import INDECISIVE, TRUE_NEG  # noqa: E402
+from repro_torch.datagen.fixtures import SNAPPED_HOST, SNAPPED_TRI  # noqa: E402
 from repro_torch.kernels.interval_join import (  # noqa: E402
     april_trichotomy_plain)
 from repro_torch.kernels.compact import cases as compact_cases  # noqa: E402

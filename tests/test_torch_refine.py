@@ -11,8 +11,6 @@ torch = pytest.importorskip("torch")
 
 from repro.core import geometry as rgeometry  # noqa: E402
 from repro.datagen import make_dataset as r_make_dataset  # noqa: E402
-from repro.datagen.fixtures import (CSHAPE, CSHAPE_INNER,  # noqa: E402
-                                    SNAPPED_HOST, SNAPPED_TRI)
 from repro.datagen.synthetic import PolygonDataset  # noqa: E402
 from repro.kernels.refine.ops import batch_edges_intersect  # noqa: E402
 from repro.spatial import JoinPlan as RJoinPlan  # noqa: E402
@@ -20,6 +18,8 @@ from repro.spatial import refine as rrefine  # noqa: E402
 
 from repro_torch import state  # noqa: E402
 from repro_torch.core import geometry  # noqa: E402
+from repro_torch.datagen.fixtures import (  # noqa: E402
+    CSHAPE, CSHAPE_INNER, SNAPPED_HOST, SNAPPED_TRI)
 from repro_torch.kernels.refine import (  # noqa: E402
     edges_intersect, edges_intersect_csr, edges_intersect_csr_plain,
     edges_intersect_plain, pack_edges)

@@ -23,8 +23,6 @@ from repro.core import geometry as rgeometry  # noqa: E402
 from repro.core import join as rjoin  # noqa: E402
 from repro.core import ri as rri  # noqa: E402
 from repro.datagen import make_dataset as r_make_dataset  # noqa: E402
-from repro.datagen.fixtures import (  # noqa: E402
-    CSHAPE, CSHAPE_INNER, SNAPPED_HOST, SNAPPED_TRI)
 from repro.datagen.synthetic import PolygonDataset  # noqa: E402
 from repro.spatial import JoinPlan as RJoinPlan  # noqa: E402
 from repro.spatial import refine as rrefine  # noqa: E402
@@ -34,6 +32,8 @@ from repro_torch import JoinPlan, make_dataset, state  # noqa: E402
 from repro_torch.baselines import ra  # noqa: E402
 from repro_torch.core import geometry, ri  # noqa: E402
 from repro_torch.core import join as tjoin  # noqa: E402
+from repro_torch.datagen.fixtures import (  # noqa: E402
+    CSHAPE, CSHAPE_INNER, SNAPPED_HOST, SNAPPED_TRI)
 from repro_torch.spatial import refine  # noqa: E402
 from repro_torch.spatial.filters import get_filter  # noqa: E402
 
