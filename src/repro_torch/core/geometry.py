@@ -38,8 +38,9 @@ BUILD_BACKENDS = ("numpy", "torch", "sequential")
 #: host seconds of the batched builds' stages (``dda``, ``scanline``,
 #: ``pip`` or ``clip``, ``pack``; RA ``fit``, 5C+CH ``pentagon`` and
 #: ``hull``; ``probe``, the scale-out planner's probe builds, holds the
-#: stages of those builds), summed inside a ``BUILD_STAGES.record()`` block
-BUILD_STAGES = StageClock()
+#: stages of those builds), summed inside a ``BUILD_STAGES.record()`` block;
+#: the ``build.*`` spans of a profiler's trace
+BUILD_STAGES = StageClock("build")
 
 
 def check_build_backend(backend: str) -> None:

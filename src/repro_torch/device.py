@@ -77,32 +77,72 @@ class InputLog:
                 self._items = prev
 
 
-class StageClock:
-    """Where a module adds up the host seconds of its named stages, so that
-    a caller can see where a build's time goes. ``stage`` does nothing
-    unless a ``record()`` block is open; inside one, each ``stage(name)``
-    block adds its wall seconds to ``name`` in the dict the block yields.
-    A device pass that reads its result back is timed to its end."""
+def _profiling() -> bool:
+    """Whether a ``torch.profiler`` session is recording on this process."""
+    return torch._C._autograd._profiler_enabled()
+
+
+class _OpenRecords(threading.local):
+    """The record dicts open on one thread, outermost first."""
 
     def __init__(self) -> None:
-        self._secs: dict | None = None
+        self.stack: list[dict] = []
 
-    @contextlib.contextmanager
+
+class StageClock:
+    """Where a module adds up the host seconds of its named stages and its
+    counts, so that a caller can see where a join's or a build's time
+    goes.
+
+    Inside a ``record()`` block, each ``stage(name)`` block adds its wall
+    seconds to ``name``, and each ``count(name, n)`` adds ``n`` to
+    ``name``, in the dict the block yields. Blocks nest, and every block
+    open on the thread receives them; a block sees only its own thread's
+    stages and counts. While a ``torch.profiler`` session records, a stage
+    is also the span ``f"{prefix}.{name}"`` of the profiler's trace, on
+    its clock beside the device's kernels; a dotted name is a child of the
+    stage that encloses it (``stage("refine.chunks")`` inside
+    ``stage("refine")``). With neither on, a stage does nothing. A device
+    pass that reads its result back is timed to its end; one that does not
+    is timed to its dispatch."""
+
+    def __init__(self, prefix: str) -> None:
+        self.prefix = prefix
+        self._open = _OpenRecords()
+        self._lock = threading.Lock()
+
     def stage(self, name: str):
-        secs = self._secs
-        if secs is None:
-            yield
-            return
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            secs[name] = secs.get(name, 0.0) + time.perf_counter() - t0
+        if not self._open.stack and not _profiling():
+            return contextlib.nullcontext()
+        return self._timed(name)
+
+    def count(self, name: str, n: int = 1) -> None:
+        if self._open.stack:
+            self._add(self._open.stack, name, n)
 
     @contextlib.contextmanager
     def record(self):
-        prev, self._secs = self._secs, {}
+        rec: dict = {}
+        stack = self._open.stack
+        stack.append(rec)
         try:
-            yield self._secs
+            yield rec
         finally:
-            self._secs = prev
+            stack.pop()
+
+    @contextlib.contextmanager
+    def _timed(self, name: str):
+        records = list(self._open.stack)
+        span = (torch.profiler.record_function(f"{self.prefix}.{name}")
+                if _profiling() else contextlib.nullcontext())
+        with span:
+            t0 = time.perf_counter()
+            try:
+                yield
+            finally:
+                self._add(records, name, time.perf_counter() - t0)
+
+    def _add(self, records: list, name: str, v) -> None:
+        with self._lock:
+            for rec in records:
+                rec[name] = rec.get(name, 0) + v

@@ -15,7 +15,6 @@ and identical ``JoinStats`` counts.
 """
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass
 from typing import Callable
 
@@ -26,12 +25,13 @@ from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG
 from ..device import InputLog, upload
 from ..kernels.compact import compact_mask, compact_mask_plain
 from . import refine as RF
+from .refine import JOIN_STAGES
 from .mbr_join import _prepare, candidate_rows, mbr_inside, pair_mask_lane
 
 __all__ = ["PIPELINE_MODES", "check_pipeline_mode", "to_host",
            "CandidateSet", "Stage", "StagePlan", "device_frame",
            "mask_status", "refine_lanes", "build_stage_plan",
-           "execute_fused", "record_chains"]
+           "execute_fused", "record_chains", "JOIN_STAGES"]
 
 #: execution modes of JoinPlan: 'staged' materializes each stage's
 #: survivors on the host, 'fused' keeps the chain on the device with one
@@ -107,22 +107,25 @@ class Stage:
 
 class StagePlan:
     """An ordered CandidateSet -> CandidateSet chain, dispatched back to
-    back with no host sync in between. Stage times are host times of the
-    dispatch: device work surfaces in the final gather (``t_sync``) unless
-    the queue of pending launches fills and the dispatch waits for it."""
+    back with no host sync in between, each stage a ``JOIN_STAGES`` stage.
+    Stage times are host times of the dispatch: device work surfaces in
+    the final gather (``t_sync``) unless the queue of pending launches
+    fills and the dispatch waits for it."""
 
     def __init__(self, stages: list[Stage]):
         self.stages = list(stages)
 
     def run(self, cs: CandidateSet | None = None,
             stats=None) -> CandidateSet:
-        for st in self.stages:
-            t0 = time.perf_counter()
-            cs = st.fn(cs)
-            if stats is not None:
+        with JOIN_STAGES.record() as secs:
+            for st in self.stages:
+                with JOIN_STAGES.stage(st.name):
+                    cs = st.fn(cs)
+        if stats is not None:
+            for st in self.stages:
                 name = "t_" + st.name
-                setattr(stats, name, getattr(stats, name, 0.0)
-                        + time.perf_counter() - t0)
+                setattr(stats, name,
+                        getattr(stats, name, 0.0) + secs[st.name])
         return cs
 
 
@@ -159,7 +162,8 @@ def refine_lanes(cs: CandidateSet, R, S, dev: torch.device,
     float64 core over the packed prefix (``refine.fused_refine_lanes``),
     scattered back to ``cs.hit`` (TRUE_HIT rows included) and ``cs.unc``."""
     compact = compact_mask if kernel else compact_mask_plain
-    perm, count = compact(cs.status == INDECISIVE)
+    with JOIN_STAGES.stage("refine.compact"):
+        perm, count = compact(cs.status == INDECISIVE)
     res, unc = RF.fused_refine_lanes(R, S, cs.ri_dev, cs.si_dev, perm, count,
                                      dev, predicate)
     perm = perm.to(torch.int64)
@@ -194,22 +198,27 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
     their plain versions on the plan's device.
     """
     dev = plan.device
+    stage = JOIN_STAGES.stage
 
     def mbr_stage(_):
         if plan.mbr_index is not None or plan.mbr_backend != "torch":
-            pairs = plan.candidates(predicate)
+            with stage("mbr.candidates"):
+                pairs = plan.candidates(predicate)
             if len(pairs) == 0:
                 return _empty_cs()
-            return device_frame(pairs[:, 0], pairs[:, 1], dev)
-        mbrs_r, mbrs_s, k, extent = _prepare(plan.R.mbrs, plan.S.mbrs,
-                                             plan.mbr_grid)
-        if k == 0:
-            return _empty_cs()
-        ri, si, own_x, own_y, lo_r, lo_s = candidate_rows(mbrs_r, mbrs_s, k,
-                                                          extent)
+            with stage("mbr.upload"):
+                return device_frame(pairs[:, 0], pairs[:, 1], dev)
+        with stage("mbr.candidates"):
+            mbrs_r, mbrs_s, k, extent = _prepare(plan.R.mbrs, plan.S.mbrs,
+                                                 plan.mbr_grid)
+            if k == 0:
+                return _empty_cs()
+            ri, si, own_x, own_y, lo_r, lo_s = candidate_rows(
+                mbrs_r, mbrs_s, k, extent)
         if len(ri) == 0:
             return _empty_cs()
-        cs = device_frame(ri, si, dev)
+        with stage("mbr.upload"):
+            cs = device_frame(ri, si, dev)
         cs.valid = pair_mask_lane(mbrs_r, mbrs_s, lo_r, lo_s, cs.ri_dev,
                                   cs.si_dev, own_x, own_y, dev)
         if predicate == "within":
@@ -240,6 +249,7 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
 # Executor
 # ---------------------------------------------------------------------------
 
+
 def execute_fused(plan, predicate: str, stats):
     """Run the fused chain; returns (result pairs [K, 2] int64, stats).
 
@@ -249,38 +259,57 @@ def execute_fused(plan, predicate: str, stats):
     before it starts. ``stats.t_sync`` times the final gather plus the
     float64 host re-check of the uncertain rows (their number is
     ``stats.extra["n_escalated"]``, the frame's ``stats.extra["n_frame"]``);
-    the stage times are dispatch only.
+    the stage times are dispatch only. ``stats.extra`` also gets the
+    chain's counts: ``refine_chunks`` (the chunks the refine walked) of
+    ``refine_chunk_rows`` rows and ``refine_chunks_live`` (those that hold
+    an INDECISIVE row, from the gathered status lane).
     """
-    plan.filter.to_device(plan.approx_r, plan.approx_s, plan.device)
-    RF.device_geometry(plan.R, plan.device, kind=plan.r_kind)
-    RF.device_geometry(plan.S, plan.device)
-    cs = build_stage_plan(plan, predicate).run(stats=stats)
-    _CHAINS.add(cs)
-
-    t0 = time.perf_counter()
-    stats.extra.update(n_frame=len(cs), n_escalated=0)
+    stage = JOIN_STAGES.stage
+    n_packed = 0
+    with JOIN_STAGES.record() as rec:
+        with stage("upload"):
+            plan.filter.to_device(plan.approx_r, plan.approx_s, plan.device)
+            RF.device_geometry(plan.R, plan.device, kind=plan.r_kind)
+            RF.device_geometry(plan.S, plan.device)
+        cs = build_stage_plan(plan, predicate).run(stats=stats)
+        _CHAINS.add(cs)
+        with stage("sync"):
+            stats.extra.update(n_frame=len(cs), n_escalated=0)
+            if len(cs):
+                frame = np.stack([cs.ri, cs.si], axis=1)
+                lanes = (cs.status, cs.hit, cs.unc)
+                if cs.valid is not None:
+                    lanes += (cs.valid,)
+                with stage("sync.gather"):
+                    got = to_host(*lanes)
+                status_h, hit_h, unc_h = got[:3]
+                valid_h = (got[3] if cs.valid is not None
+                           else np.ones(len(cs), bool))
+                with stage("sync.recheck"):
+                    if unc_h.any():
+                        hit_h[unc_h] = RF.refine(plan.R, plan.S,
+                                                 frame[unc_h],
+                                                 predicate=predicate,
+                                                 backend="numpy")
+                stats.extra["n_escalated"] = int(unc_h.sum())
+        if len(cs):
+            with stage("collect"):
+                indec = status_h == INDECISIVE
+                n_packed = int(indec.sum())
+                stats.n_candidates = int(valid_h.sum())
+                stats.n_true_hits = int(np.sum((status_h == TRUE_HIT)
+                                               & valid_h))
+                stats.n_true_negs = int(np.sum((status_h == TRUE_NEG)
+                                               & valid_h))
+                stats.n_indecisive = int(np.sum(indec & valid_h))
+                results = np.concatenate([frame[status_h == TRUE_HIT],
+                                          frame[indec & hit_h]], axis=0)
+                stats.n_results = len(results)
+    stats.t_sync = rec["sync"]
+    C = rec.get("refine_chunk_rows", 0)
+    stats.extra.update(
+        refine_chunks=rec.get("refine_chunks", 0), refine_chunk_rows=C,
+        refine_chunks_live=-(-n_packed // C) if C else 0)
     if len(cs) == 0:
-        stats.t_sync = time.perf_counter() - t0
         return np.zeros((0, 2), np.int64), stats
-    frame = np.stack([cs.ri, cs.si], axis=1)
-    lanes = (cs.status, cs.hit, cs.unc)
-    if cs.valid is not None:
-        lanes += (cs.valid,)
-    got = to_host(*lanes)
-    status_h, hit_h, unc_h = got[:3]
-    valid_h = got[3] if cs.valid is not None else np.ones(len(cs), bool)
-    if unc_h.any():
-        hit_h[unc_h] = RF.refine(plan.R, plan.S, frame[unc_h],
-                                 predicate=predicate, backend="numpy")
-    stats.extra["n_escalated"] = int(unc_h.sum())
-    stats.t_sync = time.perf_counter() - t0
-
-    stats.n_candidates = int(valid_h.sum())
-    stats.n_true_hits = int(np.sum((status_h == TRUE_HIT) & valid_h))
-    stats.n_true_negs = int(np.sum((status_h == TRUE_NEG) & valid_h))
-    stats.n_indecisive = int(np.sum((status_h == INDECISIVE) & valid_h))
-    results = np.concatenate([frame[status_h == TRUE_HIT],
-                              frame[(status_h == INDECISIVE) & hit_h]],
-                             axis=0)
-    stats.n_results = len(results)
     return results, stats

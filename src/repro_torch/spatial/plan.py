@@ -32,6 +32,7 @@ from dataclasses import dataclass, field, fields
 
 import numpy as np
 
+from ..core.geometry import BUILD_STAGES
 from ..core.join import INDECISIVE, TRUE_HIT, TRUE_NEG, check_filter_backend
 from ..core.rasterize import Extent, GLOBAL_EXTENT
 from ..device import check_backend_device, resolve_device
@@ -207,6 +208,7 @@ class JoinPlan:
         self.approx_r: Approximation | None = None
         self.approx_s: Approximation | None = None
         self._t_build = 0.0
+        self._build_stages: dict = {}
         self._t_plan = 0.0
         self.last_stats: JoinStats | None = None
         if plan_choice is not None:
@@ -225,7 +227,10 @@ class JoinPlan:
         """Build (or adopt) both approximations; idempotent. ``prebuilt``
         may supply an (approx_r, approx_s) tuple (raw stores are wrapped),
         ``None`` entries meaning "build this side". The ``torch`` build
-        runs on the plan's device unless ``build_opts`` name another."""
+        runs on the plan's device unless ``build_opts`` name another. Its
+        seconds add to ``t_build``, and those of its stages
+        (``BUILD_STAGES``) to the ``build_stages`` a fused execution
+        reports."""
         pre_r = pre_s = None
         if prebuilt is not None:
             pre_r, pre_s = prebuilt
@@ -233,19 +238,22 @@ class JoinPlan:
         if opts.get("build_backend") == "torch":
             opts.setdefault("device", self.device)
         t0 = time.perf_counter()
-        if self.approx_r is None:
-            self.approx_r = (self._wrap(pre_r, self.r_kind)
-                             if pre_r is not None else self.filter.build(
-                                 self.R, n_order=self.n_order,
-                                 extent=self.extent, kind=self.r_kind,
-                                 side="r", **opts))
-        if self.approx_s is None:
-            self.approx_s = (self._wrap(pre_s, self.s_kind)
-                             if pre_s is not None else self.filter.build(
-                                 self.S, n_order=self.n_order,
-                                 extent=self.extent, kind=self.s_kind,
-                                 side="s", **opts))
+        with BUILD_STAGES.record() as stages:
+            if self.approx_r is None:
+                self.approx_r = (self._wrap(pre_r, self.r_kind)
+                                 if pre_r is not None else self.filter.build(
+                                     self.R, n_order=self.n_order,
+                                     extent=self.extent, kind=self.r_kind,
+                                     side="r", **opts))
+            if self.approx_s is None:
+                self.approx_s = (self._wrap(pre_s, self.s_kind)
+                                 if pre_s is not None else self.filter.build(
+                                     self.S, n_order=self.n_order,
+                                     extent=self.extent, kind=self.s_kind,
+                                     side="s", **opts))
         self._t_build += time.perf_counter() - t0
+        for k, v in stages.items():
+            self._build_stages[k] = self._build_stages.get(k, 0.0) + v
         return self
 
     # -- adaptive planning ---------------------------------------------------
@@ -339,6 +347,7 @@ class JoinPlan:
         stats.approx_bytes = (self.approx_r.size_bytes()
                               + self.approx_s.size_bytes())
         if self.pipeline_mode == "fused":
+            stats.extra["build_stages"] = dict(self._build_stages)
             results, stats = execute_fused(self, predicate, stats)
             self.last_stats = stats
             return results, stats

@@ -45,14 +45,16 @@ import torch
 
 from ..core import geometry
 from ..core.geometry import polygon_edges, segments_intersect, size_buckets
-from ..device import InputLog, check_backend_device, resolve_device, upload
+from ..device import (InputLog, StageClock, check_backend_device,
+                      resolve_device, upload)
 from ..kernels.refine import edges_intersect_csr, edges_intersect_csr_plain
 
 __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
            "refine", "refine_pair", "refine_pairs", "refine_pairs_seq",
            "refine_within_pairs", "refine_within_pairs_seq",
            "refine_line_poly_pairs", "refine_line_poly_pairs_seq",
-           "device_geometry", "fused_refine_lanes", "iter_pair_chunks"]
+           "device_geometry", "fused_refine_lanes", "iter_pair_chunks",
+           "JOIN_STAGES"]
 
 REFINE_BACKENDS = ("numpy", "torch", "cuda", "device64", "sequential")
 
@@ -797,6 +799,16 @@ def device_geometry(D, device, kind: str = "polygon") -> dict:
 #: device bytes budgeted for one chunk's [C, Va, Vb] temporaries in the
 #: fused refine
 _FUSED_CHUNK_BYTES = 2 << 30
+#: the fused chain's stages, spans ``join.*`` under a profiler: ``upload``
+#: (the copies made before the chain), ``mbr`` (children ``candidates``,
+#: ``upload``), ``filter``, ``refine`` (``compact``, ``chunks``), ``sync``
+#: (``gather``, ``recheck``) and ``collect`` (the counts and pairs after
+#: the sync); and its counts ``refine_chunks`` and ``refine_chunk_rows``.
+#: It lives here, below ``fused.py``, because ``fused_refine_lanes`` times
+#: its chunks in it; ``fused.execute_fused`` records each join's into
+#: ``JoinStats``.
+JOIN_STAGES = StageClock("join")
+
 #: bytes of eager temporaries per (a edge, b edge) couple, counted from the
 #: float64 and bool [C, Va, Vb] tensors alive at once in _segments_intersect
 _BYTES_PER_COUPLE = 160
@@ -833,7 +845,9 @@ def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device,
     frame is walked and rows past ``count`` are masked out, as the
     reference's ``take`` does; the reference also skips the dead chunks,
     which needs the count on the host or a device branch. Chunking is
-    row-wise, so the chunk size changes no verdict.
+    row-wise, so the chunk size changes no verdict. The loop is the stage
+    ``refine.chunks`` of ``JOIN_STAGES``, which counts the chunks it walks
+    (``refine_chunks``) and their rows (``refine_chunk_rows``).
     """
     kind = {"intersects": "intersects", "selection": "intersects",
             "within": "within", "linestring": "line"}.get(predicate)
@@ -848,11 +862,14 @@ def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device,
     unc = torch.zeros(N, dtype=torch.bool, device=dev)
     Va, Vb = geom_r["verts"].shape[1], geom_s["verts"].shape[1]
     C = _chunk_rows(Va, Vb)
-    for c0 in range(0, N, C):
-        idx = perm[c0:c0 + C].to(torch.int64)
-        take = torch.arange(c0, c0 + idx.numel(), device=dev) < count
-        v, u = _core_lanes(kind, geom_r, geom_s, ri_dev[idx], si_dev[idx],
-                           Va, Vb)
-        res[c0:c0 + idx.numel()] = v & take
-        unc[c0:c0 + idx.numel()] = u & take
+    with JOIN_STAGES.stage("refine.chunks"):
+        for c0 in range(0, N, C):
+            idx = perm[c0:c0 + C].to(torch.int64)
+            take = torch.arange(c0, c0 + idx.numel(), device=dev) < count
+            v, u = _core_lanes(kind, geom_r, geom_s, ri_dev[idx],
+                               si_dev[idx], Va, Vb)
+            res[c0:c0 + idx.numel()] = v & take
+            unc[c0:c0 + idx.numel()] = u & take
+            JOIN_STAGES.count("refine_chunks")
+    JOIN_STAGES.count("refine_chunk_rows", C)
     return res, unc
