@@ -47,8 +47,12 @@ reference package. Phases, any failure exits non-zero:
    against its plain version on each recorded call; the trichotomy kernel
    on each fused run's whole frame
    (the status lane the run wrote must equal the plain version under its
-   ``valid`` lane), and the compaction kernel against its plain version
-   and the argsort oracle on each fused run's INDECISIVE lane;
+   ``valid`` lane), the compaction kernel against its plain version
+   and the argsort oracle on each fused run's INDECISIVE lane, and the
+   fused refine kernel (B7) against the eager float64 cores on each fused
+   run's chain, both lanes bit for bit, its own count of the rows it
+   refined equal to the live prefix; each fused run makes one B7 launch
+   (in every run of the script, one a compaction);
 5. the RI path, ``JoinPlan(R, S, filter="ri", n_order=12)`` on the same
    datasets: the RI build (host set-up, timed on its own line) and the
    port's numpy RI verdicts of every candidate; the ALIGNEDAND kernel
@@ -99,7 +103,10 @@ reference package. Phases, any failure exits non-zero:
    kernel over the main frame (AA), and as the degenerate order launches
    it (AA over the frame, AF over the AA survivors) with the bound of both
    launches; after the frames' list widths (mean, p99 and max of nx + ny
-   a join, read on the card);
+   a join, read on the card); B7 on the fused numpy-MBR run's chain,
+   beside the eager cores (``plain_ms``) and its float64 bound (every
+   couple walked, at 34 TFLOP/s; phases 10 and 11 add its within,
+   selection and linestring rows);
 10. (run after phase 8, before phase 9) the ``within`` and ``selection``
    joins and the staged float64 device refine: APRIL within, water bodies
    T2 (phase 4's S and its store, through ``JoinPlan.build(prebuilt=...)``)
@@ -386,6 +393,12 @@ import numpy as np
 #: published H100 SXM peaks (NVIDIA data sheet) for the roofline bounds
 HBM_BYTES_PER_S = 3.35e12
 F32_OPS_PER_S = 67e12
+#: the non-tensor float64 peak, B7's bound
+F64_OPS_PER_S = 34e12
+#: float64 operations of B7: per (a edge, b edge) couple, four guarded
+#: orientations; per (point, edge) term of a point-in-polygon test
+REFINE_OPS_PER_COUPLE = 44
+REFINE_OPS_PER_PIP = 15
 #: the bf16 tensor-core peak, the least time the attention could take
 BF16_OPS_PER_S = 989e12
 #: float32 operations per (a edge, b edge) couple of the sweep: 4 x 7 for
@@ -399,7 +412,7 @@ REPS = 5
 PORT_KERNELS = ("april_trichotomy_kernel", "interval_overlap_kernel",
                 "edges_intersect_kernel", "compact_mask_kernel",
                 "ri_trichotomy_kernel", "april_attention_kernel",
-                "april_attention_tc_kernel")
+                "april_attention_tc_kernel", "fused_refine_kernel")
 #: profiler sessions taken before a kernel that a trace must name counts
 #: as absent (``_profile_showing``)
 PROFILE_TRIES = 5
@@ -679,6 +692,18 @@ def _profile_showing(label, fn, kernel, launches=None) -> dict:
 def _reset(wrappers) -> None:
     for fn in wrappers:
         fn.launches = 0
+
+
+def _launched(label, wrappers) -> dict:
+    """The launch counts of ``wrappers`` by name, read after a run. A fused
+    chain with the ``cuda`` refine compacts its INDECISIVE rows once (B3)
+    and refines them in one launch (B7), so the two counts must match."""
+    got = {fn.__name__: fn.launches for fn in wrappers}
+    b3, b7 = got.get("compact_mask", 0), got.get("fused_refine_rows", 0)
+    if b3 != b7:
+        raise AssertionError(f"[{label}] {b7} fused_refine launches for {b3} "
+                             f"compactions, not one a fused cuda chain")
+    return got
 
 
 def _same_run(label, res, st, want, want_st) -> None:
@@ -966,6 +991,84 @@ def _compact_checked(label, m) -> int:
     return int(kc)
 
 
+def _refine_checked(label, R, S, cs, predicate) -> dict:
+    """B7 on a fused run's recorded chain: the INDECISIVE lane the run's
+    compaction was given, compacted again by B3, then the kernel's (res,
+    unc) lanes against its plain version (the eager cores,
+    ``fused_refine_lanes(kernel=False)``) on the card, bit for bit, and
+    its own count of the rows it refined against ``count``. Returns the
+    call's arguments and plain version, for timing, with the rows, couples,
+    operations and bytes of its bound (every couple walked, each row's
+    rings read once)."""
+    import torch
+    from repro_torch.core.join import INDECISIVE
+    from repro_torch.kernels.compact import compact_mask
+    from repro_torch.kernels.fused_refine import fused_refine_rows
+    from repro_torch.spatial import refine as RF
+    dev = cs.ri_dev.device
+    kind = {"selection": "intersects", "linestring": "line"}.get(predicate,
+                                                                 predicate)
+    perm, count = compact_mask(cs.status == INDECISIVE)
+    geom_r = RF.device_geometry(R, dev, kind="line" if kind == "line"
+                                else "polygon")
+    geom_s = RF.device_geometry(S, dev)
+    args = (kind, geom_r, geom_s, cs.ri_dev, cs.si_dev, perm, count)
+    res, unc, refined = fused_refine_rows(*args)
+
+    def plain():
+        return RF.fused_refine_lanes(R, S, cs.ri_dev, cs.si_dev, perm, count,
+                                     dev, predicate, kernel=False)
+
+    want_res, want_unc = plain()
+    torch.cuda.synchronize()
+    n = int(count)
+    diff = int((res != want_res).sum()) + int((unc != want_unc).sum())
+    if diff:
+        raise AssertionError(f"[{label}] fused_refine kernel != the eager "
+                             f"cores on {diff} lanes of the run's {n} "
+                             f"INDECISIVE rows")
+    if int(refined) != n:
+        raise AssertionError(f"[{label}] fused_refine counted {int(refined)} "
+                             f"rows refined, not the {n} live")
+    idx = perm[:n].to(torch.int64)
+    na = geom_r["nverts"][cs.ri_dev[idx]].to(torch.float64)
+    nb = geom_s["nverts"][cs.si_dev[idx]].to(torch.float64)
+    couples = int((((na - 1) if kind == "line" else na) * nb).sum())
+    pip = int({"intersects": na + nb, "within": na * nb,
+               "line": nb}[kind].sum())
+    ops = REFINE_OPS_PER_COUPLE * couples + REFINE_OPS_PER_PIP * pip
+    # both rings, perm, ri and si, both nverts, the reps, two lane bytes
+    nbytes = int(16 * (na + nb).sum()) + n * (
+        4 + 16 + 16 + 2 + (32 if kind == "intersects" else 0))
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / F64_OPS_PER_S
+    print(f"[{label}] fused_refine kernel == eager cores (res and unc) on "
+          f"all {len(cs)} rows, {n} live ({int(res.sum())} res, "
+          f"{int(unc.sum())} unc), its count of rows refined == {n}; "
+          f"tolerance: exact", flush=True)
+    return {"args": args, "plain": plain, "rows": n, "frame": len(cs),
+            "couples": couples, "ops": ops, "bytes": nbytes,
+            "bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "max_abs_err": diff}
+
+
+def _refine_times(prefix, chk) -> dict:
+    """B7 at a run's chain (``_refine_checked``): CUDA events a wrapper
+    call, on the device alone, its plain version, beside its bound; keys
+    prefixed with ``prefix``."""
+    from repro_torch.kernels.fused_refine import fused_refine_rows
+    args = chk["args"]
+    return {f"{prefix}_rows": chk["rows"],
+            f"{prefix}_frame_rows": chk["frame"],
+            f"{prefix}_couples": chk["couples"],
+            f"{prefix}_ms": _ms(lambda: fused_refine_rows(*args)),
+            f"{prefix}_device_ms": _device_ms(
+                lambda: fused_refine_rows(*args)),
+            f"{prefix}_plain_ms": _ms(chk["plain"]),
+            f"{prefix}_bound_ms": chk["bound_ms"],
+            f"{prefix}_bound_by": chk["bound_by"]}
+
+
 def _replayed(label, joins, sweeps, chains, frames=()) -> str:
     """B1 and B4 on every call a run's interval joins made, B2 on every
     sweep its refine made, B3 on the INDECISIVE lane of every fused chain
@@ -1032,7 +1135,7 @@ class _Runs:
     def __init__(self, args, dev, smi, wrappers):
         self.args, self.dev, self.smi = args, dev, smi
         self.wrappers = wrappers
-        self.launches = {}
+        self.launches, self.refined = {}, {}
 
     def run(self, label, predicate, R_, S_, pre_, replay=True, **opts):
         """One join; returns (plan, pairs, stats, recorded inputs: the
@@ -1054,8 +1157,7 @@ class _Runs:
             res, st = p.execute(predicate)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        self.launches[label] = {fn.__name__: fn.launches
-                                for fn in self.wrappers}
+        self.launches[label] = _launched(label, self.wrappers)
         print(f"[{label}] {wall:.2f} s; launches "
               f"{json.dumps(self.launches[label])}; candidates "
               f"{st.n_candidates}, TRUE_HIT/TRUE_NEG/INDECISIVE "
@@ -1091,9 +1193,10 @@ class _Runs:
 
     def fused_checked(self, label, p, rec, predicate):
         """A fused run's chain: its stages again under
-        ``set_sync_debug_mode("error")``, and the status lane it wrote
-        against the filter's plain lane over its frame, under its valid
-        lane. Returns the chain."""
+        ``set_sync_debug_mode("error")``, the status lane it wrote against
+        the filter's plain lane over its frame, under its valid lane, and
+        B7 against its plain version on the chain (``_refine_checked``,
+        kept in ``refined`` by label). Returns the chain."""
         import torch
         from repro_torch.core.join import TRUE_NEG
         (cs,) = rec[2]
@@ -1111,6 +1214,7 @@ class _Runs:
         print(f"[{label}] stages passed set_sync_debug_mode('error'); status "
               f"lane == the plain lane over all {len(cs)} frame rows; "
               f"tolerance: exact", flush=True)
+        self.refined[label] = _refine_checked(label, p.R, p.S, cs, predicate)
         return cs
 
     def by(self, label_prefix, name):
@@ -1183,7 +1287,7 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
                                   pipeline_mode="fused", mbr_backend="torch")
         _same_run(label, res, st, want, want_st)
         need(label, interval_overlap=1, compact_mask=1,
-             edges_intersect_csr=0)
+             fused_refine_rows=1, edges_intersect_csr=0)
         cs = fused_checked(label, p, rec, "within")
         if mb == "numpy":
             # the within AA call and the INDECISIVE lane, timed below
@@ -1205,7 +1309,7 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
         _same_run(label, res, st, want_q, want_q_st)
         if "fused" in label:
             need(label, april_trichotomy=1, compact_mask=1,
-                 edges_intersect_csr=0)
+                 fused_refine_rows=1, edges_intersect_csr=0)
             fused_checked(label, p, rec, "selection")
         else:
             need(label, april_trichotomy=True,
@@ -1287,6 +1391,11 @@ def _within_phase(args, dev, R, S, plan, want_default, want_default_st,
             "within_device_ms": _device_ms(lambda: compact_mask(ind))},
         "april_trichotomy": {
             "launches_selection": by("selection", "april_trichotomy")},
+        "fused_refine": {
+            "launches_within": by("within", "fused_refine_rows"),
+            "launches_selection": by("selection", "fused_refine_rows"),
+            **_refine_times("within", runs.refined["within-fused-numpy"]),
+            **_refine_times("selection", runs.refined["selection-fused"])},
     }
     print(f"within kernels on the device alone (card {smi}): "
           f"{json.dumps(extra)}", flush=True)
@@ -1378,7 +1487,8 @@ def _linestring_phase(args, dev, S, plan, ri_s, wrappers, builds) -> dict:
                                   pipeline_mode="fused", mbr_backend="torch",
                                   **line)
         _same_run(label, res, st, want, want_st)
-        need(label, interval_overlap=2, compact_mask=1, edges_intersect_csr=0)
+        need(label, interval_overlap=2, compact_mask=1, fused_refine_rows=1,
+             edges_intersect_csr=0)
         cs = runs.fused_checked(label, p, rec, "linestring")
         if mb == "numpy":
             # the fused run's two B4 calls and its INDECISIVE lane, timed
@@ -1482,6 +1592,10 @@ def _linestring_phase(args, dev, S, plan, ri_s, wrappers, builds) -> dict:
         "exclusive_scan": {
             "launches_linestring": by("compact_mask"),
             "linestring_device_ms": _device_ms(lambda: compact_mask(ind))},
+        "fused_refine": {
+            "launches_linestring": by("fused_refine_rows"),
+            **_refine_times("linestring",
+                            runs.refined["line-fused-numpy"])},
         "ri_trichotomy": {
             "launches_linestring": by("ri_trichotomy"),
             "linestring_frame_rows": ri_frame[2].numel(),
@@ -1760,7 +1874,7 @@ def _construction_phase(args, dev, R, S, plan, ri_r, ri_s, want_default,
     t0 = time.perf_counter()
     res, st = e2e.execute("intersects")
     torch.cuda.synchronize()
-    launched = {fn.__name__: fn.launches for fn in wrappers}
+    launched = _launched("construction-e2e", wrappers)
     _same_run("construction-e2e", res, st, want_default, want_default_st)
     for name in ("april_trichotomy", "edges_intersect_csr"):
         if launched[name] <= 0:
@@ -1915,7 +2029,7 @@ def _service_phase(args, dev, R, S, plan, ri_s, wrappers) -> dict:
                                              SERVICE_SEED, first)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        launches[label] = _launched(label, wrappers)
         for name in need:
             if launches[label][name] <= 0:
                 raise AssertionError(f"[{label}] {name} never launched")
@@ -2338,7 +2452,7 @@ def _scaleout_phase(args, dev, want, wrappers) -> dict:
             out = fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[label] = {f.__name__: f.launches for f in wrappers}
+        launches[label] = _launched(label, wrappers)
         for name in need:
             if launches[label][name] <= 0:
                 raise AssertionError(f"[{label}] {name} never launched")
@@ -3877,6 +3991,7 @@ def main() -> int:
     from repro_torch.kernels import _build
     from repro_torch.kernels.compact import compact_mask, compact_mask_plain
     from repro_torch.kernels.compact import cases as compact_cases
+    from repro_torch.kernels.fused_refine import fused_refine_rows
     from repro_torch.kernels.interval_join import (
         april_trichotomy, april_trichotomy_plain, interval_overlap,
         interval_overlap_plain)
@@ -4001,8 +4116,8 @@ def main() -> int:
     # sweep's inputs are recorded from the path itself
     t_phase = time.perf_counter()
     wrappers = (april_trichotomy, interval_overlap, edges_intersect_csr,
-                compact_mask)
-    launches, results, stats, sweeps = {}, {}, {}, {}
+                compact_mask, fused_refine_rows)
+    launches, results, stats, sweeps, refined = {}, {}, {}, {}, {}
     for label, opts in (("default", {}),
                         ("degenerate", {"order": ("AA", "AF")})):
         _reset(wrappers)
@@ -4014,7 +4129,7 @@ def main() -> int:
             res, st = run.execute("intersects")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        launches[label] = _launched(label, wrappers)
         print(f"main path [{label}] {wall:.2f} s launches "
               f"{json.dumps(launches[label])}", flush=True)
         print(json.dumps(st.to_dict()), flush=True)
@@ -4041,7 +4156,7 @@ def main() -> int:
             res, st = run.execute("intersects")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        launches[label] = _launched(label, wrappers)
         print(f"main path [{label}] {wall:.2f} s; launches "
               f"{json.dumps(launches[label])}; t_mbr {st.t_mbr:.4f} s, "
               f"t_filter {st.t_filter:.4f} s, t_refine {st.t_refine:.4f} s, "
@@ -4058,6 +4173,12 @@ def main() -> int:
         stats[label] = st
         (cs,) = chains
         _sync_checked(run, label, cs.status)
+        if launches[label]["fused_refine_rows"] != 1:
+            raise AssertionError(f"[{label}] "
+                                 f"{launches[label]['fused_refine_rows']} "
+                                 f"fused_refine launches, not 1")
+        # B7 on the chain the run recorded, against the eager cores
+        refined[label] = _refine_checked(label, R, S, cs, "intersects")
         # B1 on the run's whole device frame, and B3 on the INDECISIVE lane
         # the run's compaction was given, against their plain versions
         got = april_trichotomy(*tri, cs.ri_dev, cs.si_dev)
@@ -4083,8 +4204,10 @@ def main() -> int:
         del cs, chains, got, want, wrote
     need = {"default": ("april_trichotomy", "edges_intersect_csr"),
             "degenerate": ("interval_overlap", "edges_intersect_csr"),
-            "fused-numpy": ("april_trichotomy", "compact_mask"),
-            "fused-torch": ("april_trichotomy", "compact_mask")}
+            "fused-numpy": ("april_trichotomy", "compact_mask",
+                            "fused_refine_rows"),
+            "fused-torch": ("april_trichotomy", "compact_mask",
+                            "fused_refine_rows")}
     for label, names in need.items():
         for name in names:
             if launches[label][name] <= 0:
@@ -4169,7 +4292,7 @@ def main() -> int:
             res, st = run.execute("intersects")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+        launches[label] = _launched(label, wrappers)
         print(f"main path [{label}] {wall:.2f} s; launches "
               f"{json.dumps(launches[label])}; t_mbr {st.t_mbr:.4f} s, "
               f"t_filter {st.t_filter:.4f} s, t_refine {st.t_refine:.4f} s, "
@@ -4255,7 +4378,7 @@ def main() -> int:
                 "intersects")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches[label] = {fn.__name__: fn.launches for fn in wrappers}
+            launches[label] = _launched(label, wrappers)
             print(f"[{label}] {wall:.2f} s; launches "
                   f"{json.dumps(launches[label])}; "
                   f"{json.dumps(st.to_dict())}", flush=True)
@@ -4342,6 +4465,10 @@ def main() -> int:
             _ms(lambda: ri_trichotomy(*ri_frame)),
             _ms(lambda: ri_trichotomy_plain(*ri_frame))),
     }
+    # B7 on the fused numpy-MBR run's chain, the eager cores beside it
+    b7 = refined["fused-numpy"]
+    timings["fused_refine"] = (_ms(lambda: fused_refine_rows(*b7["args"])),
+                               _ms(b7["plain"]))
     # the library calls that compute the scan's function (perm and count),
     # and the scan alone, which does no permutation and no scatter
     not_mask = (~indec_mask).to(torch.uint8)
@@ -4364,7 +4491,10 @@ def main() -> int:
         # a bool read and an int32 written per row, and the int32 count
         "exclusive_scan": (rows * 5 + 4, 0),
         "ri_trichotomy": (_ri_bound_bytes(*ri_frame), 0),
+        "fused_refine": (b7["bytes"], b7["ops"]),
     }
+    # B7's operations are float64
+    peak = {"fused_refine": F64_OPS_PER_S}
     errs = {
         "april_trichotomy": int((k_tri.int() - p_tri.int()).abs().max()),
         "interval_overlap": int((k_ov.int() - p_ov.int()).abs().max()),
@@ -4372,6 +4502,7 @@ def main() -> int:
         "exclusive_scan": max(int((k_perm - p_perm).abs().max()),
                               abs(int(k_count) - int(p_count))),
         "ri_trichotomy": int((k_ri.int() - p_ri.int()).abs().max()),
+        "fused_refine": b7["max_abs_err"],
     }
     meta = {
         "april_trichotomy": ("src/repro_torch/csrc/interval_join.cu",
@@ -4389,9 +4520,14 @@ def main() -> int:
         "ri_trichotomy": ("src/repro_torch/csrc/ri_and.cu",
                           "src/repro/kernels/ri_and/ri_and.py:69",
                           "ri-staged"),
+        "fused_refine": ("src/repro_torch/csrc/fused_refine.cu",
+                         "none: the reference's fused refine is jnp "
+                         "(src/repro/spatial/refine.py _intersects_impl_jnp)",
+                         "fused-numpy"),
     }
     counter = {"exclusive_scan": "compact_mask",
-               "edges_intersect": "edges_intersect_csr"}
+               "edges_intersect": "edges_intersect_csr",
+               "fused_refine": "fused_refine_rows"}
     sweep_device_ms = _device_ms(lambda: edges_intersect_csr(*sw))
     extra = {"edges_intersect": {"device_ms": sweep_device_ms},
              **_interval_join_times(tri, (ri_all, si_all), (ri_aa, si_aa),
@@ -4406,7 +4542,12 @@ def main() -> int:
                  "ms_torch_mbr_frame": _ms(lambda: ri_trichotomy(
                      *ri_torch_frame)),
                  "device_ms_torch_mbr_frame": _device_ms(
-                     lambda: ri_trichotomy(*ri_torch_frame))}}
+                     lambda: ri_trichotomy(*ri_torch_frame))},
+             "fused_refine": {
+                 "device_ms": _device_ms(
+                     lambda: fused_refine_rows(*b7["args"])),
+                 "rows": b7["rows"], "frame_rows": b7["frame"],
+                 "couples": b7["couples"]}}
     # B5 by the staged frame's verdict class: full merges without overlap,
     # merges to the first hit, full merges that AND every fragment
     by_class = {}
@@ -4425,7 +4566,7 @@ def main() -> int:
     for name, (source, replaces, run_label) in meta.items():
         nbytes, ops = bounds[name]
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / F32_OPS_PER_S * 1e3
+        t_ops = ops / peak.get(name, F32_OPS_PER_S) * 1e3
         ms, plain_ms = timings[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -96,11 +96,13 @@ class StageClock:
 
     Inside a ``record()`` block, each ``stage(name)`` block adds its wall
     seconds to ``name``, and each ``count(name, n)`` adds ``n`` to
-    ``name``, in the dict the block yields. Blocks nest, and every block
-    open on the thread receives them; a block sees only its own thread's
-    stages and counts. While a ``torch.profiler`` session records, a stage
-    is also the span ``f"{prefix}.{name}"`` of the profiler's trace, on
-    its clock beside the device's kernels; a dotted name is a child of the
+    ``name``, in the dict the block yields (``n`` may be a count kept on
+    the device, a tensor, which the caller reads back with its own copy).
+    Blocks nest, and every block open on the thread receives them; a block
+    sees only its own thread's stages and counts. While a
+    ``torch.profiler`` session records, a stage is also the span
+    ``f"{prefix}.{name}"`` of the profiler's trace, on its clock beside the
+    device's kernels; a dotted name is a child of the
     stage that encloses it (``stage("refine.chunks")`` inside
     ``stage("refine")``). With neither on, a stage does nothing. A device
     pass that reads its result back is timed to its end; one that does not

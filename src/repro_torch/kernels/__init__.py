@@ -8,4 +8,8 @@ Each kernel package ships three pieces:
                        current stream, a ``launches`` counter;
   ``ref.py``         — the plain PyTorch version, which the wrapper runs
                        for CPU tensors and the tests compare against.
+
+``fused_refine`` (B7) replaces no TPU kernel (the reference's fused refine
+is jnp); its plain version is the eager chunk loop of
+``spatial.refine.fused_refine_lanes``, which dispatches between the two.
 """

@@ -28,12 +28,13 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC"]
 
-#: library name -> (source file, extra nvcc flags). The edge sweep is built
-#: without multiply-add contraction so that its float lanes equal the
-#: plain PyTorch version bit for bit.
+#: library name -> (source file, extra nvcc flags). The edge sweep and the
+#: fused refine are built without multiply-add contraction so that their
+#: lanes equal the plain PyTorch versions bit for bit.
 SOURCES = {
     "interval_join": ("interval_join.cu", []),
     "refine": ("refine.cu", ["-fmad=false"]),
+    "fused_refine": ("fused_refine.cu", ["-fmad=false"]),
     "compact": ("compact.cu", []),
     "ri_and": ("ri_and.cu", []),
     "april_attention": ("april_attention.cu", []),

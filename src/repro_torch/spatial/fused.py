@@ -46,12 +46,20 @@ def check_pipeline_mode(mode: str) -> None:
 
 
 def to_host(*lanes: torch.Tensor) -> tuple[np.ndarray, ...]:
-    """The chain's one device -> host copy: the [N] int8/bool lanes are
-    packed into one uint8 [k, N] tensor, copied once and split again.
-    Returns numpy arrays of the lanes' own dtypes."""
-    packed = torch.stack([t.to(torch.uint8) for t in lanes]).cpu().numpy()
-    return tuple(row.astype(np.int8) if t.dtype == torch.int8
-                 else row.astype(bool) for row, t in zip(packed, lanes))
+    """The chain's one device -> host copy: the int8/bool lanes, a byte a
+    row, and int64 tensors (counts kept on the device), by their bytes,
+    are packed into one uint8 tensor, copied once and split again.
+    Returns flat numpy arrays of the lanes' own dtypes."""
+    parts = [t.reshape(-1).view(torch.uint8) if t.dtype == torch.int64
+             else t.reshape(-1).to(torch.uint8) for t in lanes]
+    packed = torch.cat(parts).cpu().numpy()
+    out, at = [], 0
+    for t, p in zip(lanes, parts):
+        row, at = packed[at:at + p.numel()], at + p.numel()
+        out.append(row.view(np.int64) if t.dtype == torch.int64
+                   else row.astype(np.int8) if t.dtype == torch.int8
+                   else row.astype(bool))
+    return tuple(out)
 
 
 _CHAINS = InputLog()
@@ -159,13 +167,14 @@ def refine_lanes(cs: CandidateSet, R, S, dev: torch.device,
     """The filter -> refine boundary and the refinement of ``cs``: the
     INDECISIVE rows of ``cs.status`` compacted on the device (the scan
     kernel when ``kernel``, else its plain version), the predicate's
-    float64 core over the packed prefix (``refine.fused_refine_lanes``),
-    scattered back to ``cs.hit`` (TRUE_HIT rows included) and ``cs.unc``."""
+    float64 core over the packed prefix (``refine.fused_refine_lanes``: the
+    B7 kernel when ``kernel``, else its plain version), scattered back to
+    ``cs.hit`` (TRUE_HIT rows included) and ``cs.unc``."""
     compact = compact_mask if kernel else compact_mask_plain
     with JOIN_STAGES.stage("refine.compact"):
         perm, count = compact(cs.status == INDECISIVE)
     res, unc = RF.fused_refine_lanes(R, S, cs.ri_dev, cs.si_dev, perm, count,
-                                     dev, predicate)
+                                     dev, predicate, kernel=kernel)
     perm = perm.to(torch.int64)
     N = len(cs)
     hit_ref = torch.zeros(N, dtype=torch.bool, device=dev)
@@ -188,14 +197,15 @@ def build_stage_plan(plan, predicate: str) -> StagePlan:
     * ``filter`` — the filter's ``status_lane`` over the frame, with
       invalid rows set to TRUE_NEG.
     * ``refine`` — on-device compaction of the INDECISIVE lane
-      (``compact_mask``) and chunked float64 refinement of the packed
-      prefix (``refine.fused_refine_lanes``, the predicate's core:
-      intersection, containment, or for ``linestring`` chain x polygon
-      intersection), scattered back to frame lanes.
+      (``compact_mask``) and float64 refinement of the packed prefix
+      (``refine.fused_refine_lanes``, the predicate's core: intersection,
+      containment, or for ``linestring`` chain x polygon intersection),
+      scattered back to frame lanes.
 
     The ``"cuda"`` backends launch the kernels (the trichotomy kernel for
-    the status lane, the scan kernel for the compaction); the others run
-    their plain versions on the plan's device.
+    the status lane, the scan kernel for the compaction, the fused refine
+    kernel for the refinement); the others run their plain versions on the
+    plan's device.
     """
     dev = plan.device
     stage = JOIN_STAGES.stage
@@ -260,9 +270,13 @@ def execute_fused(plan, predicate: str, stats):
     float64 host re-check of the uncertain rows (their number is
     ``stats.extra["n_escalated"]``, the frame's ``stats.extra["n_frame"]``);
     the stage times are dispatch only. ``stats.extra`` also gets the
-    chain's counts: ``refine_chunks`` (the chunks the refine walked) of
+    chain's counts: ``refine_kernel_launches`` (launches of the fused
+    refine kernel: 1 a join with the ``cuda`` refine backend, else 0),
+    ``refine_chunks`` (the chunks the refine walked) of
     ``refine_chunk_rows`` rows and ``refine_chunks_live`` (those that hold
-    an INDECISIVE row, from the gathered status lane).
+    an INDECISIVE row, from the gathered status lane). The kernel's unit is
+    the row, and it counts the rows it refined on the card; that count
+    comes back in the gather.
     """
     stage = JOIN_STAGES.stage
     n_packed = 0
@@ -277,14 +291,18 @@ def execute_fused(plan, predicate: str, stats):
             stats.extra.update(n_frame=len(cs), n_escalated=0)
             if len(cs):
                 frame = np.stack([cs.ri, cs.si], axis=1)
+                walked = rec.get("refine_chunks")
+                on_card = torch.is_tensor(walked)
                 lanes = (cs.status, cs.hit, cs.unc)
                 if cs.valid is not None:
                     lanes += (cs.valid,)
                 with stage("sync.gather"):
-                    got = to_host(*lanes)
+                    got = to_host(*lanes, *((walked,) if on_card else ()))
                 status_h, hit_h, unc_h = got[:3]
                 valid_h = (got[3] if cs.valid is not None
                            else np.ones(len(cs), bool))
+                if on_card:
+                    rec["refine_chunks"] = int(got[-1][0])
                 with stage("sync.recheck"):
                     if unc_h.any():
                         hit_h[unc_h] = RF.refine(plan.R, plan.S,
@@ -308,6 +326,7 @@ def execute_fused(plan, predicate: str, stats):
     stats.t_sync = rec["sync"]
     C = rec.get("refine_chunk_rows", 0)
     stats.extra.update(
+        refine_kernel_launches=rec.get("refine_kernel_launches", 0),
         refine_chunks=rec.get("refine_chunks", 0), refine_chunk_rows=C,
         refine_chunks_live=-(-n_packed // C) if C else 0)
     if len(cs) == 0:

@@ -34,9 +34,11 @@ Backends (``refine_backend`` on ``JoinPlan``):
 Every backend is verdict-identical to ``sequential``.
 
 The fused chain refines on the device instead (:func:`fused_refine_lanes`):
-float64 PyTorch twins of the reference's jnp cores over a front-packed
-INDECISIVE prefix, with a guard band whose ``unc`` rows escalate to the
-host once, at the end of the chain.
+float64 cores over a front-packed INDECISIVE prefix, with a guard band
+whose ``unc`` rows escalate to the host once, at the end of the chain. With
+the ``cuda`` backend on the card they are one launch of the hand-written
+kernel (``kernels.fused_refine``, B7); otherwise the float64 PyTorch twins
+of the reference's jnp cores, in chunks.
 """
 from __future__ import annotations
 
@@ -47,6 +49,7 @@ from ..core import geometry
 from ..core.geometry import polygon_edges, segments_intersect, size_buckets
 from ..device import (InputLog, StageClock, check_backend_device,
                       resolve_device, upload)
+from ..kernels.fused_refine import fused_refine_rows
 from ..kernels.refine import edges_intersect_csr, edges_intersect_csr_plain
 
 __all__ = ["REFINE_BACKENDS", "check_refine_backend", "record_sweeps",
@@ -801,12 +804,13 @@ def device_geometry(D, device, kind: str = "polygon") -> dict:
 _FUSED_CHUNK_BYTES = 2 << 30
 #: the fused chain's stages, spans ``join.*`` under a profiler: ``upload``
 #: (the copies made before the chain), ``mbr`` (children ``candidates``,
-#: ``upload``), ``filter``, ``refine`` (``compact``, ``chunks``), ``sync``
-#: (``gather``, ``recheck``) and ``collect`` (the counts and pairs after
-#: the sync); and its counts ``refine_chunks`` and ``refine_chunk_rows``.
-#: It lives here, below ``fused.py``, because ``fused_refine_lanes`` times
-#: its chunks in it; ``fused.execute_fused`` records each join's into
-#: ``JoinStats``.
+#: ``upload``), ``filter``, ``refine`` (``compact``, then ``kernel`` or
+#: ``chunks``), ``sync`` (``gather``, ``recheck``) and ``collect`` (the
+#: counts and pairs after the sync); and its counts ``refine_chunks``
+#: (on the kernel path a device tensor), ``refine_chunk_rows`` and
+#: ``refine_kernel_launches``. It lives here,
+#: below ``fused.py``, because ``fused_refine_lanes`` times its refine in
+#: it; ``fused.execute_fused`` records each join's into ``JoinStats``.
 JOIN_STAGES = StageClock("join")
 
 #: bytes of eager temporaries per (a edge, b edge) couple, counted from the
@@ -833,21 +837,31 @@ def _core_lanes(kind, geom_r, geom_s, rr, ss, Va, Vb):
 
 
 def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device,
-                       predicate: str = "intersects"):
+                       predicate: str = "intersects", kernel: bool = False):
     """Device (res, unc) lanes [N] over a front-packed INDECISIVE prefix.
 
     ``perm``/``count`` come from ``compact_mask`` over the INDECISIVE lane
     of the frame ``ri_dev``/``si_dev``; the lanes are in the packed order
-    (scatter them back through ``perm``). ``predicate`` picks the core:
-    ``intersects`` and ``selection`` refine by intersection, ``within`` by
-    containment, ``linestring`` (R the chains) by chain x polygon
-    intersection. ``count`` stays on the device, so every chunk of the
-    frame is walked and rows past ``count`` are masked out, as the
-    reference's ``take`` does; the reference also skips the dead chunks,
-    which needs the count on the host or a device branch. Chunking is
-    row-wise, so the chunk size changes no verdict. The loop is the stage
-    ``refine.chunks`` of ``JOIN_STAGES``, which counts the chunks it walks
-    (``refine_chunks``) and their rows (``refine_chunk_rows``).
+    (scatter them back through ``perm``), rows past ``count`` False.
+    ``predicate`` picks the core: ``intersects`` and ``selection`` refine
+    by intersection, ``within`` by containment, ``linestring`` (R the
+    chains) by chain x polygon intersection. ``count`` stays on the device.
+
+    With ``kernel`` on a CUDA device the lanes come from one launch of the
+    B7 kernel (``kernels.fused_refine``), which reads ``count`` on the card
+    and walks only the live rows, each over its own rings: the stage
+    ``refine.kernel`` of ``JOIN_STAGES``, which counts the wrapper's
+    launches (``refine_kernel_launches``) and chunks of one row, its unit
+    (``refine_chunk_rows`` 1), as many as the kernel counted on the card
+    (``refine_chunks``, a device tensor that the chain's gather reads).
+    Otherwise (the CPU, or the ``torch`` backend) the plain version:
+    the eager cores over chunks of the whole frame, rows padded to the
+    widest ring and masked past ``count``, as the reference's ``take``
+    does; the reference also skips the dead chunks, which needs the count
+    on the host. Chunking is row-wise, so the chunk size changes no
+    verdict. The loop is the stage ``refine.chunks``, which counts the
+    chunks it walks (``refine_chunks``) and their rows
+    (``refine_chunk_rows``). Both give the same lanes bit for bit.
     """
     kind = {"intersects": "intersects", "selection": "intersects",
             "within": "within", "linestring": "line"}.get(predicate)
@@ -858,6 +872,16 @@ def fused_refine_lanes(R, S, ri_dev, si_dev, perm, count, device,
                              else "polygon")
     geom_s = device_geometry(S, dev)
     N = perm.numel()
+    if kernel and dev.type != "cpu":
+        n0 = fused_refine_rows.launches
+        with JOIN_STAGES.stage("refine.kernel"):
+            res, unc, refined = fused_refine_rows(kind, geom_r, geom_s,
+                                                  ri_dev, si_dev, perm, count)
+        JOIN_STAGES.count("refine_kernel_launches",
+                          fused_refine_rows.launches - n0)
+        JOIN_STAGES.count("refine_chunks", refined)
+        JOIN_STAGES.count("refine_chunk_rows", 1)
+        return res, unc
     res = torch.zeros(N, dtype=torch.bool, device=dev)
     unc = torch.zeros(N, dtype=torch.bool, device=dev)
     Va, Vb = geom_r["verts"].shape[1], geom_s["verts"].shape[1]
