@@ -43,14 +43,16 @@ def geometry(config: dict, g: int) -> dict:
         for side, spec in config["layers"].items()}}
 
 
-def reading(name: str, seed: int, device="cuda",
+def reading(name_or_spec, seed: int, device="cuda",
             config_overrides: dict | None = None, g: int = 0) -> dict:
-    """The controls' ``mismatched_pairs`` on cell ``name`` at ``seed``, on
-    the rings of geometry ``g``."""
+    """The controls' ``mismatched_pairs`` on a cell, named or given as a
+    spec (``harness.resolve``), at ``seed``, on the rings of geometry
+    ``g``."""
     import torch
     from joinbench import datagen, harness, reference
 
-    spec = harness.cell(name)
+    spec = harness.resolve(name_or_spec)
+    name = spec["name"]
     config = geometry({**spec["config_data"], **(config_overrides or {})}, g)
     predicate = spec["traffic_data"]["predicate"]
     (vr, nr), (vs, ns) = datagen.layers(config, seed).values()

@@ -1,10 +1,15 @@
-"""The benchmark's own copy of the seeded polygon generator.
+"""The benchmark's own copy of the seeded polygon and chain generators.
 
 A frozen copy of the program's ``make_dataset`` (star-shaped rings around
 16 shared cluster centres, statistics after the paper's TIGER layers), so
 that the data a cell joins stays the same whatever a later change does to
 the program's generator. For a given ``(name, seed, count)`` the arrays
-are bit-identical to the program's and the reference package's.
+are bit-identical to the program's and the reference package's. A layer
+whose ``kind`` is ``"line"`` holds open chains instead (roads, rivers):
+``make_chains``, a frozen copy of the program's ``make_linestrings``,
+bit-identical to it for a given ``(name, seed, count, avg_vertices,
+step)``, with the layer's ``avg_vertices`` and ``step`` (by default the
+program's 20 and 0.004).
 
 ``layers(config, seed)`` makes a cell's two layers: the geometry comes from
 the configuration's own data seeds, and ``--seed`` draws the order in which
@@ -14,7 +19,9 @@ another order.
 
 A configuration's map is ``tiles`` unit squares side by side along x, each
 drawn with its own cluster centres and data seeds at the configuration's
-count per square: more tiles are more area at the same density.
+count per square: more tiles are more area at the same density. Chains
+are tiled alike: tile ``t`` is drawn from the data seed plus
+``TILE_SEED_STEP * t`` and shifted by ``t`` along x.
 
 A configuration may add slivers: rings made from some rings of one layer
 and put into the other, whose answer against their source turns on a
@@ -30,6 +37,12 @@ float64, so the exact test decides it:
   with one such vertex set ``gap`` inside the source's own. Its MBR holds
   the source's, but that vertex of the source lies outside it in float64,
   and on its boundary in float32 (``within``).
+* ``graze``: a chain, put into a line layer, made from a ring of a
+  polygon layer: the ``mirror`` image of the source, opened into the
+  three-vertex chain of that vertex's image and its two neighbours, so
+  its two edges are as long as the source's edges about the vertex. It
+  passes ``gap`` beside the source's vertex in float64 and touches it in
+  float32 (``linestring``, the chain as R and the source as S).
 
 A sliver is kept only where the plain reference, in float64 and in
 float32, reads it so; the next ring is tried otherwise.
@@ -41,7 +54,8 @@ import zlib
 import numpy as np
 
 __all__ = ["DATASET_SPECS", "ENCLOSE_GROWTH", "TILE_SEED_STEP",
-           "make_layer", "slivers", "layers"]
+           "SLIVER_PREDICATE", "CHAIN_DEFAULTS", "make_layer", "make_chains",
+           "slivers", "layers"]
 
 #: how much an ``enclose`` sliver is grown about its source's centre
 ENCLOSE_GROWTH = 0.02
@@ -49,7 +63,11 @@ ENCLOSE_GROWTH = 0.02
 #: ``d + TILE_SEED_STEP * t`` and cluster centres ``t``
 TILE_SEED_STEP = 100
 #: the predicate each sliver kind turns on
-SLIVER_PREDICATE = {"mirror": "intersects", "enclose": "within"}
+SLIVER_PREDICATE = {"mirror": "intersects", "enclose": "within",
+                    "graze": "linestring"}
+#: a line layer's chain parameters where it gives none: the program's
+#: ``make_linestrings`` defaults
+CHAIN_DEFAULTS = {"avg_vertices": 20, "step": 0.004}
 
 # name -> (count, avg_vertices, avg_radius, radius_jitter)
 DATASET_SPECS: dict[str, tuple[int, int, float, float]] = {
@@ -104,6 +122,41 @@ def make_layer(name: str, seed, count: int, map_seed: int = 0):
     return verts, nvs
 
 
+def make_chains(name: str, seed, count: int, avg_vertices: int = 20,
+                step: float = 0.004):
+    """(verts [P, Vmax, 2] float64, nverts [P] int64) of ``count``
+    random-walk open chains, drawn from ``seed``: at least 2 vertices
+    each, every step clamped into the unit square."""
+    rng = np.random.default_rng(zlib.crc32(f"{name}:{seed}".encode()))
+    nvs = np.clip(rng.poisson(avg_vertices, size=count), 2,
+                  None).astype(np.int64)
+    verts = np.zeros((count, int(nvs.max()), 2), dtype=np.float64)
+    for i in range(count):
+        start = rng.uniform(0.05, 0.95, size=2)
+        heading = rng.uniform(0, 2 * np.pi)
+        pts = [start]
+        for _ in range(int(nvs[i]) - 1):
+            heading += rng.normal(0, 0.6)
+            nxt = pts[-1] + step * np.array([np.cos(heading),
+                                             np.sin(heading)])
+            pts.append(np.clip(nxt, 1e-6, 1 - 1e-6))
+        verts[i, : nvs[i]] = np.asarray(pts)
+    return verts, nvs
+
+
+def _draw(spec: dict, seed, count: int, map_seed: int):
+    """One tile of a layer: (verts, nverts, centres) of rings, or (verts,
+    nverts) of chains where the layer's ``kind`` is ``"line"``."""
+    kind = spec.get("kind", "polygon")
+    if kind not in ("polygon", "line"):
+        raise ValueError(f"unknown layer kind {kind!r}")
+    if kind == "line":
+        return make_chains(spec["dataset"], seed, count,
+                           **{k: spec.get(k, v)
+                              for k, v in CHAIN_DEFAULTS.items()})
+    return _rings(spec["dataset"], seed, count, map_seed)
+
+
 def _concat(parts):
     """Padded ring sets (verts, nverts, ...) as one, padded to the
     widest."""
@@ -116,25 +169,25 @@ def _concat(parts):
 
 
 def _tiled(spec: dict, count: int, tiles: int):
-    """A layer of ``count`` rings over ``tiles`` unit squares along x."""
+    """A layer of ``count`` objects over ``tiles`` unit squares along x."""
     if count % tiles:
-        raise ValueError(f"{count} rings do not split over {tiles} tiles")
+        raise ValueError(f"{count} objects do not split over {tiles} tiles")
     parts = []
     for t in range(tiles):
-        v, n, c = _rings(spec["dataset"],
-                         spec["data_seed"] + TILE_SEED_STEP * t,
+        v, n, *c = _draw(spec, spec["data_seed"] + TILE_SEED_STEP * t,
                          count // tiles, map_seed=t)
         if t:
             v = np.where(np.arange(v.shape[1])[None, :, None]
                          < n[:, None, None], v + [t, 0.0], 0.0)
-            c = c + [t, 0.0]
-        parts.append((v, n, c))
+            c = [x + [t, 0.0] for x in c]
+        parts.append((v, n, *c))
     return _concat(parts)
 
 
 def _answers(a, b, predicate: str, dtype) -> tuple[bool, bool]:
-    """(an MBR candidate, the exact predicate) of rings ``a`` and ``b``
-    ([V, 2] each) by the plain reference in ``dtype``."""
+    """(an MBR candidate, the exact predicate) of ``a`` as R and ``b`` as S
+    ([V, 2] each: rings, or under ``linestring`` a chain and a ring) by
+    the plain reference in ``dtype``."""
     import torch
 
     from . import reference
@@ -156,6 +209,9 @@ def _sliver(ring, centre, k: int, kind: str, gap: float):
     u = u / np.hypot(*u)
     if kind == "mirror":
         return 2.0 * (ring[k] + gap * u) - ring
+    if kind == "graze":
+        return _sliver(ring, centre, k, "mirror", gap)[
+            np.arange(k - 1, k + 2) % len(ring)]
     grown = centre + (1.0 + ENCLOSE_GROWTH) * (ring - centre)
     grown[k] = ring[k] - gap * u
     return grown
@@ -185,7 +241,8 @@ def slivers(layer, kind: str, count: int, gap: float, seed, bounds):
     predicate = SLIVER_PREDICATE[kind]
     verts, nverts, centres = layer
     rng = np.random.default_rng(seed)
-    out_v = np.zeros((count, verts.shape[1], 2), np.float64)
+    width = 3 if kind == "graze" else verts.shape[1]
+    out_v = np.zeros((count, width, 2), np.float64)
     out_n = np.zeros(count, np.int64)
     k = 0
     for i in rng.permutation(len(nverts)):
@@ -200,13 +257,15 @@ def slivers(layer, kind: str, count: int, gap: float, seed, bounds):
         if ((sl.min(axis=0) <= np.array(bounds[:2]) + 1e-6).any()
                 or (sl.max(axis=0) >= np.array(bounds[2:]) - 1e-6).any()):
             continue
-        # the source as R and the sliver as S: (candidate, answer)
-        if (_answers(ring, sl, predicate, torch.float64) != (True, False)
-                or _answers(ring, sl, predicate, torch.float32)
+        # (candidate, answer), the source as R and the sliver as S; a
+        # graze chain is R, its source S
+        pair = (sl, ring) if kind == "graze" else (ring, sl)
+        if (_answers(*pair, predicate, torch.float64) != (True, False)
+                or _answers(*pair, predicate, torch.float32)
                 != (True, True)):
             continue
-        out_v[k, : nverts[i]] = sl
-        out_n[k] = nverts[i]
+        out_v[k, : len(sl)] = sl
+        out_n[k] = len(sl)
         k += 1
     if k < count:
         raise ValueError(f"only {k} of {count} {kind} slivers fit")

@@ -32,7 +32,8 @@ import numpy as np
 from . import datagen, reference
 
 __all__ = ["HERE", "ROOT", "FORBIDDEN", "LIMITS", "TRACED_JOINS", "Context",
-           "load_benchmark", "cell", "metric_names", "load_metric",
+           "load_benchmark", "cell", "resolve", "metric_names",
+           "load_metric",
            "forbidden_modules", "run_cell", "mismatch", "result_line",
            "check_lines"]
 
@@ -59,7 +60,8 @@ class Context:
     stats: list = field(default_factory=list)   # JoinStats dicts, window
     trace: dict | None = None                    # trace.reduce of a stretch
     frame: dict | None = None      # n_rows, r_objects, s_objects
-    lists: dict | None = None      # side -> "A"/"F" -> interval counts
+    lists: dict | None = None      # side -> "A"/"F" (rings) or "C"
+    #                                (chains) -> interval counts
 
 
 def load_benchmark() -> dict:
@@ -126,6 +128,7 @@ def _plan(config: dict, layers: dict, device):
     S = PolygonDataset(config["layers"]["s"]["dataset"], *layers["s"])
     return JoinPlan(R, S, filter=config["filter"], n_order=config["n_order"],
                     extent=Extent(*config["extent"]),
+                    r_kind=config["layers"]["r"].get("kind", "polygon"),
                     filter_backend=config["filter_backend"],
                     refine_backend=config["refine_backend"],
                     mbr_backend=config["mbr_backend"],
@@ -135,7 +138,11 @@ def _plan(config: dict, layers: dict, device):
 
 
 def _lens(store) -> dict:
-    return {"A": np.diff(store.a_off), "F": np.diff(store.f_off)}
+    """Per-object interval counts of a store: a chain's unit-cell list
+    ``"C"`` (``LineCellStore``), or a ring's ``"A"`` and ``"F"`` lists."""
+    if hasattr(store, "a_off"):
+        return {"A": np.diff(store.a_off), "F": np.diff(store.f_off)}
+    return {"C": np.diff(store.off)}
 
 
 def _sync(dev) -> None:
@@ -144,19 +151,29 @@ def _sync(dev) -> None:
         torch.cuda.synchronize(dev)
 
 
-def run_cell(name: str, seed: int, seconds: float, trace: bool, *,
+def resolve(name_or_spec, bench: dict | None = None) -> dict:
+    """A cell spec: the dict :func:`cell` returns for a workload's name,
+    or such a dict itself (a configuration run before it is a cell)."""
+    if isinstance(name_or_spec, dict):
+        return name_or_spec
+    return cell(name_or_spec, bench)
+
+
+def run_cell(name_or_spec, seed: int, seconds: float, trace: bool, *,
              t0: float | None = None, device="cuda",
              config_overrides: dict | None = None,
              bench: dict | None = None) -> dict:
-    """Run cell ``name`` once; returns the result (see
-    :func:`result_line`) with ``checks`` last. ``t0`` is the process's
-    start on ``time.perf_counter``'s clock. ``device`` and
-    ``config_overrides`` let the CPU tests run a cell at a small size."""
+    """Run a cell once, named or given as a spec (see :func:`resolve`);
+    returns the result (see :func:`result_line`) with ``checks`` last.
+    ``t0`` is the process's start on ``time.perf_counter``'s clock.
+    ``device`` and ``config_overrides`` let the CPU tests run a cell at a
+    small size."""
     import torch
 
     t0 = time.perf_counter() if t0 is None else t0
     bench = bench or load_benchmark()
-    spec = cell(name, bench)
+    spec = resolve(name_or_spec, bench)
+    name = spec["name"]
     config = {**spec["config_data"], **(config_overrides or {})}
     predicate = spec["traffic_data"]["predicate"]
     dev = torch.device(device)

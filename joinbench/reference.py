@@ -11,6 +11,10 @@ edge against edge, in blocks of pairs. Closed-region semantics:
   the boundaries are known to be apart.
 * ``within``: every vertex of r lies in the closed s, and no edge of r
   crosses an edge of s properly.
+* ``linestring``: r is an open chain (its n vertices make n - 1 edges,
+  none closing it) and s a ring. Some edge of the chain crosses or
+  touches an edge of the ring, or the chain's first vertex lies in the
+  closed ring. MBR candidates as for ``intersects``.
 
 ``dtype`` is the precision of every coordinate and sign test: float64 is
 the reference, float32 the control one precision below it, either
@@ -26,7 +30,7 @@ import torch
 __all__ = ["PREDICATES", "mbr_candidates", "exact", "candidates_and_answers",
            "join", "pair_keys"]
 
-PREDICATES = ("intersects", "selection", "within")
+PREDICATES = ("intersects", "selection", "within", "linestring")
 
 #: (pair, edge, edge) couples held at once by a block of the exact test
 COUPLES_PER_BLOCK = 1 << 24
@@ -83,6 +87,12 @@ def _ring(verts, nverts):
     return verts, ends, valid
 
 
+def _chain(verts, nverts):
+    """(starts, ends, valid) [B, V - 1] of padded open chains."""
+    idx = torch.arange(verts.shape[1] - 1, device=verts.device)[None, :]
+    return verts[:, :-1], verts[:, 1:], idx < nverts[:, None] - 1
+
+
 def _crossing_parity(px, py, b0, b1, bm):
     """[B, M] bool: an odd number of ring edges crosses the ray to +x from
     each point (px, py) [B, M]."""
@@ -127,9 +137,14 @@ def _edge_tests(a0, a1, am, b0, b1, bm):
 
 
 def _exact_block(vr, nr, vs, ns, predicate):
-    a0, a1, am = _ring(vr, nr)
+    a0, a1, am = (_chain if predicate == "linestring" else _ring)(vr, nr)
     b0, b1, bm = _ring(vs, ns)
     meet, proper = _edge_tests(a0, a1, am, b0, b1, bm)
+    if predicate == "linestring":
+        hx, hy = vr[:, :1, 0], vr[:, :1, 1]
+        head_in = (_crossing_parity(hx, hy, b0, b1, bm)
+                   | _on_boundary(hx, hy, b0, b1, bm))[:, 0]
+        return meet | head_in
     if predicate == "within":
         px, py = vr[..., 0], vr[..., 1]
         inside = (_crossing_parity(px, py, b0, b1, bm)

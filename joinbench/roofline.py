@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["HBM_BYTES_PER_S", "b1_bytes", "b4_bytes", "share_pct"]
+__all__ = ["HBM_BYTES_PER_S", "b1_bytes", "b4_bytes", "c_bytes", "share_pct"]
 
 #: published HBM3 bandwidth of one H100 SXM (NVIDIA's data sheet), at the
 #: card's full power limit of 700 W
@@ -48,6 +48,16 @@ def b4_bytes(n_rows: int, r_objects, s_objects, r_lens: dict,
     both sides."""
     return (_lists(r_lens["A"], r_objects) + _lists(s_lens["A"], s_objects)
             + _rows(n_rows))
+
+
+def c_bytes(n_rows: int, r_objects, s_objects, r_lens: dict,
+            s_lens: dict) -> int:
+    """Bytes of APRIL-C's chain joins (``linestring``: B4 twice over the
+    frame, C x A(s) and C x F(s)): each named chain's unit-cell list
+    (``r_lens["C"]``) once, and the A and F lists of the S side once
+    each."""
+    return (_lists(r_lens["C"], r_objects) + _lists(s_lens["A"], s_objects)
+            + _lists(s_lens["F"], s_objects) + _rows(n_rows))
 
 
 def share_pct(nbytes: int, seconds: float) -> float:

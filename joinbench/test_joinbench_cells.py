@@ -1,39 +1,55 @@
-"""The yardstick on the CPU at small sizes: the frozen generator equals
+"""The yardstick on the CPU at small sizes: the frozen generators equal
 the port's, the plain reference equals the port's plain torch backends,
 the float32 control fails the comparison, and a run whose timed path is
-broken underneath comes out not correct."""
+broken underneath comes out not correct. Each configuration is cut to
+its ``cpu_test`` key; ``LINE`` is a configuration of open chains held
+here as a cell spec, with no file under ``configs/`` or ``traffic/``."""
 import numpy as np
 import pytest
 import torch
 
 from joinbench import control, datagen, harness, reference
 from repro_torch.core.rasterize import Extent
-from repro_torch.datagen.synthetic import PolygonDataset, make_dataset
+from repro_torch.datagen.synthetic import (PolygonDataset, make_dataset,
+                                           make_linestrings)
 from repro_torch.spatial import JoinPlan
 from repro_torch.spatial import fused
 from repro_torch.spatial import refine as RF
 
-#: each configuration cut to a CPU test's size: T1 300 x T2 500 and
-#: T2 500 x T10 40 over the two tiles, n_order 10 (the cells of 9 on one
-#: tile), the kernels' plain versions, slivers of each kind kept
-SMALL = {
-    "tiger-t1-t2": {"r_count": 300, "s_count": 500, "slivers": [
-        {"kind": "mirror", "from": "r", "into": "s", "count": 3,
-         "gap": 1e-12}]},
-    "tiger-t2-t10": {"r_count": 500, "s_count": 40, "slivers": [
-        {"kind": "enclose", "from": "r", "into": "s", "count": 3,
-         "gap": 1e-12},
-        {"kind": "mirror", "from": "r", "into": "s", "count": 3,
-         "gap": 1e-12}]},
-}
+#: the CPU test's backends and grid: n_order 10 over the two tiles (the
+#: cells of 9 on one tile), the kernels' plain versions
 CPU = {"n_order": 10, "filter_backend": "torch", "refine_backend": "torch"}
+#: T8 chains against T2 water, fused with APRIL: the linestring join
+#: (APRIL-C, B4 twice, the refine's line core) as a spec of ``run_cell``
+LINE = {
+    "name": "t8xt2-small", "config": "t8-t2-small", "traffic": "linestring",
+    "chips": 1,
+    "config_data": {
+        "name": "t8-t2-small", "r_count": 24000, "s_count": 24000,
+        "tiles": 2,
+        "layers": {"r": {"dataset": "T8", "kind": "line", "data_seed": 3,
+                         "avg_vertices": 20, "step": 0.004},
+                   "s": {"dataset": "T2", "data_seed": 1}},
+        "slivers": [{"kind": "graze", "from": "s", "into": "r",
+                     "count": 24, "gap": 1e-12}],
+        "n_order": 13, "extent": [0.0, 0.0, 2.0], "filter": "april",
+        "pipeline_mode": "fused", "mbr_backend": "numpy",
+        "build_backend": "torch", "filter_backend": "cuda",
+        "refine_backend": "cuda",
+        "cpu_test": {"r_count": 400, "s_count": 500, "slivers": [
+            {"kind": "graze", "from": "s", "into": "r", "count": 3,
+             "gap": 1e-12}]}},
+    "traffic_data": {"name": "linestring", "predicate": "linestring"},
+}
 CELLS = [w["name"] for w in harness.load_benchmark()["workloads"]]
+#: the cells and the line configuration, by name
+SPECS = {**{c: harness.cell(c) for c in CELLS}, LINE["name"]: LINE}
 SEED = 2**31 + 12345
 
 
 def _small(cell):
-    spec = harness.cell(cell)
-    return {**spec["config_data"], **SMALL[spec["config"]], **CPU}
+    conf = SPECS[cell]["config_data"]
+    return {**conf, **conf["cpu_test"], **CPU}
 
 
 @pytest.mark.parametrize("name,seed,count", [("T1", 0, 300), ("T2", 1, 500),
@@ -43,6 +59,33 @@ def test_frozen_generator_equals_the_ports(name, seed, count):
     d = make_dataset(name, seed=seed, count=count)
     assert np.array_equal(verts, d.verts)
     assert np.array_equal(nverts, d.nverts)
+
+
+@pytest.mark.parametrize("seed,count,vertices,step", [
+    (3, 400, 20, 0.004), (SEED, 60, 5, 0.01)])
+def test_frozen_chain_generator_equals_the_ports(seed, count, vertices,
+                                                 step):
+    verts, nverts = datagen.make_chains("T8", seed, count, vertices, step)
+    d = make_linestrings("T8", seed=seed, count=count,
+                         avg_vertices=vertices, step=step)
+    assert np.array_equal(verts, d.verts)
+    assert np.array_equal(nverts, d.nverts)
+
+
+def test_chain_layer_tiles_the_ports_chains():
+    """Tile t of a line layer is the port's chains at the data seed plus
+    ``TILE_SEED_STEP * t``, shifted by t along x."""
+    spec = LINE["config_data"]["layers"]["r"]
+    verts, nverts = datagen._tiled(spec, 200, 2)
+    for t in range(2):
+        d = make_linestrings("T8", seed=3 + datagen.TILE_SEED_STEP * t,
+                             count=100)
+        v, n = verts[100 * t:100 * (t + 1)], nverts[100 * t:100 * (t + 1)]
+        assert np.array_equal(n, d.nverts)
+        V = d.verts.shape[1]
+        valid = np.arange(V)[None, :] < n[:, None]
+        assert np.array_equal(v[:, :V][valid], d.verts[valid] + [t, 0.0])
+        assert not v[:, :V][~valid].any() and not v[:, V:].any()
 
 
 def test_seed_permutes_the_same_rings():
@@ -57,17 +100,18 @@ def test_seed_permutes_the_same_rings():
     assert np.array_equal(again["s"][0], b["s"][0])
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", list(SPECS))
 @pytest.mark.parametrize("mode", ["fused", "staged"])
 @pytest.mark.parametrize("g", [0, 1])
 def test_reference_equals_the_port(cell, mode, g):
     """On the configuration's rings (geometry 0) and on others (1)."""
     conf = control.geometry(_small(cell), g)
-    pred = harness.cell(cell)["traffic_data"]["predicate"]
+    pred = SPECS[cell]["traffic_data"]["predicate"]
     L = datagen.layers(conf, 7)
     R, S = PolygonDataset("R", *L["r"]), PolygonDataset("S", *L["s"])
     plan = JoinPlan(R, S, filter="april", n_order=conf["n_order"],
                     extent=Extent(*conf["extent"]), device="cpu",
+                    r_kind=conf["layers"]["r"].get("kind", "polygon"),
                     pipeline_mode=mode,
                     build_opts={"build_backend": "torch"}).build()
     got, stats = plan.execute(pred)
@@ -110,17 +154,53 @@ def test_reference_on_touching_and_nested_rings():
     assert sorted(f32[:, 0].tolist()) == [0, 1, 2, 3]
 
 
-@pytest.mark.parametrize("cell", CELLS)
+def test_reference_on_hand_made_chains():
+    """Chains against one square: one crossing it, one touching it at an
+    endpoint, one wholly inside, one 1e-9 apart."""
+    sq = np.array([[[0.2, 0.2], [0.4, 0.2], [0.4, 0.4], [0.2, 0.4]]])
+    chains = np.array([
+        [[0.1, 0.3], [0.3, 0.3], [0.5, 0.3]],          # crosses
+        [[0.5, 0.5], [0.45, 0.45], [0.4, 0.4]],        # ends on a corner
+        [[0.25, 0.25], [0.3, 0.35], [0.35, 0.25]],     # wholly inside
+        [[0.4 + 1e-9, 0.1], [0.4 + 1e-9, 0.3],         # 1e-9 right of it
+         [0.4 + 1e-9, 0.45]]])
+    nc = np.full(len(chains), 3)
+    got = reference.join(chains, nc, sq, np.array([4]), "linestring")
+    assert sorted(got[:, 0].tolist()) == [0, 1, 2]
+    f32 = reference.join(chains, nc, sq, np.array([4]), "linestring",
+                         dtype=torch.float32)
+    assert sorted(f32[:, 0].tolist()) == [0, 1, 2, 3]
+
+
+def test_graze_slivers_read_apart_in_float64_and_touching_in_float32():
+    """Each graze chain meets no ring of its source layer in float64 and
+    touches one in float32."""
+    layer = datagen._tiled({"dataset": "T2", "data_seed": 1}, 500, 2)
+    vc, nc = datagen.slivers(layer, "graze", 5, 1e-12, [1, 0],
+                             (0.0, 0.0, 2.0, 1.0))
+    assert (nc == 3).all()
+    f64, f32 = (reference.pair_keys(reference.join(
+        vc, nc, *layer[:2], "linestring", dtype=dt), len(layer[1]))
+        for dt in (torch.float64, torch.float32))
+    extra = np.setdiff1d(f32, f64)
+    assert np.array_equal(np.unique(extra // len(layer[1])), np.arange(5))
+    assert len(np.setdiff1d(f64, f32)) == 0
+
+
+@pytest.mark.parametrize("cell", list(SPECS))
 @pytest.mark.parametrize("ctl", list(control.CONTROLS))
 def test_float32_control_fails_the_comparison(cell, ctl):
     """Each control (the reference in float32, throughout or in the exact
     test alone, in the program's place) reads the slivers of the
     predicate's kind as mismatches, above the limit 0."""
     conf = _small(cell)
-    got = control.reading(cell, SEED, device="cpu", config_overrides=conf)
-    pred = harness.cell(cell)["traffic_data"]["predicate"]
-    kind = "enclose" if pred == "within" else "mirror"
-    slivers = sum(s["count"] for s in conf["slivers"] if s["kind"] == kind)
+    got = control.reading(SPECS[cell], SEED, device="cpu",
+                          config_overrides=conf)
+    pred = SPECS[cell]["traffic_data"]["predicate"]
+    # selection is intersects with the query rings as S
+    pred = {"selection": "intersects"}.get(pred, pred)
+    slivers = sum(s["count"] for s in conf["slivers"]
+                  if datagen.SLIVER_PREDICATE[s["kind"]] == pred)
     assert got[ctl] >= slivers > harness.LIMITS["mismatched_pairs"]
 
 
@@ -132,6 +212,27 @@ def test_sound_run_is_correct():
     assert list(out)[-1] == "checks"
     assert out["checks"]["mismatched_pairs"] == {"value": 0, "limit": 0}
     assert set(out["metrics"]) == {"join_s", "setup_s"}
+
+
+def test_sound_line_run_is_correct():
+    """The line configuration, given as a spec, runs correct."""
+    out = harness.run_cell(LINE, SEED, 0.2, False, device="cpu",
+                           config_overrides=_small(LINE["name"]))
+    assert out["correct"] and out["failed"] == 0 and out["attempted"] >= 1
+    assert out["checks"]["mismatched_pairs"] == {"value": 0, "limit": 0}
+    assert set(out["metrics"]) == {"join_s", "setup_s"}
+
+
+def test_line_store_lengths():
+    """A line plan's stores give the chains' C lists and the rings' A and
+    F lists."""
+    conf = _small(LINE["name"])
+    plan = harness._plan(conf, datagen.layers(conf, 5), torch.device("cpu"))
+    plan.build()
+    r, s = (harness._lens(a.store) for a in (plan.approx_r, plan.approx_s))
+    assert set(r) == {"C"} and set(s) == {"A", "F"}
+    assert len(r["C"]) == conf["r_count"] + 3 and r["C"].min() >= 1
+    assert len(s["A"]) == conf["s_count"]
 
 
 def _pass_through(cs, R, S, dev, predicate, kernel):
@@ -156,7 +257,7 @@ def _altered(*args, _core=RF.fused_refine_lanes, **kwargs):
     return res, unc
 
 
-@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("cell", list(SPECS))
 @pytest.mark.parametrize("module,attr,fault", [
     (fused, "refine_lanes", _pass_through),
     (fused, "device_frame", _half_frame),
@@ -165,7 +266,7 @@ def _altered(*args, _core=RF.fused_refine_lanes, **kwargs):
 def test_broken_timed_path_is_not_correct(monkeypatch, cell, module, attr,
                                           fault):
     monkeypatch.setattr(module, attr, fault)
-    out = harness.run_cell(cell, SEED, 0.2, False, device="cpu",
+    out = harness.run_cell(SPECS[cell], SEED, 0.2, False, device="cpu",
                            config_overrides=_small(cell))
     assert not out["correct"]
     assert out["failed"] == out["attempted"]

@@ -25,6 +25,14 @@ def test_b4_bytes_hand_counted():
     assert got == 131
 
 
+def test_c_bytes_hand_counted():
+    # chains 0 and 2 name C lists of 3 and 6 intervals; S object 1: A 7,
+    # F 2 -> 18 x 8 + 3 x 17
+    got = roofline.c_bytes(3, np.array([0, 2]), np.array([1]),
+                           {"C": np.array([3, 1, 6])}, S_LENS)
+    assert got == 195
+
+
 def test_share_pct():
     assert roofline.share_pct(3.35e9, 0.01) == pytest.approx(10.0)
 
